@@ -1,0 +1,120 @@
+// Shared pieces of the naf_tpu_torch kernels: tile geometry, chunk loads,
+// the block-wide scan, and the launch macro.
+//
+// Every kernel here works on 64 KiB tiles, one thread block per tile and
+// 128 contiguous bytes per thread.  A thread keeps its 128 bytes in 32
+// registers, so a kernel that walks them several times reads device memory
+// once.  Carries across threads go through block_exclusive_scan; carries
+// across tiles are scanned between launches over [tiles]-sized arrays.
+//
+// Built with NAF_CPU_EMU defined, the same sources compile as plain C++
+// against tests/cuda_emu/cuda_emu.h, which runs each block's threads as host
+// threads; the CPU tests use that build to check the kernels' logic.
+#pragma once
+
+#include <cstdint>
+
+#ifdef NAF_CPU_EMU
+#include "cuda_emu.h"
+#define NAF_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  naf_emu::launch(kernel, grid, block, __VA_ARGS__)
+#define NAF_EXTERN_SHARED(type, name) type* name = reinterpret_cast<type*>(naf_emu::dyn_smem)
+#else
+#include <cuda_runtime.h>
+#define NAF_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(__VA_ARGS__)
+#define NAF_EXTERN_SHARED(type, name) extern __shared__ __align__(16) type name[]
+#endif
+
+namespace naf {
+
+constexpr int TILE = 65536;                 // bytes per block (the TPU kernels' _TILE)
+constexpr int THREADS = 512;                // threads per block
+constexpr int PER_THREAD = TILE / THREADS;  // 128 bytes per thread
+constexpr int WORDS = PER_THREAD / 4;       // held as 32 u32 registers
+
+// class-table bits (ops/tables.py:device_tables builds the table)
+constexpr uint32_t CLS_UNEX_SEQ = 1;    // UNEXPECTED_BY_TYPE[seq_type]
+constexpr uint32_t CLS_UNEX_TEXT = 2;   // IS_UNEXPECTED_TEXT (id bytes)
+constexpr uint32_t CLS_UNEX_COM = 4;    // IS_UNEXPECTED_COMMENT
+constexpr uint32_t CLS_EOL = 8;         // IS_EOL
+
+__device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[WORDS], int k) {
+  return (w[k >> 2] >> ((k & 3) * 8)) & 0xFFu;
+}
+
+// Byte j of x[0:n], or `pad` at and past n.
+__device__ __forceinline__ uint32_t byte_or(const uint8_t* x, long long n, long long j,
+                                            uint32_t pad) {
+  return (j >= 0 && j < n) ? x[j] : pad;
+}
+
+// The 128 bytes x[start:start+128] into w; bytes at and past n read as pad.
+__device__ __forceinline__ void load_chunk(const uint8_t* x, long long n, long long start,
+                                           uint32_t (&w)[WORDS], uint32_t pad) {
+  const uint8_t* p = x + start;
+  if (start + PER_THREAD <= n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      uint4 v = q[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v |= byte_or(x, n, start + 4 * i + k, pad) << (8 * k);
+      w[i] = v;
+    }
+  }
+}
+
+// Store the 128 bytes of w to out[start:start+128], keeping only bytes below n.
+__device__ __forceinline__ void store_chunk(uint8_t* out, long long n, long long start,
+                                            const uint32_t (&w)[WORDS]) {
+  uint8_t* p = out + start;
+  if (start + PER_THREAD <= n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      uint4 v;
+      v.x = w[4 * i];
+      v.y = w[4 * i + 1];
+      v.z = w[4 * i + 2];
+      v.w = w[4 * i + 3];
+      q[i] = v;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k)
+      if (start + k < n) p[k] = static_cast<uint8_t>(byte_of(w, k));
+  }
+}
+
+// Exclusive scan of one value per thread in thread order; `op(earlier,
+// later)` must be associative with `identity` as its unit.  `buf` is a
+// THREADS-sized shared array; every thread of the block must call this.
+// Returns the exclusive prefix and writes the block total to *total.
+template <typename T, typename Op>
+__device__ __forceinline__ T block_exclusive_scan(T v, T identity, T* buf, Op op, T* total) {
+  const int tid = threadIdx.x;
+  buf[tid] = v;
+  __syncthreads();
+  for (int off = 1; off < THREADS; off <<= 1) {
+    T other = tid >= off ? buf[tid - off] : identity;
+    __syncthreads();
+    if (tid >= off) buf[tid] = op(other, buf[tid]);
+    __syncthreads();
+  }
+  T excl = tid > 0 ? buf[tid - 1] : identity;
+  *total = buf[THREADS - 1];
+  __syncthreads();
+  return excl;
+}
+
+}  // namespace naf

@@ -1,0 +1,56 @@
+"""Device selection and the run counters of the port.
+
+Takes the place of ``naf_tpu/parallel/mesh.py`` for one device: the port
+runs on the one device a caller names.  There is no automatic choice: the
+CPU is used only when asked for, and asking for CUDA without a card raises.
+
+``LAUNCHES`` counts kernel launches, one entry per hand kernel; a wrapper
+adds one where it launches its kernel and nowhere else.  ``ROUTES`` counts
+which way the encode and decode entry points went: the device path, or a
+named host route for inputs the port does not run on the device yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {
+    "emit_fasta": 0,
+    "classify_fasta": 0,
+    "pack_4bit": 0,
+    "unpack_4bit": 0,
+    "apply_mask_parity": 0,
+}
+
+ROUTES: dict[str, int] = {}
+
+
+def resolve(device) -> torch.device:
+    """The torch device a caller named; raises if it is CUDA and no card
+    is present, or if it is neither CUDA nor the CPU."""
+    if device is None:
+        raise ValueError("naf_tpu_torch needs an explicit device ('cuda' or 'cpu')")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+        return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def cuda_device() -> torch.device:
+    """The current CUDA device; raises when there is none."""
+    return resolve("cuda")
+
+
+def count_route(name: str) -> None:
+    ROUTES[name] = ROUTES.get(name, 0) + 1
+
+
+def reset_counts() -> None:
+    """Zero every launch and route count."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    ROUTES.clear()

@@ -1,0 +1,23 @@
+"""Argument checks shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+#: bytes per tile of every tiled kernel (csrc/common.cuh TILE; the TPU
+#: kernels' _TILE, so per-tile caps mean the same on both)
+TILE = 1 << 16
+
+
+def check_1d(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                         f"got {t.dtype} of shape {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} lies on unsupported device {t.device}")
+
+
+def n_tiles(n: int) -> int:
+    return max(1, -(-n // TILE))

@@ -1,0 +1,220 @@
+"""Block splitting, the one-device fused block, and the host stitch helpers.
+
+The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
+(``make_blocks``, ``stitch_packed``, ``stitch_lengths``, ``stitch_runs``,
+``blob_from_lens``), whose module imports jax at load time; the tests hold
+each copy against its original.  ``fused_block`` is the one-device
+counterpart of ``fused_blocks_sharded`` with ``_pack_block``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from naf_tpu.format import constants as C
+
+from ..ops.emit_fused import emit_fasta_fused
+from ..ops.pack import pack_4bit
+
+_GT = ord(">")
+_LF = ord("\n")
+
+
+def fused_block(block, prev: int, sis: bool, parity_base: int, *, seq_type: int,
+                device) -> tuple:
+    """Fused FASTA emit + nibble pack of one block (nucleotide, plain
+    format) on ``device``.
+
+    ``block`` is u8[B] (numpy, or a tensor already on the device), ``prev``
+    the byte before it and ``sis`` whether it starts inside a record.
+    ``parity_base`` is the global char count before this block.  The pack
+    does the reference's roll by one byte on odd parity and its ``_fit`` to
+    B'//2+1 bytes, so no per-byte torch op runs between the kernels.
+    Returns (packed u8[1, B'//2+1], scal i32[1, 10], sp_tv i32[1, S],
+    sp_a i32[1, S]); scal holds [cnt, cnt_seq, n_sp, sp_ok, unex_id,
+    unex_com, unex_seq, longest, first_lower, first_sval].
+    """
+    x = torch.as_tensor(block).to(device)
+    r = emit_fasta_fused(x, int(prev), bool(sis), seq_type=seq_type)
+    sv = r["sv"]
+    packed = pack_4bit(sv, shift=int(parity_base) % 2, out_len=sv.numel() // 2 + 1)
+    scal = torch.stack([
+        r["cnt"], r["cnt_seq"], r["n_sp"], r["sp_ok"].to(torch.int32),
+        r["unex_id"], r["unex_com"], r["unex_seq"], r["longest"],
+        r["first_lower"], r["first_sval"]]).to(torch.int32)
+    return packed[None], scal[None], r["sp_tv"][None], r["sp_a"][None]
+
+
+# ---------------------------------------------------------------------------
+# host-side block splitting (copy of naf_tpu.parallel.block)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Blocks:
+    data: np.ndarray          # u8[D, B] '\n'-padded
+    prev: np.ndarray          # u8[D] byte before each block
+    starts_in_seq: np.ndarray  # bool[D] block cut mid-record (FASTA SP)
+
+
+def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
+                prev0: int | None = None, sis0: bool = False) -> Blocks:
+    """Split bytes (already past the first marker) into line-aligned blocks.
+
+    Cut candidates are line starts (byte after any EOL), so headers and
+    lines never straddle blocks; a block whose first byte is not a record
+    marker starts mid-record (sequence-parallel continuation).
+
+    ``prev0``/``sis0`` carry chunk state for a streaming encoder: the byte
+    before this chunk and whether the chunk resumes mid-record.  Default =
+    chunk 0 right after the global marker.
+    """
+    n = data.size
+    if n == 0:
+        blocks = np.full((n_blocks, 2), _LF, dtype=np.uint8)
+        prev = np.full(n_blocks, _LF, dtype=np.uint8)
+        prev[0] = marker if prev0 is None else prev0
+        sis = np.zeros(n_blocks, bool)
+        sis[0] = bool(sis0)
+        return Blocks(blocks, prev, sis)
+
+    if n_blocks == 1:
+        # the whole input is the one block: the line-start search below
+        # would cost more than the rest of a device encode
+        cuts = [0, n]
+    else:
+        is_eol = C.IS_EOL[:256][data]
+        line_starts = np.flatnonzero(is_eol[:-1]) + 1     # n excluded
+
+        targets = (np.arange(1, n_blocks) * n) // n_blocks
+        idx = np.searchsorted(line_starts, targets)
+        cuts = [0]
+        for i in idx:
+            cut = int(line_starts[i]) if i < line_starts.size else n
+            if cut > cuts[-1]:
+                cuts.append(cut)
+        while len(cuts) < n_blocks + 1:
+            cuts.append(n)
+        cuts = cuts[: n_blocks + 1]
+        cuts[-1] = n
+
+    B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
+    B += B % 2
+    blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
+    prev = np.full(n_blocks, _LF, dtype=np.uint8)
+    prev[0] = marker if prev0 is None else prev0
+    sis = np.zeros(n_blocks, bool)
+    sis[0] = bool(sis0) and data[0] != marker
+    for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+        blocks[k, : e - s] = data[s:e]
+        if k > 0:
+            if s > 0:
+                prev[k] = data[s - 1]
+            else:
+                prev[k] = prev[0]
+            sis[k] = ((e > s) and data[s] != marker
+                      and (s > 0 or sis[0]))
+    return Blocks(blocks, prev, sis)
+
+
+# ---------------------------------------------------------------------------
+# host-side stitching (copies of naf_tpu.parallel.block)
+# ---------------------------------------------------------------------------
+
+def stitch_packed(packed: np.ndarray, counts: np.ndarray,
+                  first_codes: np.ndarray) -> np.ndarray:
+    """Merge per-block even-aligned payloads into one nibble stream.
+
+    For a block whose prefix parity is odd, its first char's code was left
+    out of its packed payload; it belongs in the high nibble of the previous
+    byte of the stream.  One OR per block edge.
+    """
+    pieces: list[np.ndarray] = []
+    total = 0
+    pending_low: int | None = None
+    for d in range(counts.shape[0]):
+        cnt = int(counts[d])
+        if cnt == 0:
+            continue
+        odd = (total % 2) == 1
+        if odd:
+            assert pending_low is not None
+            pieces.append(np.asarray(
+                [pending_low | (int(first_codes[d]) << 4)], dtype=np.uint8))
+            pending_low = None
+            packed_chars = cnt - 1
+        else:
+            packed_chars = cnt
+        nbytes = packed_chars // 2
+        body = packed[d, :nbytes]
+        pieces.append(np.ascontiguousarray(body))
+        if packed_chars % 2:
+            pending_low = int(packed[d, nbytes]) & 0x0F
+        total += cnt
+    if pending_low is not None:
+        pieces.append(np.asarray([pending_low], dtype=np.uint8))
+    if not pieces:
+        return np.zeros(0, dtype=np.uint8)
+    return np.concatenate(pieces)
+
+
+def stitch_lengths(per_block: list[np.ndarray]) -> np.ndarray:
+    """Per-block segment counts -> global per-record values.
+
+    Segment 0 of every block after the first continues the previous open
+    record (0 when the block starts at a marker); block 0's segment 0 is
+    record 0 itself (its marker was stripped by the reader).
+    """
+    out: list[np.ndarray] = []
+    for k, lens in enumerate(per_block):
+        lens = np.asarray(lens, dtype=np.int64)
+        if k == 0:
+            seg = lens
+        else:
+            if out and lens.size:
+                out[-1][-1] += int(lens[0])
+            seg = lens[1:]
+        if seg.size:
+            out.append(seg.copy())
+    if not out:
+        return np.zeros(0, np.int64)
+    return np.concatenate(out)
+
+
+def stitch_runs(per_block_runs: list[np.ndarray],
+                per_block_first: list[bool]) -> tuple[np.ndarray, bool]:
+    """Per-block mask runs -> (global run lengths, first char is lower)."""
+    runs: list[np.ndarray] = []
+    state_first = False
+    state_last = None          # case of the last run appended
+    for lens, first in zip(per_block_runs, per_block_first):
+        lens = np.asarray(lens, dtype=np.int64)
+        if lens.size == 0:
+            continue
+        if state_last is None:
+            runs.append(lens.copy())
+            state_first = bool(first)
+        elif bool(first) == state_last:
+            runs[-1][-1] += int(lens[0])
+            if lens.size > 1:
+                runs.append(lens[1:].copy())
+        else:
+            runs.append(lens.copy())
+        state_last = bool(first) ^ ((lens.size - 1) % 2 == 1)
+    if not runs:
+        return np.zeros(0, np.int64), False
+    return np.concatenate(runs), state_first
+
+
+def blob_from_lens(vals: np.ndarray, lens: np.ndarray) -> bytes:
+    """Concatenated per-record values + lens -> '\\0'-terminated blob."""
+    n_rec = lens.size
+    total = int(vals.size) + n_rec
+    out = np.zeros(total, dtype=np.uint8)
+    ends = np.cumsum(lens + 1) - 1
+    fill = np.ones(total, dtype=bool)
+    fill[ends] = False
+    out[fill] = vals
+    return out.tobytes()

@@ -1,0 +1,286 @@
+"""Device FASTA encode on one device: bytes -> fused block -> NAF archive.
+
+``encode_device`` is the one-device counterpart of
+``naf_tpu/parallel/pipeline.py:encode_sharded`` on its fused FASTA path:
+the kernels classify, compact and pack the input, and the host stitches
+the sparse tables and writes the container through ``naf_tpu``'s shared
+``build_archive``, so the archive is byte-identical to host ``encode()``.
+
+Inputs the port does not run on the device yet go to host ``encode()``
+with the same bytes, each by a named route counted in ``device.ROUTES``:
+not FASTA, FASTQ, protein or text, an unsafe ``--well-formed`` input, a
+tile past the sparse cap, or unexpected characters (whose histograms the
+reference takes from its two-pass protocol, not ported yet).
+
+The host helpers below are jax-free copies of the reference's
+(``_wf_device_safe``, ``_merge_hist``, ``_pad2d``, ``parse_fused_fasta``,
+``_stitch_and_build``); the tests hold each against its original.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from naf_tpu.format import constants as C
+from naf_tpu.pipeline import parser as P
+from naf_tpu.pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
+
+from ..device import count_route, resolve
+from .block import (blob_from_lens, fused_block, make_blocks, stitch_lengths, stitch_packed,
+                    stitch_runs)
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (any device) or array as a host numpy array."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _host_route(reason: str, data: bytes, opts: EncodeOptions):
+    count_route(f"encode_host:{reason}")
+    return encode(data, opts)
+
+
+def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
+                  ) -> tuple[bytes, EncodeStats]:
+    """FASTA encode with the kernels on ``device`` ('cuda' or, asked for
+    explicitly, 'cpu' for the plain versions); archive bytes equal host
+    ``encode(data, opts)``."""
+    dev = resolve(device)
+    opts = opts or EncodeOptions()
+    fmt, marker = P.detect_format(data)
+    if (opts.in_format != C.IN_FORMAT_UNKNOWN and fmt != C.IN_FORMAT_UNKNOWN
+            and opts.in_format != fmt):
+        raise P.InputError(
+            "input format is different from format specified in the command line")
+    if fmt == C.IN_FORMAT_FASTQ:
+        return _host_route("fastq", data, opts)
+    if fmt != C.IN_FORMAT_FASTA:
+        return _host_route("not_fasta", data, opts)
+    if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
+        return _host_route("text_like", data, opts)
+    body = np.frombuffer(data, np.uint8)[marker + 1:]
+    if opts.well_formed and not _wf_device_safe(body, False):
+        return _host_route("well_formed_unsafe", data, opts)
+
+    blocks = make_blocks(body, 1)
+    packed_d, scal_d, tv_d, a_d = fused_block(
+        blocks.data[0], int(blocks.prev[0]), bool(blocks.starts_in_seq[0]), 0,
+        seq_type=opts.seq_type, device=dev)
+    scal = _host(scal_d)
+    if not scal[:, 3].all():
+        return _host_route("sparse_overflow", data, opts)
+    if scal[:, 4:7].any():
+        return _host_route("unexpected_chars", data, opts)
+    parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
+    count_route("encode_device")
+    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    # no fallback: _stitch_and_build calls it only on a FASTQ length mismatch
+    return _stitch_and_build(
+        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
+        np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
+        parsed["longest"], zero_hists, parsed["em_np"], fallback=None)
+
+
+# ---------------------------------------------------------------------------
+# host helpers (copies of naf_tpu.parallel.pipeline)
+# ---------------------------------------------------------------------------
+
+def _wf_device_safe(body: np.ndarray, fastq: bool) -> bool:
+    """True when --well-formed parsing provably equals robust parsing.
+
+    The wf fast path (ennaf/src/process.c:314-355, tables.c:46-69) treats
+    only LF and ' ' as whitespace and skips char validation.  Robust
+    classification produces identical bytes iff the input contains no
+    TAB/VT/FF/CR and no ' ' outside header lines (spaces ON header lines
+    behave identically: the first ends the id, the rest are comment bytes
+    under both tables).  Char validation differences surface as nonzero
+    unexpected-char counts and route the input to the host.
+    """
+    if body.size == 0:
+        return True
+    if np.any((body == 9) | (body == 11) | (body == 12) | (body == 13)):
+        return False
+    sp = np.flatnonzero(body == 32)
+    if sp.size == 0:
+        return True
+    eol = np.flatnonzero(body == 10)
+    line_id = np.searchsorted(eol, sp)        # line index of each space
+    if fastq:
+        return bool(np.all(line_id % 4 == 0))
+    starts = np.concatenate([[0], eol + 1])   # start byte of each line
+    first = body[np.minimum(starts[line_id], body.size - 1)]
+    # line 0 is record 0's header (its '>' was stripped by the caller)
+    return bool(np.all((line_id == 0) | (first == ord(">"))))
+
+
+def _merge_hist(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """u32 (lo16, hi16) halves -> u64[257] histogram."""
+    h = np.zeros(257, np.uint64)
+    h[:256] = (hi.astype(np.uint64) << 16) + lo.astype(np.uint64)
+    return h
+
+
+def _pad2d(D, rows, dtype=np.int32):
+    w = max(max((r.size for r in rows), default=0), 1)
+    out = np.zeros((D, w), dtype)
+    for k, r in enumerate(rows):
+        out[k, :r.size] = r
+    return out
+
+
+def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
+    """Host parse of the fused FASTA outputs -> the em_np layout of the
+    two-pass protocol.  The device arrays may be tensors on any device or
+    numpy arrays; only their used prefixes are fetched.  Returns None when
+    a tile overflowed the sparse cap or unexpected characters exist."""
+    if not scal[:, 3].all() or scal[:, 4:7].any():
+        return None
+
+    counts = scal[:, 0].astype(np.int64)
+    cnt_seq = scal[:, 1].astype(np.int64)
+    n_sp = scal[:, 2].astype(np.int64)
+    longest = np.full(D, int(scal[:, 7].max()))
+    first_lower = scal[:, 8] == 2
+    from naf_tpu.ops import tables as T
+
+    first_codes = np.asarray(T.NUC_CODE)[scal[:, 9]]
+
+    # sliced fetches: only used prefixes cross the host<->device link
+    p_used = max(int((counts.max(initial=1) + 1) // 2) + 1, 1)
+    packed = _host(packed_d[:, :p_used])
+    m_sp = max(int(n_sp.max(initial=1)), 1)
+    tv = _host(tv_d[:, :m_sp])
+    av = _host(a_d[:, :m_sp])
+
+    # host-side sparse parse: O(records + runs + header bytes)
+    id_vals_l, com_vals_l = [], []
+    seq_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], []
+    n_rec = np.zeros(D, np.int64)
+    n_runs = np.zeros(D, np.int64)
+    for k in range(D):
+        t = tv[k, :n_sp[k]] >> 8
+        v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
+        a = av[k, :n_sp[k]].astype(np.int64)
+        id_vals_l.append(v[t == 0])
+        com_vals_l.append(v[t == 1])
+        rec = t == 2
+        n_rec[k] = int(rec.sum())
+        bounds = np.concatenate([[0], a[rec], [cnt_seq[k]]])
+        seq_lens_l.append(np.diff(bounds))
+        at = np.flatnonzero(rec)
+        for tag, sink in ((0, id_lens_l), (1, com_lens_l)):
+            c = np.cumsum(t == tag)
+            mid = c[at] if at.size else np.zeros(0, np.int64)
+            sink.append(np.diff(np.concatenate(
+                [[0], mid, [int((t == tag).sum())]])))
+        j = a[t == 3]
+        run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
+                          if counts[k] > 0 else np.zeros(0, np.int64))
+        n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
+
+    em_np = [packed, first_codes, counts,
+             _pad2d(D, id_vals_l, np.uint8), _pad2d(D, com_vals_l, np.uint8),
+             np.zeros((D, 1), np.uint8),
+             _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
+             _pad2d(D, com_lens_l),
+             np.zeros((D, int(n_rec.max()) + 1), np.int64),
+             _pad2d(D, run_lens_l, np.int64)]
+    return dict(
+        counts=counts,
+        id_bytes=np.array([r.size for r in id_vals_l], np.int64),
+        com_bytes=np.array([r.size for r in com_vals_l], np.int64),
+        n_rec=n_rec, n_runs=n_runs, first_lower=first_lower,
+        longest=longest, em_np=em_np)
+
+
+def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
+                      n_rec, n_runs, first_lower, longest, hists, em_np,
+                      fallback, prebuilt=None):
+    """Host carry stitching (O(blocks + records + runs)) + container.
+
+    ``prebuilt`` injects ready SEQ/QUAL sections (em_np then carries
+    zero-width packed/qual arrays).
+    """
+    fastq = fmt == C.IN_FORMAT_FASTQ
+    (packed, first_codes, cnt2, id_vals, com_vals, qual_vals,
+     seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
+
+    def trim(arr2d):
+        return [arr2d[k, : int(n_rec[k]) + 1] for k in range(D)]
+
+    g_seq_lens = stitch_lengths(trim(seq_lens))
+    g_id_lens = stitch_lengths(trim(id_lens))
+    g_com_lens = stitch_lengths(trim(com_lens))
+    n_records = int(n_rec.sum()) + 1
+    assert g_seq_lens.size == n_records
+
+    if fastq:
+        g_qual_lens = stitch_lengths(trim(qual_lens))
+        if not np.array_equal(g_qual_lens, g_seq_lens):
+            # exact error text (record index, counts) comes from the host
+            # parser, which scans sequentially like the reference
+            return fallback()
+
+    res = P.ParseResult()
+    res.n_sequences = n_records
+    res.ids_blob = blob_from_lens(
+        np.concatenate([id_vals[k, : int(id_bytes[k])] for k in range(D)]),
+        g_id_lens)
+    res.comments_blob = blob_from_lens(
+        np.concatenate([com_vals[k, : int(com_bytes[k])] for k in range(D)]),
+        g_com_lens)
+    res.lengths = g_seq_lens.astype(np.uint64)
+    res.longest_line = int(longest[0])
+
+    total_chars = int(counts.sum())
+    text_like = opts.seq_type >= C.SEQ_TYPE_PROTEIN
+    if text_like:
+        # protein/text archives store raw bytes: per-block compacted char
+        # streams concatenate directly (no nibble parity); build_archive
+        # upper-cases under --no-mask
+        res.seq = (np.concatenate(
+            [packed[k, : int(counts[k])] for k in range(D)])
+            if total_chars else np.zeros(0, np.uint8)).astype(np.uint8)
+        res.packed = None
+    else:
+        res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
+        if prebuilt is None:
+            res.packed = stitch_packed(packed, counts, first_codes)
+        else:
+            res.packed = np.zeros(0, np.uint8)   # payload arrives prebuilt
+
+    store_mask = not opts.no_mask and not text_like
+    if store_mask:
+        from naf_tpu.ops.mask import runs_to_units
+
+        runs, state_first = stitch_runs(
+            [run_lens[k, : int(n_runs[k])] for k in range(D)],
+            [bool(first_lower[k]) for k in range(D)])
+        if state_first and runs.size:
+            runs = np.concatenate([[0], runs])   # leading masked run
+        res.mask_units = runs_to_units(runs)
+
+    if fastq and prebuilt is None:
+        res.qual = np.concatenate(
+            [qual_vals[k, : int(qual_bytes[k])] for k in range(D)])
+    elif fastq:
+        res.qual = np.zeros(int(counts.sum()), np.uint8)   # size only
+
+    res.unexpected_id = _merge_hist(hists[0][0], hists[1][0])
+    res.unexpected_comment = _merge_hist(hists[2][0], hists[3][0])
+    res.unexpected_seq = _merge_hist(hists[4][0], hists[5][0])
+    res.unexpected_qual = _merge_hist(hists[6][0], hists[7][0])
+
+    stats = EncodeStats(
+        n_sequences=res.n_sequences, longest_line=res.longest_line,
+        seq_size_original=total_chars,
+        unexpected_id=res.unexpected_id,
+        unexpected_comment=res.unexpected_comment,
+        unexpected_seq=res.unexpected_seq,
+        unexpected_qual=res.unexpected_qual,
+        in_format=fmt,
+    )
+    return build_archive(res, opts, stats, prebuilt=prebuilt)

@@ -1,0 +1,180 @@
+"""naf_tpu_torch's CUDA kernels on the card against their plain PyTorch
+versions, and the encode/decode slice through them.
+
+Every test here needs a CUDA card; without one each skips.  On a machine
+with a card:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+The first test to run builds the kernels with nvcc (a few seconds).  The
+inputs are the seeded cases of torch_cases.py; everything is integer or
+bytes, so the tolerance is 0.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+import naf_tpu_torch  # noqa: F401  (first: stands in for a missing zstandard package)
+from naf_tpu.format import constants as C
+from naf_tpu.pipeline.decoder import DecodeOptions, Decoder
+from naf_tpu.pipeline.encoder import EncodeOptions, encode
+from naf_tpu_torch import device as D
+from naf_tpu_torch.ops import emit_fused as EF
+from naf_tpu_torch.ops import pack as PK
+from naf_tpu_torch.ops import scan_fused as SF
+from naf_tpu_torch.ops import unpack as UP
+from naf_tpu_torch.ops.common import TILE
+from naf_tpu_torch.parallel.pipeline import encode_device
+from naf_tpu_torch.pipeline.decoder import fasta_device
+from torch_cases import (CLASSIFY_CASES, EMIT_CASES, case_change_behind_tile_start,
+                         classify_case, emit_case)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return D.cuda_device()
+
+
+def _on(a, dev, k: int = 0) -> torch.Tensor:
+    """a's bytes on dev, at a data pointer k bytes past an aligned one."""
+    a = np.ascontiguousarray(a, np.uint8)
+    buf = torch.zeros(a.size + 16, dtype=torch.uint8, device=dev)
+    buf[k:k + a.size] = torch.from_numpy(a.copy()).to(dev)
+    return buf[k:k + a.size]
+
+
+def _assert_dicts_equal(got: dict, want: dict) -> None:
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("case", CLASSIFY_CASES)
+def test_classify_kernel_on_card(card, case, seq_type):
+    body, prev, sis = classify_case(case)
+    for n in (body.size, body.size - 77):
+        x = _on(body[:n], card)
+        flags, sval = SF.classify_fasta_kernel(x, prev, sis, seq_type=seq_type)
+        f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis, seq_type=seq_type)
+        assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+
+
+@pytest.mark.parametrize("name", EMIT_CASES)
+def test_emit_kernel_on_card(card, name):
+    body, prev, sis, seq_type = emit_case(name)
+    x = _on(body, card)
+    _assert_dicts_equal(EF.emit_fasta_kernel(x, prev, sis, seq_type=seq_type),
+                        EF.emit_fasta_plain(x, prev, sis, seq_type=seq_type))
+
+
+def test_emit_kernel_case_change_at_tile_first_kept_byte_on_card(card):
+    x = _on(case_change_behind_tile_start(), card)
+    _assert_dicts_equal(EF.emit_fasta_kernel(x, ord(">")), EF.emit_fasta_plain(x, ord(">")))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, TILE - 1, TILE + 1, 2 * TILE + 333,
+                               300 * TILE + 5])
+def test_emit_kernel_ragged_lengths_on_card(card, n):
+    rng = np.random.default_rng(60 + n)
+    pool = np.frombuffer(b">ACGTNacgtn \t\r\n" + b"xyz*\x01", np.uint8)
+    body = rng.choice(pool, size=n)
+    for k in (0, 3):
+        x = _on(body, card, k)
+        _assert_dicts_equal(EF.emit_fasta_kernel(x, ord(">")), EF.emit_fasta_plain(x, ord(">")))
+
+
+@pytest.mark.parametrize("n", [0, 2, 16, 30, 256, 1000, TILE + 18, 64 * TILE + 2])
+def test_pack_kernel_on_card(card, n):
+    rng = np.random.default_rng(61)
+    seq = rng.integers(0, 256, size=n, dtype=np.uint8)
+    seq[: min(n, 256)] = np.arange(min(n, 256))
+    for shift in (0, 1):
+        for out_len in (n // 2, n // 2 + 1, n // 2 + 13):
+            for k in (0, 5):
+                x = _on(seq, card, k)
+                got = PK.pack_4bit_kernel(x, shift=shift, out_len=out_len)
+                assert torch.equal(got, PK.pack_4bit_plain(x, shift=shift, out_len=out_len))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1000, 4096 + 3, 64 * TILE + 1])
+def test_unpack_kernel_on_card(card, n):
+    rng = np.random.default_rng(62)
+    packed = rng.integers(0, 256, size=n, dtype=np.uint8)
+    packed[: min(n, 256)] = np.arange(min(n, 256))
+    for rna in (False, True):
+        for k in (0, 1):
+            x = _on(packed, card, k)
+            assert torch.equal(UP.unpack_4bit_kernel(x, rna), UP.unpack_4bit_plain(x, rna))
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, TILE - 3, TILE + 5, 2 * TILE + 1, 100 * TILE + 9])
+def test_mask_parity_kernel_on_card(card, n):
+    rng = np.random.default_rng(63)
+    chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+    tog = (rng.random(n) < 0.01).astype(np.uint8)
+    tog[rng.integers(0, n, size=3)] += 2
+    if n > TILE:
+        tog[TILE - 1] = tog[TILE] = 1
+    for k in (0, 7):
+        c, t = _on(chars, card, k), _on(tog, card, k)
+        assert torch.equal(EF.apply_mask_parity_kernel(c, t), EF.apply_mask_parity_plain(c, t))
+
+
+def test_wrappers_launch_on_cuda_tensors(card):
+    """The public wrappers take the kernel, never the plain version, for a
+    CUDA tensor, and count each launch."""
+    body, prev, sis, seq_type = emit_case("structured")
+    x = _on(body, card)
+    D.reset_counts()
+    r = EF.emit_fasta_fused(x, prev, sis, seq_type=seq_type)
+    SF.classify_fasta(x, prev, sis, seq_type=seq_type)
+    packed = PK.pack_4bit(r["sv"])
+    chars = UP.unpack_4bit(packed)
+    EF.apply_mask_parity(chars, torch.zeros_like(chars))
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"emit_fasta": 1, "classify_fasta": 1, "pack_4bit": 1,
+                          "unpack_4bit": 1, "apply_mask_parity": 1}
+
+
+def _records(seed: int, n_rec: int, sl: int, L: int = 70) -> bytes:
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n_rec):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=sl)
+        for s in rng.integers(0, sl - 300, size=sl // 2000 + 1):
+            seq[s:s + 300] |= 32
+        rows.append(b">s%03d chr%d\n" % (i, i) + b"\n".join(
+            seq[j:j + L].tobytes() for j in range(0, sl, L)) + b"\n")
+    return b"".join(rows)
+
+
+@pytest.mark.parametrize("name,data,opts", [
+    ("records", lambda: _records(1, 20, 200_000), EncodeOptions()),
+    ("one_record", lambda: _records(2, 1, 3_000_000), EncodeOptions()),
+    ("rna_no_mask", lambda: _records(3, 8, 90_000).replace(b"T", b"U").replace(b"t", b"u"),
+     EncodeOptions(seq_type=C.SEQ_TYPE_RNA, no_mask=True)),
+])
+def test_round_trip_on_card(card, name, data, opts):
+    data = data()
+    D.reset_counts()
+    blob = encode_device(data, opts, device=card)[0]
+    assert blob == encode(data, opts)[0]
+    out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device=card)
+    assert D.ROUTES == {"encode_device": 1, "decode_device": 1}
+    if opts.no_mask:     # sequence lines come back in upper case
+        data = b"\n".join(r if r.startswith(b">") else r.upper() for r in data.split(b"\n"))
+    assert out == data
+    assert min(D.LAUNCHES[k] for k in ("emit_fasta", "pack_4bit", "unpack_4bit")) == 1
+    assert D.LAUNCHES["apply_mask_parity"] == (0 if opts.no_mask else 1)

@@ -1,0 +1,341 @@
+"""naf_tpu_torch's encode and decode slice against the JAX package.
+
+  * the jax-free host helpers in naf_tpu_torch.parallel give the same
+    output as their naf_tpu.parallel originals;
+  * fused_block on the CPU equals fused_blocks_sharded on a 1-device CPU
+    mesh (interpret mode);
+  * encode_device(device="cpu") archives equal host encode(), on the
+    device path and on every named host route;
+  * fasta_device(device="cpu") gives back the input bytes and equals
+    naf_tpu.parallel.decode.render_regular on a 1-device CPU mesh;
+  * the port never imports jax, and asking for CUDA without a card raises.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from naf_tpu.format import constants as C
+from naf_tpu.parallel import block as RB
+from naf_tpu.parallel import decode as RD
+from naf_tpu.parallel import pipeline as RP
+from naf_tpu.parallel.mesh import block_mesh, block_sharding
+from naf_tpu.pipeline.decoder import DecodeOptions, Decoder
+from naf_tpu.pipeline.encoder import EncodeOptions, encode
+from naf_tpu_torch import device as D
+from naf_tpu_torch.parallel import block as PB
+from naf_tpu_torch.parallel import decode as PD
+from naf_tpu_torch.parallel import pipeline as PP
+from naf_tpu_torch.parallel.pipeline import encode_device
+from naf_tpu_torch.pipeline.decoder import fasta_device
+
+from fused_pipeline_cases import _gen, _gen_fq
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _body(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.uint8)[data.index(b">") + 1:]
+
+
+# ---------------------------------------------------------------------------
+# host helpers: copies against their originals
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 7])
+def test_make_blocks_matches(n_blocks):
+    body = _body(_gen(total=30_000, rec_len=7_000, seed=1))
+    for kw in ({}, {"prev0": ord("A"), "sis0": True}, {"marker": ord(">")}):
+        a = PB.make_blocks(body, n_blocks, **kw)
+        b = RB.make_blocks(body, n_blocks, **kw)
+        assert np.array_equal(a.data, b.data)
+        assert np.array_equal(a.prev, b.prev)
+        assert np.array_equal(a.starts_in_seq, b.starts_in_seq)
+    e = PB.make_blocks(np.zeros(0, np.uint8), n_blocks)
+    f = RB.make_blocks(np.zeros(0, np.uint8), n_blocks)
+    assert np.array_equal(e.data, f.data) and np.array_equal(e.prev, f.prev)
+
+
+def test_stitch_helpers_match():
+    rng = np.random.default_rng(50)
+    for _ in range(20):
+        D_ = int(rng.integers(1, 6))
+        counts = rng.integers(0, 9, size=D_)
+        packed = rng.integers(0, 256, size=(D_, 8), dtype=np.uint8)
+        first = rng.integers(0, 16, size=D_, dtype=np.uint8)
+        assert np.array_equal(PB.stitch_packed(packed, counts, first),
+                              RB.stitch_packed(packed, counts, first))
+        per_block = [rng.integers(0, 50, size=int(rng.integers(0, 5))) for _ in range(D_)]
+        assert np.array_equal(PB.stitch_lengths(per_block), RB.stitch_lengths(per_block))
+        firsts = [bool(b) for b in rng.integers(0, 2, size=D_)]
+        ra, fa = PB.stitch_runs(per_block, firsts)
+        rb, fb = RB.stitch_runs(per_block, firsts)
+        assert np.array_equal(ra, rb) and fa == fb
+        lens = rng.integers(0, 6, size=int(rng.integers(1, 8)))
+        vals = rng.integers(1, 256, size=int(lens.sum()), dtype=np.uint8)
+        assert PB.blob_from_lens(vals, lens) == RB.blob_from_lens(vals, lens)
+
+
+def test_pipeline_helpers_match():
+    bodies = [b"h1 x\nACGT\n>h2\nAC GT\n", b"h\tx\nACGT\n", b"h1 c d\nACGT\n>h2 e\nA\n", b""]
+    for raw in bodies:
+        body = np.frombuffer(raw, np.uint8)
+        assert PP._wf_device_safe(body, False) == RP._wf_device_safe(body, False)
+        assert PP._wf_device_safe(body, True) == RP._wf_device_safe(body, True)
+    lo = np.arange(256, dtype=np.uint32)
+    hi = np.arange(256, dtype=np.uint32)[::-1].copy()
+    assert np.array_equal(PP._merge_hist(lo, hi), RP._merge_hist(lo, hi))
+    rows = [np.arange(3), np.arange(5), np.zeros(0, np.int64)]
+    assert np.array_equal(PP._pad2d(3, rows), RP._pad2d(3, rows))
+
+
+def _fused_ref(body, seq_type=C.SEQ_TYPE_DNA):
+    """naf_tpu's fused_blocks_sharded on a 1-device CPU mesh."""
+    mesh = block_mesh(1)
+    blocks = RB.make_blocks(body, 1)
+    sh = block_sharding(mesh)
+    return [np.asarray(o) for o in RB.fused_blocks_sharded(
+        jax.device_put(jnp.asarray(blocks.data), sh),
+        jax.device_put(jnp.asarray(blocks.prev), sh),
+        jax.device_put(jnp.asarray(blocks.starts_in_seq), sh),
+        jnp.zeros(1, jnp.int32), seq_type=seq_type, mesh=mesh, interpret=True)]
+
+
+def test_fused_block_and_parse_match():
+    data = _gen(total=100_000, rec_len=9_000, seed=7)
+    body = _body(data)
+    packed_r, scal_r, tv_r, a_r = _fused_ref(body)
+    blocks = PB.make_blocks(body, 1)
+    packed, scal, tv, a = PB.fused_block(blocks.data[0], int(blocks.prev[0]),
+                                         bool(blocks.starts_in_seq[0]), 0,
+                                         seq_type=C.SEQ_TYPE_DNA, device="cpu")
+    assert np.array_equal(packed.numpy(), packed_r)
+    assert np.array_equal(scal.numpy(), scal_r)
+    n_sp = int(scal_r[0, 2])
+    assert np.array_equal(tv.numpy()[:, :n_sp], tv_r[:, :n_sp])
+    assert np.array_equal(a.numpy()[:, :n_sp], a_r[:, :n_sp])
+
+    got = PP.parse_fused_fasta(1, scal.numpy(), packed, tv, a)
+    want = RP.parse_fused_fasta(1, scal_r, packed_r, tv_r, a_r)
+    for k in ("counts", "id_bytes", "com_bytes", "n_rec", "n_runs", "first_lower",
+              "longest"):
+        assert np.array_equal(got[k], want[k]), k
+    for x, y in zip(got["em_np"], want["em_np"]):
+        assert np.array_equal(x, y)
+    opts = EncodeOptions()
+    zero = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    args = (1, C.IN_FORMAT_FASTA, opts, want["counts"], want["id_bytes"],
+            want["com_bytes"], np.zeros(1, np.int64), want["n_rec"], want["n_runs"],
+            want["first_lower"], want["longest"], zero, want["em_np"])
+    assert (PP._stitch_and_build(*args, fallback=None)[0]
+            == RP._stitch_and_build(*args, fallback=None)[0]
+            == encode(data, opts)[0])
+
+
+# ---------------------------------------------------------------------------
+# encode_device: archives equal host encode()
+# ---------------------------------------------------------------------------
+
+ENCODE_CASES = {
+    "multirecord_masked": (lambda: _gen(), EncodeOptions()),
+    "giant_record": (lambda: _gen(total=150_000, rec_len=150_000, seed=1), EncodeOptions()),
+    "no_mask": (lambda: _gen(total=100_000, seed=2, mask=False), EncodeOptions(no_mask=True)),
+    "no_mask_flag_on_masked": (lambda: _gen(total=90_000, seed=8), EncodeOptions(no_mask=True)),
+    "rna": (lambda: _gen(total=80_000, seed=5).replace(b"T", b"U").replace(b"t", b"u"),
+            EncodeOptions(seq_type=C.SEQ_TYPE_RNA)),
+    "well_formed_safe": (lambda: _gen(total=60_000, seed=9), EncodeOptions(well_formed=True)),
+    "level_and_title": (lambda: _gen(total=50_000, seed=10),
+                        EncodeOptions(level=3, title="t", line_length=60)),
+    "crlf_and_blank_lines": (lambda: b">a b\r\nACGT\r\n\r\nacgtN\r\n>c\r\n\r\n>d\nAC\n",
+                             EncodeOptions()),
+    "no_trailing_newline": (lambda: b">x\nACGTTGCAacgt", EncodeOptions()),
+}
+
+
+@pytest.mark.parametrize("name", list(ENCODE_CASES))
+def test_encode_device_equals_host(name):
+    make, opts = ENCODE_CASES[name]
+    data = make()
+    D.reset_counts()
+    assert encode_device(data, opts, device="cpu")[0] == encode(data, opts)[0]
+    assert D.ROUTES == {"encode_device": 1}
+
+
+HOST_ROUTES = {
+    "fastq": (lambda: _gen_fq(), EncodeOptions()),
+    "not_fasta": (lambda: b"", EncodeOptions()),
+    "text_like": (lambda: b">p\nMKVLAT*\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN)),
+    "well_formed_unsafe": (lambda: b">a\nAC GT\n", EncodeOptions(well_formed=True)),
+    "unexpected_chars": (lambda: b">r1\nACGTZZACGT\n" + _gen(total=60_000, seed=3),
+                         EncodeOptions()),
+    "sparse_overflow": (lambda: b"".join(b">h%d very long comment line to overflow\nA\n" % i
+                                         for i in range(3000)), EncodeOptions()),
+}
+
+
+@pytest.mark.parametrize("route", list(HOST_ROUTES))
+def test_encode_host_routes(route):
+    make, opts = HOST_ROUTES[route]
+    data = make()
+    D.reset_counts()
+    assert encode_device(data, opts, device="cpu")[0] == encode(data, opts)[0]
+    assert D.ROUTES == {f"encode_host:{route}": 1}
+
+
+def test_encode_format_mismatch_raises_as_host():
+    from naf_tpu.pipeline.parser import InputError
+
+    opts = EncodeOptions(in_format=C.IN_FORMAT_FASTQ)
+    with pytest.raises(InputError):
+        encode_device(b">a\nACGT\n", opts, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# fasta_device: the round trip, and the reference render
+# ---------------------------------------------------------------------------
+
+def _uniform(n_rec=12, sl=5000, L=70, seed=0, mask=True, rna=False):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n_rec):
+        seq = rng.choice(np.frombuffer(b"ACGU" if rna else b"ACGT", np.uint8), size=sl)
+        if mask:
+            for s in rng.integers(0, sl - 200, size=6):
+                seq[s:s + 200] |= 32
+            seq[0] |= 32 if i % 2 else 0
+        body = b"\n".join(seq[j:j + L].tobytes() for j in range(0, sl, L))
+        rows.append(b">r%02d\n" % i + body + b"\n")
+    return b"".join(rows)
+
+
+DECODE_CASES = {
+    "uniform_masked": (lambda: _uniform(), EncodeOptions()),
+    "uniform_rna": (lambda: _uniform(rna=True, seed=1), EncodeOptions(seq_type=1)),
+    "groups": (lambda: _uniform(5, 3000, 60, 2) + _uniform(7, 4100, 60, 3).replace(b">r", b">q"),
+               EncodeOptions()),
+    "single_record": (lambda: _gen(total=150_000, rec_len=150_000, seed=1), EncodeOptions()),
+    "exact_lines": (lambda: _uniform(4, 700, 70, 4), EncodeOptions()),
+    "no_mask": (lambda: _uniform(seed=5), EncodeOptions(no_mask=True)),
+}
+
+
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_fasta_device_round_trip(name):
+    make, opts = DECODE_CASES[name]
+    data = make()
+    blob = encode(data, opts)[0]
+    D.reset_counts()
+    out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu")
+    assert D.ROUTES == {"decode_device": 1}
+    if opts.no_mask:
+        assert out == Decoder(io.BytesIO(blob), DecodeOptions()).fasta()
+        assert out.upper() == data.upper()
+    else:
+        assert out == data
+    d = Decoder(io.BytesIO(blob), DecodeOptions())
+    plan, raw = d._fasta_plan(d.masking)
+    assert out == RD.render_regular(plan, raw, None, mesh=block_mesh(1))
+
+
+def test_fasta_device_ragged_goes_to_host():
+    rng = np.random.default_rng(11)
+    data = b"".join(b">v%d\n" % i + rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                                              size=int(rng.integers(1, 900))).tobytes()
+                    + b"\n" for i in range(40))
+    blob = encode(data, EncodeOptions())[0]
+    D.reset_counts()
+    out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu")
+    assert D.ROUTES == {"decode_host:too_many_groups": 1}
+    assert out == data
+
+
+def test_fasta_device_without_mask_option():
+    data = _uniform(seed=6)
+    blob = encode(data, EncodeOptions())[0]
+    out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions(use_mask=False)), device="cpu")
+    assert out == Decoder(io.BytesIO(blob), DecodeOptions(use_mask=False)).fasta()
+    assert out != data and out.upper() == data.upper()
+
+
+# ---------------------------------------------------------------------------
+# package rules
+# ---------------------------------------------------------------------------
+
+def test_port_never_imports_jax():
+    code = r"""
+import importlib, io, pkgutil, sys
+import naf_tpu_torch
+for m in pkgutil.walk_packages(naf_tpu_torch.__path__, "naf_tpu_torch."):
+    importlib.import_module(m.name)
+from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
+from naf_tpu_torch.parallel.pipeline import encode_device
+from naf_tpu_torch.pipeline.decoder import fasta_device
+data = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
+blob = encode_device(data, device="cpu")[0]
+assert fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu") == data
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    data = _gen(total=20_000, seed=13)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_device(data, device="cuda")
+    blob = encode(data, EncodeOptions())[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cuda")
+    with pytest.raises(ValueError):
+        encode_device(data, device=None)
+
+
+def test_round_trip_without_the_zstandard_package():
+    """Where only the system libzstd exists (the CUDA host), the port's
+    stand-in module carries naf_tpu's codec; its archives read back with
+    the real package."""
+    code = r"""
+import io, os, sys
+sys.modules["zstandard"] = None
+os.environ["NAF_TPU_NO_SYSZSTD"] = "1"
+from naf_tpu_torch.parallel.pipeline import encode_device
+from naf_tpu_torch.pipeline.decoder import fasta_device
+from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
+from naf_tpu.pipeline.encoder import EncodeOptions, encode
+import zstandard
+assert zstandard.__doc__.startswith("A stand-in")
+data = open(sys.argv[1], "rb").read()
+for opts in (EncodeOptions(), EncodeOptions(level=5, long_window_log=20, threads=2)):
+    blob = encode_device(data, opts, device="cpu")[0]
+    assert blob == encode(data, opts)[0]
+    assert fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu") == data
+sys.stdout.buffer.write(blob)
+"""
+    data = _gen(total=10_000_000, rec_len=2_000_000, seed=14)
+    path = Path(os.environ.get("TMPDIR", "/tmp")) / f"naf_tpu_torch_zc_{os.getpid()}.fa"
+    path.write_bytes(data)
+    try:
+        r = subprocess.run([sys.executable, "-c", code, str(path)], capture_output=True,
+                           env=dict(os.environ, PYTHONPATH=str(REPO)), cwd=REPO, timeout=300)
+    finally:
+        path.unlink()
+    assert r.returncode == 0, r.stderr.decode()
+    assert Decoder(io.BytesIO(r.stdout), DecodeOptions()).fasta() == data

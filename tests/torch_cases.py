@@ -1,0 +1,133 @@
+"""Seeded byte inputs shared by the naf_tpu_torch kernel tests (numpy only,
+so the tests on the card need no jax).
+
+Classify cases are LF-padded to N_CLASSIFY bytes and emit cases to N_EMIT,
+so the JAX kernels they are held against compile once per length.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from naf_tpu.format import constants as C
+from naf_tpu_torch.ops.common import TILE
+
+#: one padded length for every classify case
+N_CLASSIFY = 2 * TILE + 64
+#: one padded length for every emit case
+N_EMIT = 3 * TILE - 6
+
+
+def pad_lf(body, n: int) -> np.ndarray:
+    """Trailing LF padding (inert: it only closes the open line)."""
+    body = np.asarray(body, np.uint8)
+    assert body.size <= n
+    return np.concatenate([body, np.full(n - body.size, 0x0A, np.uint8)])
+
+
+def classify_case(name: str):
+    """(body, prev_byte, starts_in_seq) of one classify case."""
+    rng = np.random.default_rng(14)
+    if name == "fuzz":
+        pool = np.frombuffer(b">ACGTNacgtn \t\r\n\x0b\x0c" + b"xyz*-@!", np.uint8)
+        return rng.choice(pool, size=N_CLASSIFY), ord(">"), False
+    if name == "all_bytes":
+        return (np.tile(np.arange(256, dtype=np.uint8), N_CLASSIFY // 256 + 1)[:N_CLASSIFY],
+                ord("\n"), False)
+    if name == "tile_edge_header":
+        edge = np.full(N_CLASSIFY, ord("A"), np.uint8)
+        hdr = np.frombuffer(b"\n>h x\x7fy\n", np.uint8)
+        edge[TILE - 5:TILE - 5 + hdr.size] = hdr
+        return edge, ord(">"), False
+    rows = []
+    for i in range(400):
+        rows.append(b">id%d c\x01m%d\tx\n" % (i, i))
+        rows.append(rng.choice(np.frombuffer(b"ACGTacgtRY>*", np.uint8),
+                               size=int(rng.integers(1, 600))).tobytes() + b"\r\n")
+    body = pad_lf(np.frombuffer(b"".join(rows), np.uint8)[1:N_CLASSIFY + 1], N_CLASSIFY)
+    if name == "mid_record":
+        return body, ord("A"), True
+    if name == "structured":
+        return body, ord(">"), False
+    raise KeyError(name)
+
+
+CLASSIFY_CASES = ["fuzz", "all_bytes", "structured", "mid_record", "tile_edge_header"]
+
+
+def _records(rng, n_rec, max_len, alphabet=b"ACGTNn", runs=50):
+    rows = []
+    for i in range(n_rec):
+        com = b" comment %d" % i if i % 3 else b""
+        rows.append(b">rec%d%s\n" % (i, com))
+        seq = rng.choice(np.frombuffer(alphabet, np.uint8), size=int(rng.integers(1, max_len)))
+        for s in rng.integers(0, max(1, seq.size - runs), size=max(1, seq.size // 500)):
+            seq[s:s + runs] |= 32
+        rows.append(seq.tobytes() + b"\n")
+    return np.frombuffer(b"".join(rows), np.uint8)[1:]
+
+
+def emit_case(name: str):
+    """(body, prev_byte, starts_in_seq, seq_type) of one emit case."""
+    rng = np.random.default_rng(40)
+    if name == "structured":
+        return pad_lf(_records(rng, 50, 3000), N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "rna":
+        return (pad_lf(_records(rng, 40, 3000, b"ACGUNn"), N_EMIT), ord(">"), False,
+                C.SEQ_TYPE_RNA)
+    if name == "wrapped_masked":
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=150_000)
+        for s in rng.integers(0, 149_000, size=60):
+            seq[s:s + 400] |= 32
+        lines = b"\n".join(seq[i:i + 70].tobytes() for i in range(0, seq.size, 70))
+        return (pad_lf(np.frombuffer(b"r1 big record\n" + lines + b"\n", np.uint8), N_EMIT),
+                ord(">"), False, C.SEQ_TYPE_DNA)
+    if name == "unexpected":
+        body = b"x\x01y bad\x02com\xffx\nAC!GT*acg\n>n2 \x7f\nACGT\n>\x01\nZZ\n"
+        return pad_lf(np.frombuffer(body, np.uint8), N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "mid_record":
+        body = b"acGTACgt\nACGT\n>n2 c\nTTTT\n" * 50
+        return pad_lf(np.frombuffer(body, np.uint8), N_EMIT), ord("\n"), True, C.SEQ_TYPE_DNA
+    if name == "single_char_runs":
+        body = b"r\n" + b"Aa" * 900 + b"\n"
+        return pad_lf(np.frombuffer(body, np.uint8), N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "space_classes":
+        body = b"h1\tt c\x0bx\nAC GT\tac\x0cgt\r\n>h2 \r\nA\x0bC\n"
+        return pad_lf(np.frombuffer(body, np.uint8), N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "tile_edges":
+        # records and mask runs straddling the tile edges
+        rows = []
+        for i in range(3):
+            rows.append(b">r%d\n" % i)
+            n = TILE - 7 + int(rng.integers(0, 13))
+            seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
+            for s in rng.integers(0, n - 300, size=n // 800):
+                seq[s:s + 300] |= 32
+            rows.append(seq.tobytes() + b"\n")
+        body = np.frombuffer(b"".join(rows), np.uint8)[1:N_EMIT + 1]
+        return pad_lf(body, N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "sparse_overflow":
+        rows = [b">h%d very long comment line to overflow\nA\n" % i for i in range(3000)]
+        body = np.frombuffer(b"".join(rows), np.uint8)[1:N_EMIT + 1]
+        return pad_lf(body, N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    if name == "fuzz":
+        pool = np.frombuffer(b">ACGTNACGT \t\r\nacgt" + b"xyz*-", np.uint8)
+        return rng.choice(pool, size=N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    raise KeyError(name)
+
+
+EMIT_CASES = ["structured", "rna", "wrapped_masked", "unexpected", "mid_record",
+              "single_char_runs", "space_classes", "tile_edges", "sparse_overflow", "fuzz"]
+
+
+def case_change_behind_tile_start() -> np.ndarray:
+    """One record of 70-column lines whose second tile starts at an EOL,
+    upper case before it and lower case after."""
+    p = TILE % 71                       # header "r" * p + LF puts an EOL at TILE
+    seq = np.full(2 * TILE, ord("A"), np.uint8)
+    lines = b"\n".join(seq[i:i + 70].tobytes() for i in range(0, seq.size, 70)) + b"\n"
+    body = np.frombuffer(b"r" * p + b"\n" + lines, np.uint8)[:N_EMIT].copy()
+    assert body[TILE] == 0x0A
+    tail = body[TILE + 1:]
+    tail[tail != 0x0A] |= 32
+    return pad_lf(body, N_EMIT)
