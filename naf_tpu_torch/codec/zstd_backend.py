@@ -1,0 +1,279 @@
+"""zstd section codec (host side).
+
+Each NAF section is one zstd frame stored minus its 4-byte frame magic
+(compressor parity: ennaf/src/compressor.c:150-173; decoder re-injects it,
+unnaf/src/utils.c:144-150).
+
+The port's copy of ``naf_tpu/codec/zstd_backend.py``, cut down to the
+library engine: section compression and decompression, one-shot and
+streaming, and the extended format's blocked sections.  Compression goes
+through the system libzstd (``zstd_compat``) where it exists, as the JAX
+package's does through ``naf_tpu/codec/syszstd.py``, so both write the same
+frames; else through the ``zstandard`` package.  Decompression goes through
+the package where it imports, else through ``zstd_compat``.  The JAX
+package's own entropy engines (``engine="native"``, ``engine="device"``)
+are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+from .. import zstd_compat
+from ..format.constants import ZSTD_FRAME_MAGIC
+from ..format.vle import decode_vle, encode_vle
+
+try:
+    import zstandard as _zstandard
+except ImportError:
+    _zstandard = None
+
+#: zstd window-log hard bounds (matches ZSTD_WINDOWLOG_MIN/MAX used by ennaf).
+WINDOWLOG_MIN = 10
+WINDOWLOG_MAX = 31
+
+#: the JAX package's entropy engines, which the port does not have
+UNPORTED_ENGINES = ("native", "device")
+
+
+def check_engine(engine: str) -> None:
+    """Raise for an entropy engine the port does not have."""
+    if engine in UNPORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine={engine!r} (naf_tpu's own zstd engine) is not ported to naf_tpu_torch")
+    if engine != "zstd":
+        raise ValueError(f"unknown engine {engine!r}")
+
+
+def _compress_lib():
+    """The module compressors come from: the system libzstd (the codec the
+    reference links), else the ``zstandard`` package."""
+    if zstd_compat.system_lib() is not None:
+        return zstd_compat
+    return _decompress_lib()
+
+
+def _decompress_lib():
+    return _zstandard if _zstandard is not None else zstd_compat
+
+
+def _compressor(zstd, level: int, window_log: int = 0, threads: int = 0):
+    if window_log:
+        params = zstd.ZstdCompressionParameters.from_level(
+            level, window_log=window_log, enable_ldm=True, threads=threads)
+        return zstd.ZstdCompressor(compression_params=params)
+    if threads:
+        params = zstd.ZstdCompressionParameters.from_level(level, threads=threads)
+        return zstd.ZstdCompressor(compression_params=params)
+    return zstd.ZstdCompressor(level=level)
+
+
+class SectionCompressor:
+    """Streaming single-frame compressor for one section.
+
+    Feed with `write(data)` calls; `finish()` returns the magic-stripped frame.
+    Mirrors the reference's per-section ZSTD_CStream usage
+    (ennaf/src/compressor.c:119-147) but keeps output in RAM.
+    """
+
+    #: Fixed feed granularity in multithreaded mode.  zstd's MT path emits a
+    #: slightly different (equally valid) frame when the whole input arrives
+    #: in a single compress() call versus chunked; feeding in exact 4 MB
+    #: units makes the frame a pure function of (options, payload bytes).
+    _STAGE = 4 << 20
+
+    def __init__(self, level: int = 1, window_log: int = 0, threads: int = 0):
+        self._chunks: list[bytes] = []
+        self._uncompressed = 0
+        self._level = level
+        self._window_log = window_log
+        self._threads = threads
+        self._obj = None            # created on the first _STAGE of input
+        self._finished = False
+        self._mt = threads != 0
+        self._buf = bytearray()     # MT: sub-_STAGE staging remainder
+        # Payloads below one _STAGE never build a streaming context: raw
+        # pieces buffer here and finish() compresses them one-shot with a
+        # pledged source size (right-sized window and tables).  The cutover
+        # is a pure function of (options, payload size).
+        self._raw: list | None = []
+        self._raw_n = 0
+
+    @property
+    def uncompressed_size(self) -> int:
+        return self._uncompressed
+
+    def _emit(self, out: bytes) -> None:
+        if out:
+            self._chunks.append(out)
+
+    def write(self, data) -> None:
+        mv = memoryview(data)
+        if mv.nbytes == 0:
+            return
+        self._uncompressed += mv.nbytes
+        if self._raw is not None:
+            if self._raw_n + mv.nbytes < self._STAGE:
+                # small pieces are copied: callers may reuse their buffers
+                self._raw.append(bytes(mv))
+                self._raw_n += mv.nbytes
+                return
+            pieces, self._raw = self._raw, None
+            self._obj = _compressor(_compress_lib(), self._level, self._window_log,
+                                    self._threads).compressobj()
+            for p in pieces:
+                self._feed(memoryview(p))
+        self._feed(mv)
+
+    def _feed(self, mv: memoryview) -> None:
+        if not self._mt:
+            self._emit(self._obj.compress(mv))
+            return
+        stage = self._STAGE
+        if self._buf:
+            take = min(stage - len(self._buf), mv.nbytes)
+            self._buf += mv[:take]
+            mv = mv[take:]
+            if len(self._buf) == stage:
+                self._emit(self._obj.compress(self._buf))
+                self._buf = bytearray()
+        off = 0
+        n = mv.nbytes
+        while n - off >= stage:                 # large writes feed zero-copy
+            self._emit(self._obj.compress(mv[off:off + stage]))
+            off += stage
+        if off < n:
+            self._buf += mv[off:]
+
+    def _finish_oneshot(self) -> bytes:
+        """Whole payload buffered: one-shot frame with pledged source size."""
+        payload = b"".join(self._raw)
+        self._raw = None
+        if self._window_log:
+            # honor --long but never size tables beyond the payload
+            wl = min(self._window_log,
+                     max(WINDOWLOG_MIN, max(len(payload), 1).bit_length()))
+        else:
+            wl = 0
+        return _compressor(_compress_lib(), self._level, wl).compress(payload)
+
+    def finish(self) -> bytes:
+        """End the frame and return payload with the 4-byte magic stripped."""
+        assert not self._finished
+        self._finished = True
+        if self._raw is not None:
+            frame = self._finish_oneshot()
+        else:
+            if self._buf:
+                self._emit(self._obj.compress(self._buf))
+                self._buf = bytearray()
+            self._emit(self._obj.flush(_compress_lib().COMPRESSOBJ_FLUSH_FINISH))
+            frame = b"".join(self._chunks)
+            self._chunks = []
+        if len(frame) < 4 or frame[:4] != ZSTD_FRAME_MAGIC:
+            raise RuntimeError("compression failed")
+        return frame[4:]
+
+
+def compress_section(data, level: int = 1, window_log: int = 0, threads: int = 0) -> bytes:
+    c = SectionCompressor(level=level, window_log=window_log, threads=threads)
+    c.write(data)
+    return c.finish()
+
+
+def decompress_section(payload: bytes, uncompressed_size: int) -> bytes:
+    """One-shot decode of a magic-stripped section payload."""
+    dctx = _decompress_lib().ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
+    out = dctx.decompress(ZSTD_FRAME_MAGIC + payload,
+                          max_output_size=max(uncompressed_size, 1))
+    if len(out) != uncompressed_size:
+        raise RuntimeError("section decompression size mismatch")
+    return out
+
+
+class SectionDecompressor:
+    """Streaming decoder for a magic-stripped section payload: `feed()`
+    compressed chunks (the frame magic is put back in front of the first),
+    get the decompressed bytes each one completes."""
+
+    def __init__(self):
+        dctx = _decompress_lib().ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
+        self._obj = dctx.decompressobj()
+        self._first = True
+
+    def feed(self, chunk: bytes) -> bytes:
+        if self._first:
+            chunk = ZSTD_FRAME_MAGIC + chunk
+            self._first = False
+        return self._obj.decompress(chunk)
+
+
+def iter_decompress(payload: bytes, chunk_size: int = 1 << 20) -> Iterator[bytes]:
+    """Yield decompressed chunks of a magic-stripped section payload."""
+    d = SectionDecompressor()
+    for off in range(0, len(payload), chunk_size):
+        out = d.feed(payload[off:off + chunk_size])
+        if out:
+            yield out
+
+
+# ---------------------------------------------------------------------------
+# Extended-format blocked sections (tnaf extension, container flag bit 7)
+# ---------------------------------------------------------------------------
+#
+# Payload layout inside the standard section envelope:
+#     VLE(n_blocks)  { VLE(raw_len) VLE(comp_len) } x n  frames...
+# Each frame is an independent magic-stripped zstd frame, so blocks
+# compress AND decompress in parallel.  The reference decoder cannot read
+# these archives; the header's reserved bit 0x80 marks them (NAF spec §2.4).
+
+def _pool_map(fn, items, threads: int) -> list:
+    workers = max(1, min(threads or (os.cpu_count() or 1), len(items)))
+    if workers == 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def compress_section_blocked(data, level: int = 1, window_log: int = 0,
+                             threads: int = 0, block_bytes: int = 4 << 20,
+                             engine: str = "zstd") -> bytes:
+    """Compress `data` as independently-framed blocks with an index."""
+    check_engine(engine)
+    mv = memoryview(data)
+    blocks = [mv[i:i + block_bytes] for i in range(0, mv.nbytes, block_bytes)] or [mv[:0]]
+    frames = _pool_map(lambda b: compress_section(b, level=level, window_log=window_log),
+                       blocks, threads)
+    out = [encode_vle(len(frames))]
+    for b, f in zip(blocks, frames):
+        out.append(encode_vle(b.nbytes))
+        out.append(encode_vle(len(f)))
+    out.extend(frames)
+    return b"".join(out)
+
+
+def parse_blocked_index(payload: bytes):
+    """Returns (entries [(raw_len, comp_len)], data_offset)."""
+    n, off = decode_vle(payload, 0)
+    entries = []
+    for _ in range(n):
+        r, off = decode_vle(payload, off)
+        c, off = decode_vle(payload, off)
+        entries.append((r, c))
+    return entries, off
+
+
+def decompress_section_blocked(payload: bytes, uncompressed_size: int,
+                               threads: int = 0) -> bytes:
+    """Parallel decode of a blocked section payload."""
+    entries, off = parse_blocked_index(payload)
+    pieces = []
+    for r, c in entries:
+        pieces.append((payload[off:off + c], r))
+        off += c
+    out = b"".join(_pool_map(lambda p: decompress_section(*p), pieces, threads))
+    if len(out) != uncompressed_size:
+        raise RuntimeError("blocked section decompression size mismatch")
+    return out

@@ -1,8 +1,10 @@
 // Shared pieces of the naf_tpu_torch kernels: tile geometry, chunk loads,
-// the block-wide scan, and the launch macro.
+// the block-wide scan, the carry algebra of the emit kernels, and the
+// launch macro.
 //
-// Every kernel here works on 64 KiB tiles, one thread block per tile and
-// 128 contiguous bytes per thread.  A thread keeps its 128 bytes in 32
+// Every kernel here works on tiles of 128 contiguous bytes per thread, one
+// thread block per tile: 64 KiB tiles of 512 threads (FASTA, and the
+// per-byte kernels), or 32 KiB tiles of 256 threads (FASTQ).  A thread keeps its 128 bytes in 32
 // registers, so a kernel that walks them several times reads device memory
 // once.  Carries across threads go through block_exclusive_scan; carries
 // across tiles are scanned between launches over [tiles]-sized arrays.
@@ -38,6 +40,7 @@ constexpr uint32_t CLS_UNEX_SEQ = 1;    // UNEXPECTED_BY_TYPE[seq_type]
 constexpr uint32_t CLS_UNEX_TEXT = 2;   // IS_UNEXPECTED_TEXT (id bytes)
 constexpr uint32_t CLS_UNEX_COM = 4;    // IS_UNEXPECTED_COMMENT
 constexpr uint32_t CLS_EOL = 8;         // IS_EOL
+constexpr uint32_t CLS_UNEX_QUAL = 16;  // IS_UNEXPECTED_QUAL
 
 __device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[WORDS], int k) {
   return (w[k >> 2] >> ((k & 3) * 8)) & 0xFFu;
@@ -96,25 +99,96 @@ __device__ __forceinline__ void store_chunk(uint8_t* out, long long n, long long
   }
 }
 
-// Exclusive scan of one value per thread in thread order; `op(earlier,
-// later)` must be associative with `identity` as its unit.  `buf` is a
-// THREADS-sized shared array; every thread of the block must call this.
-// Returns the exclusive prefix and writes the block total to *total.
-template <typename T, typename Op>
+// Exclusive scan of one value per thread in thread order over a block of
+// NT threads; `op(earlier, later)` must be associative with `identity` as
+// its unit.  `buf` is an NT-sized shared array; every thread of the block
+// must call this.  Returns the exclusive prefix and writes the block total
+// to *total.
+template <int NT = THREADS, typename T, typename Op>
 __device__ __forceinline__ T block_exclusive_scan(T v, T identity, T* buf, Op op, T* total) {
   const int tid = threadIdx.x;
   buf[tid] = v;
   __syncthreads();
-  for (int off = 1; off < THREADS; off <<= 1) {
+  for (int off = 1; off < NT; off <<= 1) {
     T other = tid >= off ? buf[tid - off] : identity;
     __syncthreads();
     if (tid >= off) buf[tid] = op(other, buf[tid]);
     __syncthreads();
   }
   T excl = tid > 0 ? buf[tid - 1] : identity;
-  *total = buf[THREADS - 1];
+  *total = buf[NT - 1];
   __syncthreads();
   return excl;
 }
+
+// Kept-byte case runs of a chunk: first and last kept byte's case and the
+// number of case changes inside it.
+struct Cases {
+  int has, first, last, chg;
+};
+
+__device__ __forceinline__ Cases combine(const Cases& a, const Cases& b) {
+  Cases r;
+  r.has = a.has | b.has;
+  r.first = a.has ? a.first : b.first;
+  r.last = b.has ? b.last : a.last;
+  r.chg = a.chg + b.chg + ((a.has && b.has && a.last != b.first) ? 1 : 0);
+  return r;
+}
+
+// Add one kept byte of case lw (0 upper, 1 lower) to a chunk's Cases.
+__device__ __forceinline__ void add_case(Cases& c, int lw) {
+  if (!c.has) {
+    c.has = 1;
+    c.first = lw;
+  } else if (lw != c.last) {
+    ++c.chg;
+  }
+  c.last = lw;
+}
+
+// Line-length summary of kept sequence bytes between EOLs: total, whether
+// an EOL occurs, kept bytes before the first EOL and after the last, and
+// the longest line that lies wholly inside.
+struct Lines {
+  int total, has, pre, post, mx;
+};
+
+__device__ __forceinline__ Lines combine(const Lines& a, const Lines& b) {
+  Lines r;
+  r.total = a.total + b.total;
+  r.has = a.has | b.has;
+  r.pre = a.has ? a.pre : a.total + b.pre;
+  r.post = b.has ? b.post : a.post + b.total;
+  int m = a.mx > b.mx ? a.mx : b.mx;
+  if (a.has && b.has && a.post + b.pre > m) m = a.post + b.pre;
+  r.mx = m;
+  return r;
+}
+
+// Walk of a chunk's Lines, byte by byte: run counts the kept sequence
+// bytes of the open line.
+struct LineWalk {
+  Lines ln{};
+  int run = 0;
+  __device__ __forceinline__ void step(bool seq_keep, bool eol) {
+    if (seq_keep) ++run;
+    if (eol) {
+      if (!ln.has) {
+        ln.has = 1;
+        ln.pre = run;
+      } else if (run > ln.mx) {
+        ln.mx = run;
+      }
+      run = 0;
+    }
+  }
+  __device__ __forceinline__ Lines finish(int n_seq) {
+    ln.total = n_seq;
+    ln.post = run;
+    if (!ln.has) ln.pre = run;
+    return ln;
+  }
+};
 
 }  // namespace naf

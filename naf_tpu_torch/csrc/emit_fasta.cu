@@ -27,40 +27,6 @@
 
 namespace naf {
 
-// Kept-byte case runs of a chunk: first and last kept byte's case and the
-// number of case changes inside it.
-struct Cases {
-  int has, first, last, chg;
-};
-
-__device__ __forceinline__ Cases combine(const Cases& a, const Cases& b) {
-  Cases r;
-  r.has = a.has | b.has;
-  r.first = a.has ? a.first : b.first;
-  r.last = b.has ? b.last : a.last;
-  r.chg = a.chg + b.chg + ((a.has && b.has && a.last != b.first) ? 1 : 0);
-  return r;
-}
-
-// Line-length summary of kept sequence bytes between EOLs: total, whether
-// an EOL occurs, kept bytes before the first EOL and after the last, and
-// the longest line that lies wholly inside.
-struct Lines {
-  int total, has, pre, post, mx;
-};
-
-__device__ __forceinline__ Lines combine(const Lines& a, const Lines& b) {
-  Lines r;
-  r.total = a.total + b.total;
-  r.has = a.has | b.has;
-  r.pre = a.has ? a.pre : a.total + b.pre;
-  r.post = b.has ? b.post : a.post + b.total;
-  int m = a.mx > b.mx ? a.mx : b.mx;
-  if (a.has && b.has && a.post + b.pre > m) m = a.post + b.pre;
-  r.mx = m;
-  return r;
-}
-
 struct Summary {
   int n_stream, n_seq, n_sp, u_id, u_com, u_seq, fsval;
   Cases cs;
@@ -108,7 +74,7 @@ constexpr int SUMMARY_COLS = 16;  // ops/emit_fused.py reads these columns
 // Per-thread summary of its chunk, for pass B.
 __device__ __forceinline__ Summary chunk_summary(const Chunk& ch, const Tables& t) {
   Summary s{};
-  int run = 0;
+  LineWalk lw;
   classify_chunk(ch.w, ch.pe, ch.state, t, [&](int, uint32_t f, uint32_t v) {
     const bool seq_keep = f & F_SEQ_KEEP;
     const bool stream_keep = seq_keep || (f & F_ID_UNEX);
@@ -118,31 +84,13 @@ __device__ __forceinline__ Summary chunk_summary(const Chunk& ch, const Tables& 
     s.u_com += (f & F_COM_UNEX) != 0;
     s.u_seq += (f & F_SEQ_UNEX) != 0;
     if (stream_keep) {
-      const int lw = v >= 96;
-      if (!s.cs.has) {
-        s.cs.has = 1;
-        s.cs.first = lw;
-        s.fsval = static_cast<int>(v);
-      } else if (lw != s.cs.last) {
-        ++s.cs.chg;
-      }
-      s.cs.last = lw;
+      if (!s.cs.has) s.fsval = static_cast<int>(v);
+      add_case(s.cs, v >= 96);
       ++s.n_stream;
     }
-    if (seq_keep) ++run;
-    if (f & F_EOL) {
-      if (!s.ln.has) {
-        s.ln.has = 1;
-        s.ln.pre = run;
-      } else if (run > s.ln.mx) {
-        s.ln.mx = run;
-      }
-      run = 0;
-    }
+    lw.step(seq_keep, f & F_EOL);
   });
-  s.ln.total = s.n_seq;
-  s.ln.post = run;
-  if (!s.ln.has) s.ln.pre = run;
+  s.ln = lw.finish(s.n_seq);
   return s;
 }
 
@@ -205,14 +153,7 @@ __global__ void __launch_bounds__(THREADS) emit_write_kernel(
     mine.n_seq += seq_keep;
     mine.n_sp += (f & (F_ID_KEEP | F_IN_COM | F_MARKER)) != 0;
     if (seq_keep || (f & F_ID_UNEX)) {
-      const int lw = v >= 96;
-      if (!mine.cs.has) {
-        mine.cs.has = 1;
-        mine.cs.first = lw;
-      } else if (lw != mine.cs.last) {
-        ++mine.cs.chg;
-      }
-      mine.cs.last = lw;
+      add_case(mine.cs, v >= 96);
       ++mine.n_stream;
     }
   });

@@ -5,7 +5,9 @@ runs on the one device a caller names.  There is no automatic choice: the
 CPU is used only when asked for, and asking for CUDA without a card raises.
 
 ``LAUNCHES`` counts kernel launches, one entry per hand kernel; a wrapper
-adds one where it launches its kernel and nowhere else.  ``ROUTES`` counts
+adds one where it launches its kernel and nowhere else.  The main paths
+never launch a standalone classify: each emit kernel runs its classify as
+device code inside its own passes, counted as the emit.  ``ROUTES`` counts
 which way the encode and decode entry points went: the device path, or a
 named host route for inputs the port does not run on the device yet.
 """
@@ -20,6 +22,8 @@ LAUNCHES: dict[str, int] = {
     "pack_4bit": 0,
     "unpack_4bit": 0,
     "apply_mask_parity": 0,
+    "emit_fastq": 0,
+    "classify_fastq": 0,
 }
 
 ROUTES: dict[str, int] = {}

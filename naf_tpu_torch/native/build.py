@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-At first use, nvcc compiles every ``naf_tpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface, under
+At first use, nvcc compiles every ``naf_tpu_torch/csrc/*.cu`` (one nvcc
+per source, all at once) and links them into one shared library with a
+plain C interface, under
 ``build/naf_tpu_torch/<hash of the sources>/`` in the checkout, and
 ``ctypes`` loads it.  A later call in the same process, or a later process
 with the same sources, reuses it.  A failed build raises with nvcc's output;
@@ -24,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "naf_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 
@@ -39,6 +40,11 @@ SIGNATURES = {
     "naf_unpack_4bit": [_P, _L, _P, _P, _P],
     "naf_mask_parity_tiles": [_P, _L, _P, _I, _P],
     "naf_mask_parity_apply": [_P, _P, _L, _P, _P, _I, _P],
+    "naf_fastq_tile_maps": [_P, _L, _P, _P, _P, _I, _P],
+    "naf_classify_fastq": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+    "naf_emit_fastq_summary": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _I, _P],
+    "naf_emit_fastq_write": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _P],
 }
 
 _lib = None
@@ -81,6 +87,7 @@ def library() -> ct.CDLL:
             return _lib
         srcs = sources()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h.update(b"-shared")
         for p in srcs:
             h.update(p.name.encode())
             h.update(p.read_bytes())
@@ -90,13 +97,24 @@ def library() -> ct.CDLL:
         log = ""
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libnaf_tpu_torch.{os.getpid()}.tmp.so"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in srcs if p.suffix == ".cu"]]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            log = r.stdout + r.stderr
+            tag = f"{os.getpid()}.tmp"
+            cus = [p for p in srcs if p.suffix == ".cu"]
+            objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
+            procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for p, o in zip(cus, objs)]
+            log = "".join(p.communicate()[0] for p in procs)
+            failed = [c.name for c, p in zip(cus, procs) if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            tmp = out_dir / f"libnaf_tpu_torch.{tag}.so"
+            r = subprocess.run([nvcc_path(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                                *map(str, objs)], capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            for o in objs:
+                o.unlink()
             if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
             os.replace(tmp, so)
         BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(so), log=log)
         _lib = bind(ct.CDLL(str(so)))

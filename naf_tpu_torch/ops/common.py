@@ -7,6 +7,9 @@ import torch
 #: bytes per tile of every tiled kernel (csrc/common.cuh TILE; the TPU
 #: kernels' _TILE, so per-tile caps mean the same on both)
 TILE = 1 << 16
+#: bytes per tile of the FASTQ kernels (csrc/classify_fastq.cuh Q_TILE; the
+#: TPU FASTQ emit's _TILE_Q, so its per-tile sparse cap means the same)
+Q_TILE = 1 << 15
 
 
 def check_1d(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -19,5 +22,5 @@ def check_1d(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 
 
-def n_tiles(n: int) -> int:
-    return max(1, -(-n // TILE))
+def n_tiles(n: int, tile: int = TILE) -> int:
+    return max(1, -(-n // tile))

@@ -1,25 +1,28 @@
-"""FASTA byte classify: the port of ``naf_tpu/ops/scan_fused.py``'s
-``classify_fasta_fused``.
+"""FASTA and FASTQ byte classify: the port of ``naf_tpu/ops/scan_fused.py``'s
+``classify_fasta_fused`` and ``classify_fastq_fused``.
 
-On the main path the classify runs inside the emit kernel
-(``csrc/classify.cuh``); ``classify_fasta`` is its standalone launch, which
-the tests and ``chip_smoke.py`` hold against the JAX kernel and the plain
-version.  Flag bits as the TPU kernel: bit0 marker, bit1 seq_unex,
-bit2 seq_keep, bit3 is_eol, bit4 id_keep, bit5 id_unex, bit6 in_com,
-bit7 com_unex.
+On the main path each classify runs inside its emit kernel
+(``csrc/classify.cuh``, ``csrc/classify_fastq.cuh``); ``classify_fasta`` and
+``classify_fastq`` are the standalone launches, which the tests and
+``chip_smoke.py`` hold against the JAX kernels and the plain versions.
+
+FASTA flag bits as the TPU kernel: bit0 marker, bit1 seq_unex, bit2 seq_keep,
+bit3 is_eol, bit4 id_keep, bit5 id_unex, bit6 in_com, bit7 com_unex.
+FASTQ flag bits as the TPU kernel: bit0 rec_start, bit1 seq_unex,
+bit2 seq_keep, bit3 is_lf, bit4 id_keep|qual_keep, bit5
+id_unex|qual_unex|com_unex, bit6 in_com, bit7 quality-line byte.
 """
 
 from __future__ import annotations
 
 import torch
 
-from naf_tpu.format import constants as C
-from naf_tpu.ops import tables as T
-
 from ..device import LAUNCHES
+from ..format import constants as C
 from ..native import build
-from .common import check_1d, n_tiles
-from .tables import CLS_EOL, CLS_UNEX_COM, CLS_UNEX_SEQ, CLS_UNEX_TEXT, device_tables
+from .common import Q_TILE, check_1d, n_tiles
+from .tables import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT, IS_EOL,
+                     device_tables)
 
 ST_ID, ST_COM, ST_SEQ = 0, 1, 2
 M_IDENT, M_SPACE, M_CID, M_CCOM, M_CSEQ = range(5)
@@ -27,7 +30,7 @@ M_IDENT, M_SPACE, M_CID, M_CCOM, M_CSEQ = range(5)
 
 def start_state(prev_byte: int, starts_in_seq: bool) -> tuple[int, int]:
     """(prev-is-EOL, parser state) before a block's first byte."""
-    return int(bool(T.IS_EOL[int(prev_byte)])), ST_SEQ if starts_in_seq else ST_ID
+    return int(bool(IS_EOL[int(prev_byte)])), ST_SEQ if starts_in_seq else ST_ID
 
 
 def entry_states(maps: torch.Tensor, st0: int) -> torch.Tensor:
@@ -104,7 +107,8 @@ def classify_fasta_plain(block: torch.Tensor, prev_byte: int, starts_in_seq: boo
 
 
 def tile_maps(block: torch.Tensor, pe0: int, cls: torch.Tensor, lib) -> torch.Tensor:
-    """Kernel pass A: i32[tiles] composed parser map of each 64 KiB tile."""
+    """Kernel pass A: i32[tiles] composed parser map of each 64 KiB tile
+    (the standalone classify's first pass, and the emit's)."""
     n = block.numel()
     g = n_tiles(n)
     maps = torch.empty(g, dtype=torch.int32, device=block.device)
@@ -144,3 +148,113 @@ def classify_fasta(block: torch.Tensor, prev_byte: int, starts_in_seq: bool = Fa
     if block.is_cuda:
         return classify_fasta_kernel(block, prev_byte, starts_in_seq, seq_type=seq_type)
     return classify_fasta_plain(block, prev_byte, starts_in_seq, seq_type=seq_type)
+
+
+# ---------------------------------------------------------------------------
+# FASTQ
+# ---------------------------------------------------------------------------
+
+def classify_fastq_masks(x: torch.Tensor, pe0: int, seq_type: int) -> dict:
+    """Plain per-byte FASTQ classify of u8[B] (the regular 4-line grid of a
+    block cut at a record start): every mask the flags encode, plus the
+    stream/quality value (unexpected id/seq/quality bytes replaced)."""
+    tabs = device_tables(seq_type, x.device)
+    b = x.long()
+    cls = tabs["cls"][b].long()
+    n = b.numel()
+    is_lf = b == 0x0A
+    is_eolc = (cls & CLS_EOL) != 0
+    is_sp = is_eolc | (b == 0x09) | (b == 0x20)
+    pe = torch.cat([torch.tensor([bool(pe0)], device=x.device), is_lf[:-1]])[:n]
+    lane = (torch.cumsum(is_lf.long(), 0) - is_lf.long()) & 3
+    rec_start = (b == ord("@")) & pe & (lane == 0)
+    # header sub-state BEFORE each byte: COMMENT once a non-EOL space has
+    # come since the last EOL (an EOL starts the next header at ID)
+    idx = torch.arange(n, device=x.device)
+    last_r = torch.cummax(torch.where(is_eolc, idx, -1), 0).values
+    csp = torch.cumsum((is_sp & ~is_eolc).long(), 0)
+    com_after = (csp - torch.where(last_r >= 0, csp[last_r.clamp(min=0)], 0)) > 0
+    com = torch.cat([com_after.new_zeros(1), com_after[:-1]])[:n]
+
+    in_hdr = (lane == 0) & ~rec_start & ~is_eolc
+    in_id = in_hdr & ~com & ~is_sp
+    in_com = in_hdr & com
+    unex_text = (cls & CLS_UNEX_TEXT) != 0
+    id_unex = in_id & unex_text
+    seq_keep = (lane == 1) & ~is_sp
+    seq_unex = seq_keep & ((cls & CLS_UNEX_SEQ) != 0)
+    qual_line = (lane == 3) & ~is_lf
+    qual_rest = qual_line & ~pe & ~is_sp
+    qual_unex = qual_rest & ((cls & CLS_UNEX_QUAL) != 0)
+    sval = torch.where(id_unex, tabs["repl_name"],
+                       torch.where(seq_unex, tabs["repl_seq"],
+                                   torch.where(qual_unex, tabs["repl_qual"], b)))
+    return dict(rec_start=rec_start, seq_unex=seq_unex, seq_keep=seq_keep, is_lf=is_lf,
+                id_keep=in_id & ~unex_text, qual_keep=qual_rest | (qual_line & pe),
+                id_unex=id_unex, qual_unex=qual_unex,
+                com_unex=in_com & ((cls & CLS_UNEX_COM) != 0), in_com=in_com,
+                qual_line=qual_line, sval=sval)
+
+
+def _fastq_flags(m: dict) -> torch.Tensor:
+    bits = (m["rec_start"], m["seq_unex"], m["seq_keep"], m["is_lf"],
+            m["id_keep"] | m["qual_keep"], m["id_unex"] | m["qual_unex"] | m["com_unex"],
+            m["in_com"], m["qual_line"])
+    flags = torch.zeros_like(m["sval"])
+    for bit, mask in enumerate(bits):
+        flags |= mask.long() << bit
+    return flags.to(torch.uint8)
+
+
+def classify_fastq_plain(block: torch.Tensor, prev_byte: int, *,
+                         seq_type: int = C.SEQ_TYPE_DNA):
+    """Plain PyTorch version of the FASTQ classify kernel."""
+    m = classify_fastq_masks(block, start_state(prev_byte, False)[0], seq_type)
+    return _fastq_flags(m), m["sval"].to(torch.uint8)
+
+
+def fastq_tile_entry(block: torch.Tensor, cls: torch.Tensor, lib) -> torch.Tensor:
+    """Kernel pass A and the scan after it: i32[tiles, 2], the line index
+    mod 4 and the header sub-state entering each 32 KiB tile (the
+    standalone classify's first pass, and the emit's)."""
+    n = block.numel()
+    g = n_tiles(n, Q_TILE)
+    maps = torch.empty(g, dtype=torch.int32, device=block.device)
+    lfs = torch.empty(g, dtype=torch.int32, device=block.device)
+    build.call(lib, "naf_fastq_tile_maps", block.data_ptr(), n, cls.data_ptr(),
+               maps.data_ptr(), lfs.data_ptr(), g, build.stream_of(block))
+    lane = (torch.cumsum(lfs.long(), 0) - lfs.long()) & 3
+    return torch.stack([lane.int(), entry_states(maps, ST_ID)], 1).contiguous()
+
+
+def classify_fastq_kernel(block: torch.Tensor, prev_byte: int, *,
+                          seq_type: int = C.SEQ_TYPE_DNA, lib=None):
+    """Launch the FASTQ classify kernel on ``block``'s device (``lib`` as in
+    ``classify_fasta_kernel``)."""
+    check_1d(block, torch.uint8, "block")
+    lib = build.kernel_lib(block, lib)
+    tabs = device_tables(seq_type, block.device)
+    n = block.numel()
+    tile_in = fastq_tile_entry(block, tabs["cls"], lib)
+    flags = torch.empty_like(block)
+    sval = torch.empty_like(block)
+    build.call(lib, "naf_classify_fastq", block.data_ptr(), n,
+               start_state(prev_byte, False)[0], tile_in.data_ptr(), tabs["cls"].data_ptr(),
+               tabs["repl_seq"], tabs["repl_name"], tabs["repl_qual"], flags.data_ptr(),
+               sval.data_ptr(), tile_in.shape[0], build.stream_of(block))
+    LAUNCHES["classify_fastq"] += 1
+    return flags, sval
+
+
+def classify_fastq(block: torch.Tensor, prev_byte: int, *, seq_type: int = C.SEQ_TYPE_DNA):
+    """u8[B] -> (flags u8[B], stream/quality value u8[B]).
+
+    ``block`` holds whole FASTQ records on the regular 4-line grid, cut
+    right after a record's leading '@' or at a record start; ``prev_byte``
+    is the byte before it.  A CUDA tensor runs the kernel; a CPU tensor the
+    plain version.
+    """
+    check_1d(block, torch.uint8, "block")
+    if block.is_cuda:
+        return classify_fastq_kernel(block, prev_byte, seq_type=seq_type)
+    return classify_fastq_plain(block, prev_byte, seq_type=seq_type)

@@ -1,10 +1,12 @@
-"""Block splitting, the one-device fused block, and the host stitch helpers.
+"""Block splitting, the one-device fused blocks, and the host stitch helpers.
 
 The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
-(``make_blocks``, ``stitch_packed``, ``stitch_lengths``, ``stitch_runs``,
-``blob_from_lens``), whose module imports jax at load time; the tests hold
-each copy against its original.  ``fused_block`` is the one-device
-counterpart of ``fused_blocks_sharded`` with ``_pack_block``.
+(``make_blocks``, ``make_blocks_fastq``, ``stitch_packed``,
+``stitch_lengths``, ``stitch_runs``, ``blob_from_lens``), whose module
+imports jax at load time; the tests hold each copy against its original.
+``fused_block`` and ``fused_block_fastq`` are the one-device counterparts of
+``fused_blocks_sharded`` and ``fused_blocks_fastq_sharded`` with
+``_pack_block``.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from naf_tpu.format import constants as C
-
-from ..ops.emit_fused import emit_fasta_fused
+from ..format import constants as C
+from ..ops.emit_fused import emit_fasta_fused, emit_fastq_fused
 from ..ops.pack import pack_4bit
 
 _GT = ord(">")
+_AT = ord("@")
 _LF = ord("\n")
 
 
@@ -46,6 +48,28 @@ def fused_block(block, prev: int, sis: bool, parity_base: int, *, seq_type: int,
         r["unex_id"], r["unex_com"], r["unex_seq"], r["longest"],
         r["first_lower"], r["first_sval"]]).to(torch.int32)
     return packed[None], scal[None], r["sp_tv"][None], r["sp_a"][None]
+
+
+def fused_block_fastq(block, prev: int, parity_base: int, *, seq_type: int, device) -> tuple:
+    """Fused FASTQ emit + nibble pack of one block (nucleotide) on
+    ``device``; ``block``, ``prev`` and ``parity_base`` as in ``fused_block``.
+
+    Returns (packed u8[1, B'//2+1], qv u8[1, B'], iv u8[1, B'],
+    scal i32[1, 13], sp_tv, sp_a, sp_b, sp_c i32[1, S]); scal holds [cnt,
+    cnt_seq, n_sp, sp_ok, unex_id, unex_com, unex_seq, longest, first_lower,
+    first_sval, cnt_qual, cnt_id, unex_qual].
+    """
+    x = torch.as_tensor(block).to(device)
+    r = emit_fastq_fused(x, int(prev), seq_type=seq_type)
+    sv = r["sv"]
+    packed = pack_4bit(sv, shift=int(parity_base) % 2, out_len=sv.numel() // 2 + 1)
+    scal = torch.stack([
+        r["cnt"], r["cnt_seq"], r["n_sp"], r["sp_ok"].to(torch.int32),
+        r["unex_id"], r["unex_com"], r["unex_seq"], r["longest"],
+        r["first_lower"], r["first_sval"], r["cnt_qual"], r["cnt_id"],
+        r["unex_qual"]]).to(torch.int32)
+    return (packed[None], r["qv"][None], r["iv"][None], scal[None], r["sp_tv"][None],
+            r["sp_a"][None], r["sp_b"][None], r["sp_c"][None])
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +141,59 @@ def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
             sis[k] = ((e > s) and data[s] != marker
                       and (s > 0 or sis[0]))
     return Blocks(blocks, prev, sis)
+
+
+def make_blocks_fastq(data: np.ndarray, n_blocks: int):
+    """Record-aligned FASTQ blocks; returns (Blocks, n_records) or None.
+
+    Requires the regular 4-line LF grid (every production FASTQ):
+    non-empty lines, '+' third lines, '@' record heads, trailing newline,
+    and no CR/VT/FF anywhere; the reference FASTQ parser treats those as
+    EOL-class, so e.g. a CRLF grid is an error there.  Returning None
+    routes such inputs to the host parser, which raises the reference's
+    message.  ``data`` starts right after the leading '@'.
+    """
+    n = data.size
+    if n == 0 or data[-1] != _LF:
+        return None
+    if np.any((data == 11) | (data == 12) | (data == 13)):
+        return None
+    eol = np.flatnonzero(data == _LF)
+    n_lines = eol.size
+    if n_lines % 4 != 0:
+        return None
+    line_start = np.concatenate([[0], eol[:-1] + 1])
+    if np.any(eol == line_start):           # empty line
+        return None
+    if not np.all(data[line_start[2::4]] == ord("+")):
+        return None
+    if n_lines > 4 and not np.all(data[line_start[4::4]] == _AT):
+        return None
+
+    rec_starts = line_start[0::4]
+    n_rec = rec_starts.size
+    targets = (np.arange(1, n_blocks) * n) // n_blocks
+    idx = np.searchsorted(rec_starts, targets)
+    cuts = [0]
+    for i in idx:
+        cut = int(rec_starts[i]) if i < rec_starts.size else n
+        if cut > cuts[-1]:
+            cuts.append(cut)
+    while len(cuts) < n_blocks + 1:
+        cuts.append(n)
+    cuts = cuts[: n_blocks + 1]
+    cuts[-1] = n
+
+    B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
+    B += B % 2
+    blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
+    prev = np.full(n_blocks, _LF, dtype=np.uint8)
+    prev[0] = _AT
+    for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+        blocks[k, : e - s] = data[s:e]
+        if k > 0 and s > 0:
+            prev[k] = data[s - 1]
+    return Blocks(blocks, prev, np.zeros(n_blocks, bool)), n_rec
 
 
 # ---------------------------------------------------------------------------

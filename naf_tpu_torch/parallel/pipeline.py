@@ -1,20 +1,25 @@
-"""Device FASTA encode on one device: bytes -> fused block -> NAF archive.
+"""Device FASTA and FASTQ encode on one device: bytes -> fused block -> NAF
+archive.
 
 ``encode_device`` is the one-device counterpart of
-``naf_tpu/parallel/pipeline.py:encode_sharded`` on its fused FASTA path:
-the kernels classify, compact and pack the input, and the host stitches
-the sparse tables and writes the container through ``naf_tpu``'s shared
-``build_archive``, so the archive is byte-identical to host ``encode()``.
+``naf_tpu/parallel/pipeline.py:encode_sharded`` on its fused paths
+(``_try_encode_fused``, ``_try_encode_fused_fastq``): the kernels classify,
+compact and pack the input, and the host stitches the sparse tables and
+writes the container through the shared ``build_archive``, so the archive
+is byte-identical to host ``encode()``.
 
 Inputs the port does not run on the device yet go to host ``encode()``
 with the same bytes, each by a named route counted in ``device.ROUTES``:
-not FASTA, FASTQ, protein or text, an unsafe ``--well-formed`` input, a
-tile past the sparse cap, or unexpected characters (whose histograms the
-reference takes from its two-pass protocol, not ported yet).
+not FASTA or FASTQ, protein or text, an unsafe ``--well-formed`` input, a
+FASTQ off the regular 4-line grid, a tile past the sparse cap, unexpected
+characters (whose histograms the reference takes from its two-pass
+protocol, not ported yet), or a FASTQ record whose quality length differs
+from its sequence length (the host parser raises the reference's error).
 
 The host helpers below are jax-free copies of the reference's
 (``_wf_device_safe``, ``_merge_hist``, ``_pad2d``, ``parse_fused_fasta``,
-``_stitch_and_build``); the tests hold each against its original.
+``parse_fused_fastq``, ``_stitch_and_build``); the tests hold each against
+its original.
 """
 
 from __future__ import annotations
@@ -24,13 +29,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from naf_tpu.format import constants as C
-from naf_tpu.pipeline import parser as P
-from naf_tpu.pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
-
 from ..device import count_route, resolve
-from .block import (blob_from_lens, fused_block, make_blocks, stitch_lengths, stitch_packed,
-                    stitch_runs)
+from ..format import constants as C
+from ..ops.mask import runs_to_units
+from ..ops.tables import NUC_CODE
+from ..pipeline import parser as P
+from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
+from .block import (blob_from_lens, fused_block, fused_block_fastq, make_blocks,
+                    make_blocks_fastq, stitch_lengths, stitch_packed, stitch_runs)
 
 
 def _host(a) -> np.ndarray:
@@ -45,9 +51,9 @@ def _host_route(reason: str, data: bytes, opts: EncodeOptions):
 
 def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
                   ) -> tuple[bytes, EncodeStats]:
-    """FASTA encode with the kernels on ``device`` ('cuda' or, asked for
-    explicitly, 'cpu' for the plain versions); archive bytes equal host
-    ``encode(data, opts)``."""
+    """FASTA or FASTQ encode with the kernels on ``device`` ('cuda' or,
+    asked for explicitly, 'cpu' for the plain versions); archive bytes equal
+    host ``encode(data, opts)``."""
     dev = resolve(device)
     opts = opts or EncodeOptions()
     fmt, marker = P.detect_format(data)
@@ -55,15 +61,16 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
             and opts.in_format != fmt):
         raise P.InputError(
             "input format is different from format specified in the command line")
-    if fmt == C.IN_FORMAT_FASTQ:
-        return _host_route("fastq", data, opts)
-    if fmt != C.IN_FORMAT_FASTA:
+    fastq = fmt == C.IN_FORMAT_FASTQ
+    if not fastq and fmt != C.IN_FORMAT_FASTA:
         return _host_route("not_fasta", data, opts)
     if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
         return _host_route("text_like", data, opts)
     body = np.frombuffer(data, np.uint8)[marker + 1:]
-    if opts.well_formed and not _wf_device_safe(body, False):
+    if opts.well_formed and not _wf_device_safe(body, fastq):
         return _host_route("well_formed_unsafe", data, opts)
+    if fastq:
+        return _encode_fastq(data, body, opts, dev)
 
     blocks = make_blocks(body, 1)
     packed_d, scal_d, tv_d, a_d = fused_block(
@@ -82,6 +89,37 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
         1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
         parsed["longest"], zero_hists, parsed["em_np"], fallback=None)
+
+
+def _encode_fastq(data: bytes, body: np.ndarray, opts: EncodeOptions, dev):
+    """The FASTQ branch of ``encode_device`` (``_try_encode_fused_fastq``)."""
+    mb = make_blocks_fastq(body, 1)
+    if mb is None:
+        return _host_route("fastq_irregular", data, opts)
+    blocks, _ = mb
+    outs = fused_block_fastq(blocks.data[0], int(blocks.prev[0]), 0,
+                             seq_type=opts.seq_type, device=dev)
+    scal = _host(outs[3])
+    if not scal[:, 3].all():
+        return _host_route("sparse_overflow", data, opts)
+    if scal[:, 4:7].any() or scal[:, 12].any():
+        return _host_route("unexpected_chars", data, opts)
+    parsed = parse_fused_fastq(1, scal, outs)
+    mismatch = []
+
+    def fallback():
+        mismatch.append(True)
+        return _host_route("qual_length_mismatch", data, opts)
+
+    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    out = _stitch_and_build(
+        1, C.IN_FORMAT_FASTQ, opts, parsed["counts"], parsed["id_bytes"],
+        parsed["com_bytes"], parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"],
+        parsed["first_lower"], parsed["longest"], zero_hists, parsed["em_np"],
+        fallback=fallback)
+    if not mismatch:
+        count_route("encode_device")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +182,7 @@ def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
     n_sp = scal[:, 2].astype(np.int64)
     longest = np.full(D, int(scal[:, 7].max()))
     first_lower = scal[:, 8] == 2
-    from naf_tpu.ops import tables as T
-
-    first_codes = np.asarray(T.NUC_CODE)[scal[:, 9]]
+    first_codes = NUC_CODE[scal[:, 9]]
 
     # sliced fetches: only used prefixes cross the host<->device link
     p_used = max(int((counts.max(initial=1) + 1) // 2) + 1, 1)
@@ -196,14 +232,72 @@ def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
         longest=longest, em_np=em_np)
 
 
+def parse_fused_fastq(D, scal, outs):
+    """Host parse of the fused FASTQ outputs (tensors on any device or numpy
+    arrays; only their used prefixes are fetched); None on sparse-cap
+    overflow or unexpected characters."""
+    packed_d, qv_d, iv_d, _scal_d, tv_d, a_d, b_d, c_d = outs
+    if not scal[:, 3].all() or scal[:, 4:7].any() or scal[:, 12].any():
+        return None
+
+    counts = scal[:, 0].astype(np.int64)
+    cnt_seq = scal[:, 1].astype(np.int64)
+    n_sp = scal[:, 2].astype(np.int64)
+    longest = np.full(D, int(scal[:, 7].max()))
+    first_lower = scal[:, 8] == 2
+    first_codes = NUC_CODE[scal[:, 9]]
+    qual_bytes = scal[:, 10].astype(np.int64)
+    id_bytes = scal[:, 11].astype(np.int64)
+
+    p_used = max(int((counts.max(initial=1) + 1) // 2) + 1, 1)
+    packed = _host(packed_d[:, :p_used])
+    qual_vals = _host(qv_d[:, :max(int(qual_bytes.max(initial=1)), 1)])
+    id_vals = _host(iv_d[:, :max(int(id_bytes.max(initial=1)), 1)])
+    m_sp = max(int(n_sp.max(initial=1)), 1)
+    tv = _host(tv_d[:, :m_sp])
+    av = _host(a_d[:, :m_sp])
+    bv = _host(b_d[:, :m_sp])
+    cv = _host(c_d[:, :m_sp])
+
+    com_vals_l = []
+    seq_lens_l, qual_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], [], []
+    n_rec = np.zeros(D, np.int64)
+    n_runs = np.zeros(D, np.int64)
+    for k in range(D):
+        t = tv[k, :n_sp[k]] >> 8
+        v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
+        com_vals_l.append(v[t == 1])
+        rec = t == 2
+        n_rec[k] = int(rec.sum())
+        for arr, total, sink in ((av, cnt_seq[k], seq_lens_l), (bv, qual_bytes[k], qual_lens_l),
+                                 (cv, id_bytes[k], id_lens_l)):
+            x = arr[k, :n_sp[k]].astype(np.int64)
+            sink.append(np.diff(np.concatenate([[0], x[rec], [total]])))
+        at = np.flatnonzero(rec)
+        ccom = np.cumsum(t == 1)
+        mid = ccom[at] if at.size else np.zeros(0, np.int64)
+        com_lens_l.append(np.diff(np.concatenate([[0], mid, [int((t == 1).sum())]])))
+        j = av[k, :n_sp[k]].astype(np.int64)[t == 3]
+        run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
+                          if counts[k] > 0 else np.zeros(0, np.int64))
+        n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
+
+    em_np = [packed, first_codes, counts,
+             id_vals, _pad2d(D, com_vals_l, np.uint8), qual_vals,
+             _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
+             _pad2d(D, com_lens_l), _pad2d(D, qual_lens_l),
+             _pad2d(D, run_lens_l, np.int64)]
+    return dict(
+        counts=counts, id_bytes=id_bytes,
+        com_bytes=np.array([r.size for r in com_vals_l], np.int64),
+        qual_bytes=qual_bytes, n_rec=n_rec, n_runs=n_runs,
+        first_lower=first_lower, longest=longest, em_np=em_np)
+
+
 def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
                       n_rec, n_runs, first_lower, longest, hists, em_np,
-                      fallback, prebuilt=None):
-    """Host carry stitching (O(blocks + records + runs)) + container.
-
-    ``prebuilt`` injects ready SEQ/QUAL sections (em_np then carries
-    zero-width packed/qual arrays).
-    """
+                      fallback):
+    """Host carry stitching (O(blocks + records + runs)) + container."""
     fastq = fmt == C.IN_FORMAT_FASTQ
     (packed, first_codes, cnt2, id_vals, com_vals, qual_vals,
      seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
@@ -236,26 +330,10 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
     res.longest_line = int(longest[0])
 
     total_chars = int(counts.sum())
-    text_like = opts.seq_type >= C.SEQ_TYPE_PROTEIN
-    if text_like:
-        # protein/text archives store raw bytes: per-block compacted char
-        # streams concatenate directly (no nibble parity); build_archive
-        # upper-cases under --no-mask
-        res.seq = (np.concatenate(
-            [packed[k, : int(counts[k])] for k in range(D)])
-            if total_chars else np.zeros(0, np.uint8)).astype(np.uint8)
-        res.packed = None
-    else:
-        res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
-        if prebuilt is None:
-            res.packed = stitch_packed(packed, counts, first_codes)
-        else:
-            res.packed = np.zeros(0, np.uint8)   # payload arrives prebuilt
+    res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
+    res.packed = stitch_packed(packed, counts, first_codes)
 
-    store_mask = not opts.no_mask and not text_like
-    if store_mask:
-        from naf_tpu.ops.mask import runs_to_units
-
+    if not opts.no_mask:
         runs, state_first = stitch_runs(
             [run_lens[k, : int(n_runs[k])] for k in range(D)],
             [bool(first_lower[k]) for k in range(D)])
@@ -263,11 +341,9 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
             runs = np.concatenate([[0], runs])   # leading masked run
         res.mask_units = runs_to_units(runs)
 
-    if fastq and prebuilt is None:
+    if fastq:
         res.qual = np.concatenate(
             [qual_vals[k, : int(qual_bytes[k])] for k in range(D)])
-    elif fastq:
-        res.qual = np.zeros(int(counts.sum()), np.uint8)   # size only
 
     res.unexpected_id = _merge_hist(hists[0][0], hists[1][0])
     res.unexpected_comment = _merge_hist(hists[2][0], hists[3][0])
@@ -283,4 +359,4 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
         unexpected_qual=res.unexpected_qual,
         in_format=fmt,
     )
-    return build_archive(res, opts, stats, prebuilt=prebuilt)
+    return build_archive(res, opts, stats)

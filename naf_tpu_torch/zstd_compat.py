@@ -1,22 +1,22 @@
-"""A stand-in for the ``zstandard`` module where only the system libzstd
-exists.
+"""The system libzstd through ctypes, as the port's codec calls it.
 
-``naf_tpu.codec`` imports ``zstandard`` at module scope.  On a host that has
-the system libzstd but not that Python package (a CUDA machine set up for
-PyTorch, for one), the port's host stack still has to import and run.
-``install()`` registers a module of that name offering the part of the
-package's API that ``naf_tpu.codec`` calls (compressors with a level, a
-window log, long-distance matching and worker threads; one-shot
-decompression), implemented over the system library through ctypes.  Where
-the real package imports, nothing is replaced.
+``codec.zstd_backend`` compresses through this module whenever the system
+libzstd is there (the library the reference binaries link, as
+``naf_tpu/codec/syszstd.py`` does for the JAX package), and decompresses
+through the ``zstandard`` package where it imports, else through this module
+too.  Its classes offer the part of the package's API the codec calls
+(compressors with a level, a window log, long-distance matching and worker
+threads; one-shot and streaming decompression), so a host with the system
+library but not the package (a CUDA machine set up for PyTorch, for one)
+runs the codec unchanged.  Its compressors make the same calls, in the same
+order, as ``naf_tpu/codec/syszstd.py``, so both write the same frames.
 """
 
 from __future__ import annotations
 
 import ctypes as ct
 import ctypes.util
-import sys
-import types
+import threading
 
 # stable public libzstd enum values
 _C_LEVEL, _C_WINDOWLOG, _C_ENABLE_LDM, _C_CONTENTSIZE, _C_NBWORKERS = 100, 101, 160, 200, 400
@@ -24,19 +24,29 @@ _D_WINDOWLOG_MAX = 100
 _E_CONTINUE, _E_END = 0, 2
 
 COMPRESSOBJ_FLUSH_FINISH = 0
-COMPRESSOBJ_FLUSH_BLOCK = 1
 
 _lib = None
+_tried = False
+_lock = threading.Lock()
 
 
 class ZstdError(Exception):
     pass
 
 
-def _libzstd():
-    global _lib
-    if _lib is not None:
+def system_lib():
+    """The system libzstd, bound, or None where there is none (or one
+    older than 1.4, which lacks ZSTD_compressStream2).  The codec's
+    section threads may ask first, so the lookup runs under a lock."""
+    global _lib, _tried
+    with _lock:
+        if not _tried:
+            _lib = _bind_system_lib()
+            _tried = True
         return _lib
+
+
+def _bind_system_lib():
     lib = None
     for name in (ctypes.util.find_library("zstd"), "libzstd.so.1", "libzstd.so"):
         if not name:
@@ -47,7 +57,10 @@ def _libzstd():
         except OSError:
             continue
     if lib is None:
-        raise ImportError("neither the zstandard package nor a system libzstd is available")
+        return None
+    lib.ZSTD_versionNumber.restype = ct.c_uint
+    if lib.ZSTD_versionNumber() < 10400:
+        return None
     P, S = ct.c_void_p, ct.c_size_t
     for fn, res, args in (
             ("ZSTD_createCCtx", P, []), ("ZSTD_freeCCtx", S, [P]),
@@ -58,10 +71,17 @@ def _libzstd():
             ("ZSTD_createDCtx", P, []), ("ZSTD_freeDCtx", S, [P]),
             ("ZSTD_DCtx_setParameter", S, [P, ct.c_int, ct.c_int]),
             ("ZSTD_decompressDCtx", S, [P, P, S, ct.c_char_p, S]),
+            ("ZSTD_decompressStream", S, [P, P, P]), ("ZSTD_DStreamOutSize", S, []),
             ("ZSTD_isError", ct.c_uint, [S]), ("ZSTD_getErrorName", ct.c_char_p, [S])):
         f = getattr(lib, fn)
         f.restype, f.argtypes = res, args
-    _lib = lib
+    return lib
+
+
+def _libzstd():
+    lib = system_lib()
+    if lib is None:
+        raise ImportError("neither the zstandard package nor a system libzstd is available")
     return lib
 
 
@@ -146,8 +166,10 @@ class ZstdCompressor:
         self._p = compression_params or ZstdCompressionParameters(level)
 
     def compress(self, data) -> bytes:
-        """One frame with the content size in its header."""
-        return _Stream(self._p, len(memoryview(data).cast("B"))).pump(data, True)
+        """One frame with the content size in its header (fed, then ended,
+        as naf_tpu/codec/syszstd.py:compress_oneshot does)."""
+        s = _Stream(self._p, len(memoryview(data).cast("B")))
+        return s.pump(data, False) + s.pump(b"", True)
 
     def compressobj(self) -> _CompressObj:
         return _CompressObj(self._p)
@@ -178,20 +200,42 @@ class ZstdDecompressor:
         finally:
             lib.ZSTD_freeDCtx(dctx)
 
-    def decompressobj(self):
-        raise NotImplementedError("streaming decompression needs the zstandard package")
+    def decompressobj(self) -> "_DecompressObj":
+        return _DecompressObj(self._window_log)
 
 
-def install() -> None:
-    """Register this module as ``zstandard`` unless the package imports."""
-    try:
-        import zstandard  # noqa: F401
-        return
-    except ImportError:
-        pass
-    mod = types.ModuleType("zstandard")
-    mod.__doc__ = __doc__
-    for name in ("COMPRESSOBJ_FLUSH_FINISH", "COMPRESSOBJ_FLUSH_BLOCK", "ZstdError",
-                 "ZstdCompressionParameters", "ZstdCompressor", "ZstdDecompressor"):
-        setattr(mod, name, globals()[name])
-    sys.modules["zstandard"] = mod
+class _DecompressObj:
+    """Streaming decompression of one frame through ZSTD_decompressStream."""
+
+    def __init__(self, window_log: int):
+        lib = self._lib = _libzstd()
+        self._dctx = lib.ZSTD_createDCtx()
+        if not self._dctx:
+            raise MemoryError("ZSTD_createDCtx failed")
+        if window_log:
+            _check(lib, lib.ZSTD_DCtx_setParameter(self._dctx, _D_WINDOWLOG_MAX, window_log))
+        self._cap = max(int(lib.ZSTD_DStreamOutSize()), 1 << 17)
+        self._out = ct.create_string_buffer(self._cap)
+
+    def __del__(self):
+        if getattr(self, "_dctx", None):
+            self._lib.ZSTD_freeDCtx(self._dctx)
+            self._dctx = None
+
+    def decompress(self, data) -> bytes:
+        """Every byte the fed input decodes to."""
+        lib = self._lib
+        src = bytes(data)
+        keep = ct.c_char_p(src)
+        inb = _Buf(ct.cast(keep, ct.c_void_p), len(src), 0)
+        chunks = []
+        while True:
+            outb = _Buf(ct.cast(self._out, ct.c_void_p), self._cap, 0)
+            r = _check(lib, lib.ZSTD_decompressStream(self._dctx, ct.byref(outb),
+                                                      ct.byref(inb)))
+            if outb.pos:
+                chunks.append(self._out.raw[:outb.pos])
+            # the output buffer was not filled: all the input is consumed and
+            # flushed, or the frame is complete
+            if outb.pos < self._cap and (inb.pos == inb.size or r == 0):
+                return b"".join(chunks)

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where a device encode and decode spend their time, stage by stage, on one
+CUDA card.
+
+    python3 stage_probe.py [--reps 5]
+
+For bench.py's gen_fastq(500_000, read_len=150), gen_fastq(250_000) and
+gen_fasta_single(128), times each stage of ``encode_device`` and of
+``fasta_device`` / ``fastq_device`` with the host clock (each stage ends
+synchronised; median of --reps), the whole calls, and the host encode()
+and Decoder for comparison.  Then traces one whole encode and one whole
+decode with ``torch.profiler`` and prints the device's busy time (kernels
+and copies) over the wall time of the call.  One JSON line per input and
+direction; the last line says which card, as nvidia-smi names it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stage_probe: no CUDA device", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+
+    import bench
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.format import constants as C
+    from naf_tpu_torch.parallel import decode as PD
+    from naf_tpu_torch.parallel import pipeline as PP
+    from naf_tpu_torch.parallel.block import (fused_block, fused_block_fastq, make_blocks,
+                                              make_blocks_fastq)
+    from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
+    from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+
+    dev = D.cuda_device()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    opts = EncodeOptions(level=1, threads=os.cpu_count() or 0)
+
+    def med(fn) -> float:
+        fn()                                  # warm-up
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    def busy_share(fn) -> dict:
+        """Device time of kernels and copies over the wall time of one call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us = sum(e.device_time_total for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev_us <= 0:
+            return {"device_busy_s": None, "wall_s": wall, "idle_share": None}
+        return {"device_busy_s": dev_us / 1e6, "wall_s": wall,
+                "idle_share": max(0.0, 1 - dev_us / 1e6 / wall)}
+
+    inputs = [("gen_fastq(500000,read_len=150)", bench.gen_fastq(500_000, read_len=150)),
+              ("gen_fastq(250000)", bench.gen_fastq(250_000)),
+              ("gen_fasta_single(128)", bench.gen_fasta_single(128))]
+    for name, data in inputs:
+        fastq = data[:1] == b"@"
+        body = np.frombuffer(data, np.uint8)[(1 if fastq else data.index(b">") + 1):]
+        st = {}
+        if fastq:
+            st["make_blocks"] = med(lambda: make_blocks_fastq(body, 1))
+            blocks, _ = make_blocks_fastq(body, 1)
+        else:
+            st["make_blocks"] = med(lambda: make_blocks(body, 1))
+            blocks = make_blocks(body, 1)
+        host_block = blocks.data[0]
+        st["upload"] = med(lambda: torch.from_numpy(host_block).to(dev))
+        x = torch.from_numpy(host_block).to(dev)
+        if fastq:
+            st["kernels"] = med(lambda: fused_block_fastq(x, int(blocks.prev[0]), 0, seq_type=0,
+                                                          device=dev))
+            outs = fused_block_fastq(x, int(blocks.prev[0]), 0, seq_type=0, device=dev)
+
+            def parse():
+                return PP.parse_fused_fastq(1, outs[3].cpu().numpy(), outs)
+        else:
+            st["kernels"] = med(lambda: fused_block(x, int(blocks.prev[0]), False, 0, seq_type=0,
+                                                    device=dev))
+            outs = fused_block(x, int(blocks.prev[0]), False, 0, seq_type=0, device=dev)
+
+            def parse():
+                packed, scal, tv, a = outs
+                return PP.parse_fused_fasta(1, scal.cpu().numpy(), packed, tv, a)
+        st["fetch_and_parse"] = med(parse)
+        p = parse()
+        zero = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+        fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
+        qual_bytes = p.get("qual_bytes", np.zeros(1, np.int64))
+        st["stitch_and_build"] = med(lambda: PP._stitch_and_build(
+            1, fmt, opts, p["counts"], p["id_bytes"], p["com_bytes"], qual_bytes, p["n_rec"],
+            p["n_runs"], p["first_lower"], p["longest"], zero, p["em_np"], fallback=None))
+        st["encode_device"] = med(lambda: PP.encode_device(data, opts, device=dev))
+        st["host_encode"] = med(lambda: encode(data, opts))
+        enc_busy = busy_share(lambda: PP.encode_device(data, opts, device=dev))
+        print(json.dumps({"input": name, "direction": "encode", "bytes": len(data),
+                          "seconds": st, **enc_busy, "card": card}), flush=True)
+        del x, outs
+        torch.cuda.empty_cache()
+
+        blob = encode(data, opts)[0]
+        sd = {}
+
+        def plan():
+            d = Decoder(io.BytesIO(blob))
+            if fastq:
+                return d._plan(PD.MODE_FASTQ, False) + (d._load_qual(),)
+            return d._fasta_plan(d.masking) + (None,)
+        sd["container_zstd_plan"] = med(plan)
+        pl, raw, qual = plan()
+        sd["upload_session"] = med(lambda: PD.regular_session(pl, raw, qual, device=dev))
+        run = PD.regular_session(pl, raw, qual, device=dev)
+        sd["render_on_card"] = med(run)
+        out = run()
+        sd["fetch_output"] = med(lambda: out.cpu().numpy().tobytes())
+        device_decode = ((lambda: fastq_device(Decoder(io.BytesIO(blob)), device=dev)) if fastq
+                         else (lambda: fasta_device(Decoder(io.BytesIO(blob)), device=dev)))
+        sd["decode_device"] = med(device_decode)
+        sd["host_decode"] = med(lambda: (Decoder(io.BytesIO(blob)).fastq() if fastq
+                                         else Decoder(io.BytesIO(blob)).fasta()))
+        dec_busy = busy_share(device_decode)
+        print(json.dumps({"input": name, "direction": "decode", "bytes": pl.total_out,
+                          "seconds": sd, **dec_busy, "card": card}), flush=True)
+        del run, out
+        torch.cuda.empty_cache()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

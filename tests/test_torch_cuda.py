@@ -8,7 +8,9 @@ with a card:
 
 The first test to run builds the kernels with nvcc (a few seconds).  The
 inputs are the seeded cases of torch_cases.py; everything is integer or
-bytes, so the tolerance is 0.
+bytes, so the tolerance is 0.  The archives and renders are held against
+the port's own host encode() and Decoder, which the CPU tests hold against
+naf_tpu's.
 """
 
 from __future__ import annotations
@@ -19,20 +21,19 @@ import numpy as np
 import pytest
 import torch
 
-import naf_tpu_torch  # noqa: F401  (first: stands in for a missing zstandard package)
-from naf_tpu.format import constants as C
-from naf_tpu.pipeline.decoder import DecodeOptions, Decoder
-from naf_tpu.pipeline.encoder import EncodeOptions, encode
 from naf_tpu_torch import device as D
+from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.ops import emit_fused as EF
 from naf_tpu_torch.ops import pack as PK
 from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
-from naf_tpu_torch.ops.common import TILE
+from naf_tpu_torch.ops.common import Q_TILE, TILE
 from naf_tpu_torch.parallel.pipeline import encode_device
-from naf_tpu_torch.pipeline.decoder import fasta_device
-from torch_cases import (CLASSIFY_CASES, EMIT_CASES, case_change_behind_tile_start,
-                         classify_case, emit_case)
+from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
+from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+from torch_cases import (CLASSIFY_CASES, EMIT_CASES, FASTQ_CASES, case_change_behind_tile_start,
+                         classify_case, emit_case, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,6 +133,36 @@ def test_mask_parity_kernel_on_card(card, n):
         assert torch.equal(EF.apply_mask_parity_kernel(c, t), EF.apply_mask_parity_plain(c, t))
 
 
+@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("name", FASTQ_CASES)
+def test_fastq_kernels_on_card(card, name, seq_type):
+    x = _on(fastq_case(name), card)
+    flags, sval = SF.classify_fastq_kernel(x, ord("@"), seq_type=seq_type)
+    f_ref, v_ref = SF.classify_fastq_plain(x, ord("@"), seq_type=seq_type)
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+    _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@"), seq_type=seq_type),
+                        EF.emit_fastq_plain(x, ord("@"), seq_type=seq_type))
+
+
+@pytest.mark.parametrize("where", ["header", "quality"])
+def test_emit_fastq_case_change_at_tile_first_kept_byte_on_card(card, where):
+    x = _on(fastq_case_change_behind_tile_start(where), card)
+    _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@")), EF.emit_fastq_plain(x, ord("@")))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, Q_TILE - 1, Q_TILE + 1, 3 * Q_TILE + 333,
+                               500 * Q_TILE + 5])
+def test_fastq_kernels_ragged_lengths_on_card(card, n):
+    body = fastq_reads(np.random.default_rng(64 + n), 2 + n // 150,
+                       alphabet=b"ACGTacgtN@+ \x01")[:n]
+    for k in (0, 3):
+        x = _on(body, card, k)
+        f, v = SF.classify_fastq_kernel(x, ord("@"))
+        f_ref, v_ref = SF.classify_fastq_plain(x, ord("@"))
+        assert torch.equal(f, f_ref) and torch.equal(v, v_ref)
+        _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@")), EF.emit_fastq_plain(x, ord("@")))
+
+
 def test_wrappers_launch_on_cuda_tensors(card):
     """The public wrappers take the kernel, never the plain version, for a
     CUDA tensor, and count each launch."""
@@ -143,9 +174,13 @@ def test_wrappers_launch_on_cuda_tensors(card):
     packed = PK.pack_4bit(r["sv"])
     chars = UP.unpack_4bit(packed)
     EF.apply_mask_parity(chars, torch.zeros_like(chars))
+    q = _on(fastq_case("masked"), card)
+    EF.emit_fastq_fused(q, ord("@"))
+    SF.classify_fastq(q, ord("@"))
     torch.cuda.synchronize()
     assert D.LAUNCHES == {"emit_fasta": 1, "classify_fasta": 1, "pack_4bit": 1,
-                          "unpack_4bit": 1, "apply_mask_parity": 1}
+                          "unpack_4bit": 1, "apply_mask_parity": 1, "emit_fastq": 1,
+                          "classify_fastq": 1}
 
 
 def _records(seed: int, n_rec: int, sl: int, L: int = 70) -> bytes:
@@ -178,3 +213,26 @@ def test_round_trip_on_card(card, name, data, opts):
     assert out == data
     assert min(D.LAUNCHES[k] for k in ("emit_fasta", "pack_4bit", "unpack_4bit")) == 1
     assert D.LAUNCHES["apply_mask_parity"] == (0 if opts.no_mask else 1)
+
+
+def _fastq_uniform(n: int, read_len: int, seed: int) -> bytes:
+    body = fastq_masked_reads(np.random.default_rng(seed), n, read_len)
+    return (b"@" + body.tobytes()).replace(b" len%d" % read_len, b"")
+
+
+@pytest.mark.parametrize("name,data,opts", [
+    ("reads", lambda: _fastq_uniform(20_000, 150, 1), EncodeOptions()),
+    ("long_reads", lambda: _fastq_uniform(40, 60_000, 2), EncodeOptions()),
+    ("rna_no_mask", lambda: _fastq_uniform(5_000, 100, 3).replace(b"T", b"U").replace(b"t", b"u"),
+     EncodeOptions(seq_type=C.SEQ_TYPE_RNA, no_mask=True)),
+])
+def test_fastq_round_trip_on_card(card, name, data, opts):
+    data = data()
+    D.reset_counts()
+    blob = encode_device(data, opts, device=card)[0]
+    assert blob == encode(data, opts)[0]
+    out = fastq_device(Decoder(io.BytesIO(blob), DecodeOptions()), device=card)
+    assert D.ROUTES == {"encode_device": 1, "decode_device": 1}
+    assert out == Decoder(io.BytesIO(blob), DecodeOptions()).fastq()
+    assert min(D.LAUNCHES[k] for k in ("emit_fastq", "pack_4bit", "unpack_4bit")) == 1
+    assert D.LAUNCHES["apply_mask_parity"] == 0     # FASTQ output is never masked

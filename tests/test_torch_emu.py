@@ -21,16 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-from naf_tpu.format import constants as C
+from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.native import build
 from naf_tpu_torch.ops import emit_fused as EF
 from naf_tpu_torch.ops import pack as PK
 from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
-from naf_tpu_torch.ops.common import TILE
+from naf_tpu_torch.ops.common import Q_TILE, TILE
 
-from torch_cases import (CLASSIFY_CASES, EMIT_CASES, case_change_behind_tile_start,
-                         classify_case, emit_case)
+from torch_cases import (CLASSIFY_CASES, EMIT_CASES, FASTQ_CASES, case_change_behind_tile_start,
+                         classify_case, emit_case, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_reads)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -145,11 +146,48 @@ def test_mask_parity_kernel_matches_plain(emu, n):
                            EF.apply_mask_parity_plain(c, t))
 
 
+@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("name", FASTQ_CASES)
+def test_fastq_kernels_match_plain(emu, name, seq_type):
+    body = fastq_case(name)
+    x = _t(body)
+    flags, sval = SF.classify_fastq_kernel(x, ord("@"), seq_type=seq_type, lib=emu)
+    f_ref, v_ref = SF.classify_fastq_plain(x, ord("@"), seq_type=seq_type)
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+    got = EF.emit_fastq_kernel(x, ord("@"), seq_type=seq_type, lib=emu)
+    _assert_dicts_equal(got, EF.emit_fastq_plain(x, ord("@"), seq_type=seq_type))
+    if name == "sparse_overflow":
+        assert not bool(got["sp_ok"])
+
+
+@pytest.mark.parametrize("where", ["header", "quality"])
+def test_emit_fastq_kernel_case_change_at_tile_first_kept_byte(emu, where):
+    x = _t(fastq_case_change_behind_tile_start(where))
+    _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@"), lib=emu),
+                        EF.emit_fastq_plain(x, ord("@")))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, Q_TILE - 1, Q_TILE + 1, 3 * Q_TILE + 333])
+def test_fastq_kernels_ragged_lengths(emu, n):
+    body = fastq_reads(np.random.default_rng(64 + n), 2 + n // 150,
+                       alphabet=b"ACGTacgtN@+ \x01")[:n]
+    for k in (0, 3):                               # aligned and unaligned input
+        x = _offset(body, k)
+        for prev in (ord("@"), ord("\n")):
+            f, v = SF.classify_fastq_kernel(x, prev, lib=emu)
+            f_ref, v_ref = SF.classify_fastq_plain(x, prev)
+            assert torch.equal(f, f_ref) and torch.equal(v, v_ref)
+            _assert_dicts_equal(EF.emit_fastq_kernel(x, prev, lib=emu),
+                                EF.emit_fastq_plain(x, prev))
+
+
 def test_launchers_refuse_host_tensors_without_the_emulation():
     x = torch.zeros(256, dtype=torch.uint8)
     for launch in (lambda: PK.pack_4bit_kernel(x), lambda: UP.unpack_4bit_kernel(x),
                    lambda: SF.classify_fasta_kernel(x, ord(">")),
                    lambda: EF.emit_fasta_kernel(x, ord(">")),
-                   lambda: EF.apply_mask_parity_kernel(x, x)):
+                   lambda: EF.apply_mask_parity_kernel(x, x),
+                   lambda: SF.classify_fastq_kernel(x, ord("@")),
+                   lambda: EF.emit_fastq_kernel(x, ord("@"))):
         with pytest.raises(ValueError, match="CUDA tensors"):
             launch()

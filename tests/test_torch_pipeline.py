@@ -4,11 +4,12 @@
     output as their naf_tpu.parallel originals;
   * fused_block on the CPU equals fused_blocks_sharded on a 1-device CPU
     mesh (interpret mode);
-  * encode_device(device="cpu") archives equal host encode(), on the
-    device path and on every named host route;
+  * encode_device(device="cpu") archives equal naf_tpu's host encode(), on
+    the device path and on every named host route;
   * fasta_device(device="cpu") gives back the input bytes and equals
     naf_tpu.parallel.decode.render_regular on a 1-device CPU mesh;
-  * the port never imports jax, and asking for CUDA without a card raises.
+  * the port imports neither jax nor naf_tpu, importing it leaves the
+    ``zstandard`` module alone, and asking for CUDA without a card raises.
 """
 
 from __future__ import annotations
@@ -31,18 +32,27 @@ from naf_tpu.parallel import block as RB
 from naf_tpu.parallel import decode as RD
 from naf_tpu.parallel import pipeline as RP
 from naf_tpu.parallel.mesh import block_mesh, block_sharding
-from naf_tpu.pipeline.decoder import DecodeOptions, Decoder
-from naf_tpu.pipeline.encoder import EncodeOptions, encode
+from naf_tpu.pipeline import decoder as RDEC
+from naf_tpu.pipeline import encoder as RENC
 from naf_tpu_torch import device as D
 from naf_tpu_torch.parallel import block as PB
-from naf_tpu_torch.parallel import decode as PD
 from naf_tpu_torch.parallel import pipeline as PP
 from naf_tpu_torch.parallel.pipeline import encode_device
-from naf_tpu_torch.pipeline.decoder import fasta_device
+from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
+from naf_tpu_torch.pipeline.encoder import EncodeOptions
 
 from fused_pipeline_cases import _gen, _gen_fq
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def encode(data: bytes, opts: EncodeOptions):
+    """naf_tpu's host encode() with the port's options."""
+    return RENC.encode(data, RENC.EncodeOptions(**vars(opts)))
+
+
+def _ref_decoder(blob: bytes, **kw) -> RDEC.Decoder:
+    return RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions(**kw))
 
 
 def _body(data: bytes) -> np.ndarray:
@@ -133,14 +143,14 @@ def test_fused_block_and_parse_match():
         assert np.array_equal(got[k], want[k]), k
     for x, y in zip(got["em_np"], want["em_np"]):
         assert np.array_equal(x, y)
-    opts = EncodeOptions()
     zero = [np.zeros((1, 256), np.uint32) for _ in range(8)]
-    args = (1, C.IN_FORMAT_FASTA, opts, want["counts"], want["id_bytes"],
-            want["com_bytes"], np.zeros(1, np.int64), want["n_rec"], want["n_runs"],
-            want["first_lower"], want["longest"], zero, want["em_np"])
-    assert (PP._stitch_and_build(*args, fallback=None)[0]
-            == RP._stitch_and_build(*args, fallback=None)[0]
-            == encode(data, opts)[0])
+    args = (want["counts"], want["id_bytes"], want["com_bytes"], np.zeros(1, np.int64),
+            want["n_rec"], want["n_runs"], want["first_lower"], want["longest"], zero,
+            want["em_np"])
+    fmt = C.IN_FORMAT_FASTA
+    assert (PP._stitch_and_build(1, fmt, EncodeOptions(), *args, fallback=None)[0]
+            == RP._stitch_and_build(1, fmt, RENC.EncodeOptions(), *args, fallback=None)[0]
+            == encode(data, EncodeOptions())[0])
 
 
 # ---------------------------------------------------------------------------
@@ -172,21 +182,26 @@ def test_encode_device_equals_host(name):
     assert D.ROUTES == {"encode_device": 1}
 
 
+#: case -> (input, options, the route it takes); FASTQ now runs on the
+#: device, and only a FASTQ off the regular 4-line grid goes to the host
 HOST_ROUTES = {
-    "fastq": (lambda: _gen_fq(), EncodeOptions()),
-    "not_fasta": (lambda: b"", EncodeOptions()),
-    "text_like": (lambda: b">p\nMKVLAT*\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN)),
-    "well_formed_unsafe": (lambda: b">a\nAC GT\n", EncodeOptions(well_formed=True)),
+    "fastq": (lambda: _gen_fq() + b"@last\nACGT\n+\n!!!!", EncodeOptions(), "fastq_irregular"),
+    "not_fasta": (lambda: b"", EncodeOptions(), "not_fasta"),
+    "text_like": (lambda: b">p\nMKVLAT*\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN),
+                  "text_like"),
+    "well_formed_unsafe": (lambda: b">a\nAC GT\n", EncodeOptions(well_formed=True),
+                           "well_formed_unsafe"),
     "unexpected_chars": (lambda: b">r1\nACGTZZACGT\n" + _gen(total=60_000, seed=3),
-                         EncodeOptions()),
+                         EncodeOptions(), "unexpected_chars"),
     "sparse_overflow": (lambda: b"".join(b">h%d very long comment line to overflow\nA\n" % i
-                                         for i in range(3000)), EncodeOptions()),
+                                         for i in range(3000)), EncodeOptions(),
+                        "sparse_overflow"),
 }
 
 
-@pytest.mark.parametrize("route", list(HOST_ROUTES))
-def test_encode_host_routes(route):
-    make, opts = HOST_ROUTES[route]
+@pytest.mark.parametrize("case", list(HOST_ROUTES))
+def test_encode_host_routes(case):
+    make, opts, route = HOST_ROUTES[case]
     data = make()
     D.reset_counts()
     assert encode_device(data, opts, device="cpu")[0] == encode(data, opts)[0]
@@ -194,11 +209,15 @@ def test_encode_host_routes(route):
 
 
 def test_encode_format_mismatch_raises_as_host():
-    from naf_tpu.pipeline.parser import InputError
+    from naf_tpu.pipeline.parser import InputError as RefInputError
+    from naf_tpu_torch.pipeline.parser import InputError
 
     opts = EncodeOptions(in_format=C.IN_FORMAT_FASTQ)
-    with pytest.raises(InputError):
+    with pytest.raises(RefInputError) as ref:
+        encode(b">a\nACGT\n", opts)
+    with pytest.raises(InputError) as got:
         encode_device(b">a\nACGT\n", opts, device="cpu")
+    assert str(got.value) == str(ref.value)
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +258,11 @@ def test_fasta_device_round_trip(name):
     out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu")
     assert D.ROUTES == {"decode_device": 1}
     if opts.no_mask:
-        assert out == Decoder(io.BytesIO(blob), DecodeOptions()).fasta()
+        assert out == _ref_decoder(blob).fasta()
         assert out.upper() == data.upper()
     else:
         assert out == data
-    d = Decoder(io.BytesIO(blob), DecodeOptions())
+    d = _ref_decoder(blob)
     plan, raw = d._fasta_plan(d.masking)
     assert out == RD.render_regular(plan, raw, None, mesh=block_mesh(1))
 
@@ -264,7 +283,7 @@ def test_fasta_device_without_mask_option():
     data = _uniform(seed=6)
     blob = encode(data, EncodeOptions())[0]
     out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions(use_mask=False)), device="cpu")
-    assert out == Decoder(io.BytesIO(blob), DecodeOptions(use_mask=False)).fasta()
+    assert out == _ref_decoder(blob, use_mask=False).fasta()
     assert out != data and out.upper() == data.upper()
 
 
@@ -272,25 +291,67 @@ def test_fasta_device_without_mask_option():
 # package rules
 # ---------------------------------------------------------------------------
 
+def _port_sources() -> list[Path]:
+    return sorted((REPO / "naf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_never_imports_naf_tpu_statically():
+    """No import or from line of the port, or of chip_smoke.py, names
+    naf_tpu (or jax)."""
+    import ast
+
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("naf_tpu", "jax", "jaxlib"), f"{path}:{node.lineno} {name}"
+
+
 def test_port_never_imports_jax():
+    """Every port module imports, and a FASTA and a FASTQ round trip run on
+    the CPU, with neither jax nor any module of naf_tpu loaded."""
     code = r"""
 import importlib, io, pkgutil, sys
 import naf_tpu_torch
 for m in pkgutil.walk_packages(naf_tpu_torch.__path__, "naf_tpu_torch."):
     importlib.import_module(m.name)
-from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
 from naf_tpu_torch.parallel.pipeline import encode_device
-from naf_tpu_torch.pipeline.decoder import fasta_device
+from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
 data = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
 blob = encode_device(data, device="cpu")[0]
-assert fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu") == data
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert fasta_device(Decoder(io.BytesIO(blob)), device="cpu") == data
+fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
+blob = encode_device(fq, device="cpu")[0]
+assert fastq_device(Decoder(io.BytesIO(blob)), device="cpu") == fq.replace(b"acgt", b"ACGT").replace(b"cc", b"CC")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
+assert not bad, bad
 print("ok")
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = str(REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        env=env, cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_importing_the_port_leaves_zstandard_alone():
+    code = r"""
+import sys
+sys.modules["zstandard"] = None
+import naf_tpu_torch, naf_tpu_torch.codec, naf_tpu_torch.parallel.pipeline
+assert sys.modules["zstandard"] is None
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=str(REPO)), cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
 
@@ -304,29 +365,32 @@ def test_cuda_request_without_card_raises():
     blob = encode(data, EncodeOptions())[0]
     with pytest.raises(RuntimeError, match="CUDA"):
         fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cuda")
+    fq = _gen_fq(50, 40, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_device(fq, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fastq_device(Decoder(io.BytesIO(encode(fq, EncodeOptions())[0])), device="cuda")
     with pytest.raises(ValueError):
         encode_device(data, device=None)
 
 
 def test_round_trip_without_the_zstandard_package():
-    """Where only the system libzstd exists (the CUDA host), the port's
-    stand-in module carries naf_tpu's codec; its archives read back with
-    the real package."""
+    """Where only the system libzstd exists (the CUDA host), the port's own
+    codec compresses and decompresses through it; its archives equal
+    naf_tpu's and read back with the real package."""
     code = r"""
-import io, os, sys
+import io, sys
 sys.modules["zstandard"] = None
-os.environ["NAF_TPU_NO_SYSZSTD"] = "1"
 from naf_tpu_torch.parallel.pipeline import encode_device
-from naf_tpu_torch.pipeline.decoder import fasta_device
-from naf_tpu.pipeline.decoder import Decoder, DecodeOptions
-from naf_tpu.pipeline.encoder import EncodeOptions, encode
-import zstandard
-assert zstandard.__doc__.startswith("A stand-in")
+from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device
+from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+from naf_tpu_torch.codec import zstd_backend
+assert sys.modules["zstandard"] is None and zstd_backend._zstandard is None
 data = open(sys.argv[1], "rb").read()
 for opts in (EncodeOptions(), EncodeOptions(level=5, long_window_log=20, threads=2)):
     blob = encode_device(data, opts, device="cpu")[0]
     assert blob == encode(data, opts)[0]
-    assert fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu") == data
+    assert fasta_device(Decoder(io.BytesIO(blob)), device="cpu") == data
 sys.stdout.buffer.write(blob)
 """
     data = _gen(total=10_000_000, rec_len=2_000_000, seed=14)
@@ -338,4 +402,5 @@ sys.stdout.buffer.write(blob)
     finally:
         path.unlink()
     assert r.returncode == 0, r.stderr.decode()
-    assert Decoder(io.BytesIO(r.stdout), DecodeOptions()).fasta() == data
+    assert r.stdout == encode(data, EncodeOptions(level=5, long_window_log=20, threads=2))[0]
+    assert _ref_decoder(r.stdout).fasta() == data

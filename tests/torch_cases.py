@@ -1,16 +1,18 @@
-"""Seeded byte inputs shared by the naf_tpu_torch kernel tests (numpy only,
-so the tests on the card need no jax).
+"""Seeded byte inputs shared by the naf_tpu_torch kernel tests (numpy and
+the port only, so the tests on the card need neither jax nor naf_tpu).
 
-Classify cases are LF-padded to N_CLASSIFY bytes and emit cases to N_EMIT,
-so the JAX kernels they are held against compile once per length.
+Classify cases are LF-padded to N_CLASSIFY bytes, emit cases to N_EMIT and
+FASTQ cases to N_FASTQ, so the JAX kernels they are held against compile
+once per length.  LF padding is inert: it only closes the open line (in
+FASTQ, it adds empty lines that keep nothing).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from naf_tpu.format import constants as C
-from naf_tpu_torch.ops.common import TILE
+from naf_tpu_torch.format import constants as C
+from naf_tpu_torch.ops.common import Q_TILE, TILE
 
 #: one padded length for every classify case
 N_CLASSIFY = 2 * TILE + 64
@@ -131,3 +133,98 @@ def case_change_behind_tile_start() -> np.ndarray:
     tail = body[TILE + 1:]
     tail[tail != 0x0A] |= 32
     return pad_lf(body, N_EMIT)
+
+
+# ---------------------------------------------------------------------------
+# FASTQ
+# ---------------------------------------------------------------------------
+
+#: one padded length for every FASTQ case (ten 32 KiB emit tiles)
+N_FASTQ = 10 * Q_TILE - 10
+
+
+def fastq_reads(rng, n_rec, max_len=200, alphabet=b"ACGTNacgtZz "):
+    """Reads of random length with comments on two in three headers (the
+    generator of test_scan_fused.py), without the leading '@'."""
+    rows = []
+    for i in range(n_rec):
+        ln = int(rng.integers(1, max_len))
+        seq = rng.choice(np.frombuffer(alphabet, np.uint8), size=ln).tobytes()
+        qual = rng.integers(28, 94, size=ln, dtype=np.uint8).tobytes()
+        com = b" c%d @x" % i if i % 3 else b""
+        rows.append(b"@read%d%s\n%s\n+\n%s\n" % (i, com, seq, qual))
+    return np.frombuffer(b"".join(rows), np.uint8)[1:]
+
+
+def fastq_masked_reads(rng, n_reads=300, read_len=90, masked=True):
+    """Fixed-length reads, a lowercase run in one read of three (the
+    generator of test_emit_fused.py), without the leading '@'."""
+    out = []
+    for i in range(n_reads):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=read_len)
+        if masked and i % 3 == 0:
+            seq[10:60] |= 32
+        qual = rng.integers(35, 74, size=read_len, dtype=np.uint8)
+        com = b" len%d" % read_len if i % 4 else b""
+        out.append(b"@rd%04d%s\n%s\n+\n%s\n" % (i, com, seq.tobytes(), qual.tobytes()))
+    return np.frombuffer(b"".join(out), np.uint8)[1:]
+
+
+def fastq_case(name: str) -> np.ndarray:
+    """The LF-padded body (past the leading '@') of one FASTQ case."""
+    if name == "multi_tile":
+        return pad_lf(fastq_reads(np.random.default_rng(11), 1200), N_FASTQ)
+    if name == "long_reads":             # reads longer than a tile
+        return pad_lf(fastq_reads(np.random.default_rng(12), 4, max_len=2 * TILE // 3), N_FASTQ)
+    if name == "weird_bytes":            # '@'/'+' in qualities, unexpected chars everywhere
+        return pad_lf(fastq_reads(np.random.default_rng(13), 300,
+                                  alphabet=b"ACGT@+>\x01~ acgt"), N_FASTQ)
+    if name == "lf_tail":
+        return pad_lf(np.frombuffer(b"r1\nACGT\n+\n!!!!\n" + b"\n" * 37, np.uint8), N_FASTQ)
+    if name == "masked":
+        return pad_lf(fastq_masked_reads(np.random.default_rng(20), 900, 120), N_FASTQ)
+    if name == "tiny_unexpected":
+        return pad_lf(np.frombuffer(b"r1 c\nACGT\n+\n!!!!\n@r2\nNNZA\n+\n!!\x7f!\n", np.uint8),
+                      N_FASTQ)
+    if name == "varied":
+        rng = np.random.default_rng(21)
+        out = []
+        for i in range(200):
+            ln = int(rng.integers(1, 200))
+            seq = rng.choice(np.frombuffer(b"ACGTacgt", np.uint8), size=ln)
+            qual = rng.integers(33, 100, size=ln, dtype=np.uint8)
+            out.append(b"@x%d\n%s\n+\n%s\n" % (i, seq.tobytes(), qual.tobytes()))
+        return pad_lf(np.frombuffer(b"".join(out), np.uint8)[1:], N_FASTQ)
+    if name == "sparse_overflow":        # a tile of comment bytes past the cap
+        rows = [b"@r%d %s\nA\n+\n!\n" % (i, b"c" * 300) for i in range(300)]
+        return pad_lf(np.frombuffer(b"".join(rows), np.uint8)[1:], N_FASTQ)
+    raise KeyError(name)
+
+
+FASTQ_CASES = ["multi_tile", "long_reads", "weird_bytes", "lf_tail", "masked",
+               "tiny_unexpected", "varied", "sparse_overflow"]
+
+
+def fastq_case_change_behind_tile_start(where: str) -> np.ndarray:
+    """Reads of 100 bases, upper case up to the read at which the second
+    32 KiB tile starts (the edge falls inside its header, or inside the
+    quality line of the read before it) and lower case from there on: the
+    tile's first kept byte is a case change but not its first byte.
+
+    Layout of the body (past the leading '@'): a first record with an
+    h-byte header, then 212-byte records "@r%05d\\n" + seq + "\\n+\\n" +
+    qual + "\\n" whose j-th '@' sits at h + 7 + 212 j.
+    """
+    j, h, edge = {"header": (154, 110, 3), "quality": (153, 175, 150)}[where]
+    assert h + 7 + 212 * j + edge == Q_TILE
+    first_lower = j if where == "header" else j + 1
+    rng = np.random.default_rng(70)
+    rows = [b"@" + b"p" * h + b"\nA\n+\n!\n"]
+    for i in range(300):
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=100)
+        if i >= first_lower:
+            seq |= 32
+        qual = rng.integers(35, 74, size=100, dtype=np.uint8)
+        rows.append(b"@r%05d\n%s\n+\n%s\n" % (i, seq.tobytes(), qual.tobytes()))
+    body = np.frombuffer(b"".join(rows), np.uint8)[1:]
+    return pad_lf(body, N_FASTQ)
