@@ -5,11 +5,12 @@ runs on the one device a caller names.  There is no automatic choice: the
 CPU is used only when asked for, and asking for CUDA without a card raises.
 
 ``LAUNCHES`` counts kernel launches, one entry per hand kernel; a wrapper
-adds one where it launches its kernel and nowhere else.  The main paths
-never launch a standalone classify: each emit kernel runs its classify as
-device code inside its own passes, counted as the emit.  ``ROUTES`` counts
-which way the encode and decode entry points went: the device path, or a
-named host route for inputs the port does not run on the device yet.
+adds one where it launches its kernel and nowhere else.  The fused paths
+run each classify as device code inside its emit kernel, counted as the
+emit; the two-pass encode launches the standalone classifies.
+``ROUTES`` counts which way the encode and decode entry points went: the
+fused or two-pass device encode, the uniform or ragged device render, or a
+named host route.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ LAUNCHES: dict[str, int] = {
     "apply_mask_parity": 0,
     "emit_fastq": 0,
     "classify_fastq": 0,
+    "cumsum_i32": 0,
+    "maxscan_i32": 0,
+    "compact": 0,
+    "compact_dense": 0,
 }
 
 ROUTES: dict[str, int] = {}

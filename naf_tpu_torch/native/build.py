@@ -45,6 +45,8 @@ SIGNATURES = {
     "naf_emit_fastq_summary": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _I, _P],
     "naf_emit_fastq_write": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _I, _P],
+    "naf_scan_i32": [_P, _I, _L, _I, _P, _P, _P, _I, _P],
+    "naf_compact": [_P, _I, _P, _L, _P, _P, _P, _I, _P],
 }
 
 _lib = None

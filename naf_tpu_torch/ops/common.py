@@ -10,14 +10,20 @@ TILE = 1 << 16
 #: bytes per tile of the FASTQ kernels (csrc/classify_fastq.cuh Q_TILE; the
 #: TPU FASTQ emit's _TILE_Q, so its per-tile sparse cap means the same)
 Q_TILE = 1 << 15
+#: elements per tile of the scan and compaction kernels (csrc/scan.cuh
+#: SCAN_TILE); nothing outside the kernels depends on it
+SCAN_TILE = 1 << 13
 
 
-def check_1d(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+def check_1d(t: torch.Tensor, dtype, name: str) -> None:
+    """Raise unless t is a contiguous 1-D tensor of ``dtype`` (or of one of
+    a tuple of dtypes) on the CPU or a CUDA device."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
-                         f"got {t.dtype} of shape {tuple(t.shape)}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {' or '.join(map(str, dtypes))} "
+                         f"tensor, got {t.dtype} of shape {tuple(t.shape)}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 

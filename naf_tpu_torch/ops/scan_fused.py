@@ -1,10 +1,13 @@
-"""FASTA and FASTQ byte classify: the port of ``naf_tpu/ops/scan_fused.py``'s
-``classify_fasta_fused`` and ``classify_fastq_fused``.
+"""FASTA and FASTQ byte classify and the i32 prefix scans: the port of
+``naf_tpu/ops/scan_fused.py``'s ``classify_fasta_fused``,
+``classify_fastq_fused``, ``cumsum_i32_pallas``, ``maxscan_i32_pallas``,
+``scan_fasta_fused`` and ``scan_fastq_fused``.
 
-On the main path each classify runs inside its emit kernel
+On the fused encode each classify runs inside its emit kernel
 (``csrc/classify.cuh``, ``csrc/classify_fastq.cuh``); ``classify_fasta`` and
-``classify_fastq`` are the standalone launches, which the tests and
-``chip_smoke.py`` hold against the JAX kernels and the plain versions.
+``classify_fastq`` are the standalone launches of the two-pass encode,
+which ``scan_fasta_fused`` and ``scan_fastq_fused`` turn into its masks.
+``cumsum_i32`` and ``maxscan_i32`` run ``csrc/scan.cu``.
 
 FASTA flag bits as the TPU kernel: bit0 marker, bit1 seq_unex, bit2 seq_keep,
 bit3 is_eol, bit4 id_keep, bit5 id_unex, bit6 in_com, bit7 com_unex.
@@ -20,7 +23,7 @@ import torch
 from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
-from .common import Q_TILE, check_1d, n_tiles
+from .common import Q_TILE, SCAN_TILE, check_1d, n_tiles
 from .tables import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT, IS_EOL,
                      device_tables)
 
@@ -258,3 +261,131 @@ def classify_fastq(block: torch.Tensor, prev_byte: int, *, seq_type: int = C.SEQ
     if block.is_cuda:
         return classify_fastq_kernel(block, prev_byte, seq_type=seq_type)
     return classify_fastq_plain(block, prev_byte, seq_type=seq_type)
+
+
+# ---------------------------------------------------------------------------
+# i32 prefix scans
+# ---------------------------------------------------------------------------
+
+#: the max scan's carry start (the TPU kernel's _NEGBIG): no output is below it
+NEG_BIG = -(1 << 30)
+_SCAN_OPS = {"add": (0, "cumsum_i32"), "max": (1, "maxscan_i32")}
+_SCAN_DTYPES = (torch.bool, torch.uint8, torch.int32)
+
+
+def cumsum_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the add scan."""
+    check_1d(x, _SCAN_DTYPES, "x")
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def maxscan_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the max scan (floored at -2^30)."""
+    check_1d(x, _SCAN_DTYPES, "x")
+    if x.numel() == 0:
+        return torch.zeros(0, dtype=torch.int32, device=x.device)
+    return torch.cummax(x.to(torch.int32), 0).values.clamp(min=NEG_BIG)
+
+
+def scan_i32_kernel(x: torch.Tensor, op: str, *, lib=None) -> torch.Tensor:
+    """Launch the scan kernel, ``op`` 'add' or 'max' (``lib`` as in
+    ``classify_fasta_kernel``)."""
+    check_1d(x, _SCAN_DTYPES, "x")
+    lib = build.kernel_lib(x, lib)
+    code, counter = _SCAN_OPS[op]
+    n = x.numel()
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    if n:
+        g = n_tiles(n, SCAN_TILE)
+        scratch = torch.empty(2 * g + 1, dtype=torch.int32, device=x.device)
+        build.call(lib, "naf_scan_i32", x.data_ptr(), x.element_size(), n, code,
+                   scratch.data_ptr(), scratch[g:].data_ptr(), out.data_ptr(), g,
+                   build.stream_of(x))
+        LAUNCHES[counter] += 1
+    return out
+
+
+def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive i32 prefix sum of a bool, u8 or i32 stream (wrapping as
+    i32).  A CUDA tensor runs the kernel; a CPU tensor the plain version."""
+    if x.is_cuda:
+        return scan_i32_kernel(x, "add")
+    return cumsum_i32_plain(x)
+
+
+def maxscan_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive i32 prefix max, floored at -2^30 as the TPU kernel's carry
+    start floors it.  A CUDA tensor runs the kernel; a CPU tensor the plain
+    version."""
+    if x.is_cuda:
+        return scan_i32_kernel(x, "max")
+    return maxscan_i32_plain(x)
+
+
+# ---------------------------------------------------------------------------
+# the two-pass encode's masks from the standalone classifies
+# ---------------------------------------------------------------------------
+
+def _bit(flags: torch.Tensor, bit: int) -> torch.Tensor:
+    return (flags & (1 << bit)) != 0
+
+
+def scan_fasta_fused(block: torch.Tensor, prev_byte: int, seq_type: int = C.SEQ_TYPE_DNA,
+                     starts_in_seq: bool = False) -> dict:
+    """The masks of a FASTA block (``naf_tpu/ops/scan_fused.py``'s dict of
+    the same name): rec_start, stream_keep/val, seq_keep, is_eol, id_keep,
+    id_unex, com_keep, com_unex, com_val, and the unexpected-byte
+    histograms hist_id, hist_comment, hist_seq (i32[256])."""
+    from .scan import _hist_cond
+
+    flags, sval = classify_fasta(block, prev_byte, starts_in_seq, seq_type=seq_type)
+    seq_unex, seq_keep, id_unex = _bit(flags, 1), _bit(flags, 2), _bit(flags, 5)
+    com_unex = _bit(flags, 7)
+    return dict(
+        rec_start=_bit(flags, 0),
+        stream_keep=seq_keep | seq_unex | id_unex,
+        stream_val=sval,
+        seq_keep=seq_keep | seq_unex,
+        is_eol=_bit(flags, 3),
+        id_keep=_bit(flags, 4),
+        id_unex=id_unex,
+        com_keep=_bit(flags, 6),
+        com_unex=com_unex,
+        com_val=torch.where(com_unex, C.REPLACEMENT_NAME, block),
+        hist_id=_hist_cond(id_unex, block),
+        hist_comment=_hist_cond(com_unex, block),
+        hist_seq=_hist_cond(seq_unex, block),
+    )
+
+
+def scan_fastq_fused(block: torch.Tensor, prev_byte: int,
+                     seq_type: int = C.SEQ_TYPE_DNA) -> dict:
+    """The masks of a FASTQ block: those of ``scan_fasta_fused`` plus
+    qual_keep, qual_unex, qual_val and hist_qual."""
+    from .scan import _hist_cond
+
+    flags, sval = classify_fastq(block, prev_byte, seq_type=seq_type)
+    b45, b5, com_keep, is_qual = _bit(flags, 4), _bit(flags, 5), _bit(flags, 6), _bit(flags, 7)
+    seq_unex, seq_keep = _bit(flags, 1), _bit(flags, 2)
+    id_unex = b5 & ~com_keep & ~is_qual
+    com_unex = b5 & com_keep
+    qual_unex = b5 & is_qual
+    return dict(
+        rec_start=_bit(flags, 0),
+        stream_keep=seq_keep | id_unex,
+        stream_val=torch.where(qual_unex, block, sval),
+        seq_keep=seq_keep,
+        is_eol=_bit(flags, 3),
+        id_keep=b45 & ~is_qual,
+        id_unex=id_unex,
+        com_keep=com_keep,
+        com_unex=com_unex,
+        com_val=torch.where(com_unex, C.REPLACEMENT_NAME, block),
+        qual_keep=b45 & is_qual,
+        qual_unex=qual_unex,
+        qual_val=torch.where(qual_unex, C.REPLACEMENT_QUAL, block),
+        hist_id=_hist_cond(id_unex, block),
+        hist_comment=_hist_cond(com_unex, block),
+        hist_seq=_hist_cond(seq_unex, block),
+        hist_qual=_hist_cond(qual_unex, block),
+    )

@@ -1,4 +1,5 @@
-"""Block splitting, the one-device fused blocks, and the host stitch helpers.
+"""Block splitting, the one-device fused and two-pass blocks, and the host
+stitch helpers.
 
 The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
 (``make_blocks``, ``make_blocks_fastq``, ``stitch_packed``,
@@ -6,7 +7,9 @@ The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
 imports jax at load time; the tests hold each copy against its original.
 ``fused_block`` and ``fused_block_fastq`` are the one-device counterparts of
 ``fused_blocks_sharded`` and ``fused_blocks_fastq_sharded`` with
-``_pack_block``.
+``_pack_block``; ``stats_block`` and ``emit_block`` those of the two-pass
+protocol's ``_stats_fn`` and ``_emit_fn``, each collective taken over its
+one block.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import numpy as np
 import torch
 
 from ..format import constants as C
+from ..ops import scan as S
 from ..ops.emit_fused import emit_fasta_fused, emit_fastq_fused
 from ..ops.pack import pack_4bit
+from ..ops.scan_fused import scan_fasta_fused, scan_fastq_fused
+from ..ops.tables import device_tables
 
 _GT = ord(">")
 _AT = ord("@")
@@ -70,6 +76,178 @@ def fused_block_fastq(block, prev: int, parity_base: int, *, seq_type: int, devi
         r["unex_qual"]]).to(torch.int32)
     return (packed[None], r["qv"][None], r["iv"][None], scal[None], r["sp_tv"][None],
             r["sp_a"][None], r["sp_b"][None], r["sp_c"][None])
+
+
+# ---------------------------------------------------------------------------
+# the two-pass protocol on one block
+# ---------------------------------------------------------------------------
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def _fit(arr: torch.Tensor, cap: int) -> torch.Tensor:
+    """Pad with zeros or slice a 1-D tensor to exactly ``cap`` elements."""
+    n = arr.numel()
+    if n >= cap:
+        return arr[:cap]
+    return torch.cat([arr, arr.new_zeros(cap - n)])
+
+
+def _record_bounds(rec_start: torch.Tensor, r_cap: int) -> torch.Tensor:
+    """i32[r_cap+1] record boundaries [0, marker_1, ..., B, B, ...]: record
+    r spans [bnd[r], bnd[r+1]); rows past the record count are empty."""
+    B = rec_start.numel()
+    starts, n_m = S.compact_best(rec_start, _arange(B, rec_start))
+    starts_r = torch.where(_arange(r_cap, rec_start) < n_m, _fit(starts, r_cap), B)
+    return torch.cat([starts_r.new_zeros(1), starts_r])
+
+
+def _segment_sum_bounds(mask: torch.Tensor, bnd: torch.Tensor) -> torch.Tensor:
+    """i32[r_cap]: set mask bits per record, one prefix count and two
+    record-sized gathers."""
+    cum = S.cumsum_best(mask)
+    e = torch.cat([cum.new_zeros(1), cum])          # e[i] = count before i
+    b = bnd.long()
+    return e[b[1:]] - e[b[:-1]]
+
+
+def _run_stats_uncompacted(keep: torch.Tensor, val: torch.Tensor):
+    """(first_lower, n_runs) of the kept stream's case runs without
+    compacting it: each kept byte against the case of the kept byte before
+    it, found by a max scan of position*2 | lower."""
+    B = keep.numel()
+    lower = keep & (val >= 96)
+    enc = torch.where(keep, _arange(B, keep) * 2 + _i32(lower), S._NEG)
+    m = S.maxscan_best(enc)
+    m_excl = torch.cat([m.new_full((1,), S._NEG), m[:-1]])
+    change = keep & (m_excl >= 0) & (lower != ((m_excl & 1) == 1))
+    n_changes = change.sum(dtype=torch.int32)
+    cum_keep = S.cumsum_best(keep)
+    cnt = cum_keep[-1]
+    n_runs = torch.where(cnt > 0, n_changes + 1, 0)
+    first_lower = (keep & (cum_keep == 1) & lower).any()
+    return first_lower, n_runs
+
+
+def _run_lengths(lower: torch.Tensor, count: torch.Tensor, m_cap: int) -> torch.Tensor:
+    """i32[m_cap] case-run lengths of the compacted stream (its first
+    ``count`` bytes)."""
+    B = lower.numel()
+    idx = _arange(B, lower)
+    prev = torch.cat([lower[:1], lower[:-1]])
+    change = (idx < count) & (idx > 0) & (lower != prev)
+    pos_c, n_changes = S.compact_best(change, idx)
+    j = _arange(m_cap, lower)
+    # boundaries: [0, change_0, ..., change_{k-1}, count]
+    bounds = torch.cat([idx.new_zeros(1), torch.where(j < n_changes, _fit(pos_c, m_cap), 0)])
+    bounds = torch.where(_arange(m_cap + 1, lower) == n_changes + 1, count, bounds)
+    n_runs = torch.where(count > 0, n_changes + 1, 0)
+    return torch.where(j < n_runs, bounds[1:] - bounds[:-1], 0)
+
+
+def _scan_block(b: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
+                fastq: bool) -> dict:
+    """The masks of a block, from the standalone classify kernels; FASTQ
+    adds the quality masks."""
+    if fastq:
+        return scan_fastq_fused(b, prev_byte, seq_type=seq_type)
+    return scan_fasta_fused(b, prev_byte, seq_type=seq_type, starts_in_seq=starts_in_seq)
+
+
+def _hist_split(h: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A histogram as (lo16, hi16) u32 halves, the layout of the reference's
+    psum'd histograms."""
+    hu = h.astype(np.uint32)
+    return (hu & 0xFFFF)[None], (hu >> 16)[None]
+
+
+def stats_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
+                fastq: bool):
+    """Pass 1 on one block: ``_stats_fn`` for one device, in the layout of
+    ``unpack_stats``.
+
+    Returns (scalars, hists): scalars are nine arrays of one element,
+    [count, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
+    first_lower, longest] (odd, the parity of the chars before the block,
+    is False); hists the eight u32[1, 256] halves (lo, hi) of the id,
+    comment, sequence and quality histograms.  One fetch from the device.
+    """
+    s = _scan_block(block, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
+    first_lower, n_runs = _run_stats_uncompacted(s["stream_keep"], s["stream_val"])
+    zero = torch.zeros((), dtype=torch.int32, device=block.device)
+    row = torch.stack([
+        s["stream_keep"].sum(dtype=torch.int32), zero,
+        s["id_keep"].sum(dtype=torch.int32), s["com_keep"].sum(dtype=torch.int32),
+        s["qual_keep"].sum(dtype=torch.int32) if fastq else zero,
+        s["rec_start"].sum(dtype=torch.int32), _i32(n_runs), _i32(first_lower),
+        _i32(S.longest_line_block(s["seq_keep"], s["is_eol"]))])
+    hist_qual = s["hist_qual"] if fastq else torch.zeros_like(s["hist_seq"])
+    h = torch.cat([row, s["hist_id"], s["hist_comment"], s["hist_seq"], hist_qual]).cpu().numpy()
+    scalars = [h[i:i + 1].astype(np.int64) for i in range(9)]
+    scalars[1] = scalars[1].astype(bool)
+    scalars[7] = scalars[7].astype(bool)
+    hists = [half for k in range(4) for half in _hist_split(h[9 + 256 * k: 9 + 256 * (k + 1)])]
+    return scalars, hists
+
+
+def emit_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, odd: int, *,
+               seq_type: int, fastq: bool, pack_nibbles: bool, sizes: dict) -> list:
+    """Pass 2 on one block: ``_emit_fn`` for one device.
+
+    ``odd`` is the parity of the chars before the block; ``sizes`` holds
+    pass 1's ``count``, ``id_bytes``, ``com_bytes``, ``qual_bytes``,
+    ``n_rec`` and ``n_runs`` as ints, which size every output exactly.
+    Nucleotide streams are packed to nibbles (``pack_nibbles``); protein
+    and text keep the compacted bytes and store no mask.  Returns the
+    ``em_np`` list that ``_stitch_and_build`` takes: [packed, first_code,
+    cnt, id_vals, com_vals, qual_vals, seq_lens, id_lens, com_lens,
+    qual_lens, run_lens], host arrays with one row, fetched from the device
+    as one byte buffer and one i32 buffer holding the used prefixes.
+    """
+    b = block
+    cnt = int(sizes["count"])
+    n_rec = int(sizes["n_rec"])
+    s = _scan_block(b, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
+    seq_c, cnt_d = S.compact_best(s["stream_keep"], s["stream_val"], dense=True)
+    if pack_nibbles:
+        # an odd parity leaves the block's first char to the previous one:
+        # pack chars[1:] and give chars[0]'s code apart
+        packed = pack_4bit(seq_c, shift=int(odd), out_len=(cnt + 1) // 2 + 1)
+        first_code = device_tables(seq_type, b.device)["nuc_code"][seq_c[:1].long()]
+        m_cap = max(int(sizes["n_runs"]), 2)
+        lower = (seq_c >= 96) & (_arange(seq_c.numel(), seq_c) < cnt_d)
+        run_lens = _run_lengths(lower, cnt_d, m_cap)
+    else:
+        packed = seq_c[:max(cnt, 1)]
+        first_code = seq_c.new_zeros(1)
+        run_lens = seq_c.new_zeros(2, dtype=torch.int32)
+    id_vals = S.compact_best(s["id_keep"], b)[0][:max(int(sizes["id_bytes"]), 1)]
+    com_vals = S.compact_best(s["com_keep"], s["com_val"])[0][:max(int(sizes["com_bytes"]), 1)]
+    bnd = _record_bounds(s["rec_start"], n_rec + 1)
+    lens = [_segment_sum_bounds(s[k], bnd) for k in ("seq_keep", "id_keep", "com_keep")]
+    if fastq:
+        qual_vals = S.compact_best(s["qual_keep"], s["qual_val"], dense=True)[0][
+            :max(int(sizes["qual_bytes"]), 1)]
+        lens.append(_segment_sum_bounds(s["qual_keep"], bnd))
+    else:
+        qual_vals = b.new_zeros(1)
+        lens.append(bnd.new_zeros(n_rec + 1))
+    u8 = [packed, first_code, id_vals, com_vals, qual_vals]
+    i32 = [cnt_d.reshape(1), *lens, run_lens]
+    u8_np = torch.cat(u8).cpu().numpy()
+    i32_np = torch.cat([_i32(t) for t in i32]).cpu().numpy()
+    cuts_u8 = np.cumsum([t.numel() for t in u8])[:-1]
+    cuts_i32 = np.cumsum([t.numel() for t in i32])[:-1]
+    packed_np, first_np, id_np, com_np, qual_np = np.split(u8_np, cuts_u8)
+    cnt_np, seq_l, id_l, com_l, qual_l, run_l = np.split(i32_np, cuts_i32)
+    return [packed_np[None], first_np, cnt_np.astype(np.int64), id_np[None], com_np[None],
+            qual_np[None], seq_l[None], id_l[None], com_l[None], qual_l[None],
+            run_l.astype(np.int64)[None]]
 
 
 # ---------------------------------------------------------------------------

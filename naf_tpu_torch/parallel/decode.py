@@ -1,19 +1,26 @@
-"""Device FASTA and FASTQ render on one device: the uniform-group path of
-``naf_tpu/parallel/decode.py`` (``regular_session``, ``render_regular``).
+"""Device FASTA and FASTQ render on one device: the uniform-group path and
+the ragged path of ``naf_tpu/parallel/decode.py``.
 
-The section bytes become chars on the device (``ops.unpack`` kernel, then,
-for masked FASTA, the ``ops.emit_fused`` mask-parity kernel over a toggle
-scatter at the masked-span bounds), and records whose (header length,
-sequence length) repeat are laid out as strided copies into one output
-tensor.  A FASTA record is its header, its full lines plus a newline
-column, and its tail line; a FASTQ record is ``[header, sequence, "\\n+\\n",
-quality, "\\n"]``, with the quality bytes uploaded once per session.
+Uniform path (``regular_session``, ``render_regular``): the section bytes
+become chars on the device (``ops.unpack`` kernel, or the upper-case fold
+of a text archive; then, for masked FASTA, the ``ops.emit_fused``
+mask-parity kernel over a toggle scatter at the masked-span bounds), and
+records whose (header length, sequence length) repeat are laid out as
+strided copies into one output tensor.  A FASTA record is its header, its
+full lines plus a newline column, and its tail line; a FASTQ record is
+``[header, sequence, "\\n+\\n", quality, "\\n"]``.
 
-``RenderPlan`` and ``build_plan`` are the port's copies of the reference's
-render metadata (the tests hold them against the originals).  Archives the
-uniform path declines (too many distinct record shapes, an output of
-512 MiB or more, text) are left to the caller, which renders them on the
-host; ragged device render is not ported yet.
+Ragged path (``render_batched``, the one-device ``render_sharded``): every
+output position is a function of the record it falls in, rendered in
+batches of at most ``OUT_BATCH`` bytes with i32 indices rebased per batch
+(``_render_step``, the gather-minimal ``_make_kernel``).  Its per-position
+record lookups are segment broadcasts by the max-scan kernel, and its mask
+parity a prefix sum by the add-scan kernel (``ops.scan``).
+
+``RenderPlan``, ``build_plan``, ``_next_seq_char`` and ``_next_qual_char``
+are the port's copies of the reference's render metadata (the tests hold
+them against the originals).  ``decline_reason`` says which archives the
+uniform path leaves to the ragged one.
 """
 
 from __future__ import annotations
@@ -24,17 +31,25 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..format import constants as C
+from ..ops import scan as S
 from ..ops.assemble import const_column, ragged_concat, split_blob
 from ..ops.emit_fused import apply_mask_parity
 from ..ops.render import body_length
+from ..ops.tables import device_tables
 from ..ops.unpack import unpack_4bit
 
 MODE_FASTA = 0
 MODE_FASTQ = 1
 
-#: output bytes of one reference render batch; the uniform path takes
-#: outputs below two of them (the reference's limit)
+#: output bytes of one ragged render batch; the uniform path takes outputs
+#: below two of them (the reference's limit)
 OUT_BATCH = 256 << 20
+
+
+class RenderOverflow(Exception):
+    """A single record's output/char/header span exceeds the i32-rebased
+    batch window; the caller renders on the host instead."""
 #: the most record shapes the uniform path lays out one by one
 _REG_MAX_GROUPS = 24
 
@@ -125,8 +140,6 @@ def _body_lengths(plan: RenderPlan, slens: np.ndarray) -> np.ndarray:
 
 def decline_reason(plan: RenderPlan) -> Optional[str]:
     """Why the uniform-group render does not take this archive, or None."""
-    if not plan.packed:
-        return "text"
     if plan.slens.size == 0 or plan.total_out == 0:
         return "empty"
     if plan.total_out >= min(1 << 31, 2 * OUT_BATCH):
@@ -139,11 +152,20 @@ def decline_reason(plan: RenderPlan) -> Optional[str]:
     return None
 
 
-def _prep_chars_step(seq_d: torch.Tensor, bounds_d: Optional[torch.Tensor], *, rna: bool
-                     ) -> torch.Tensor:
-    """Packed section bytes -> rendered chars: unpack, then +32 inside the
+def _upper(ch: torch.Tensor) -> torch.Tensor:
+    """a-z folded to A-Z (any integer dtype)."""
+    return torch.where((ch >= ord("a")) & (ch <= ord("z")), ch - 32, ch)
+
+
+def _prep_chars_step(seq_d: torch.Tensor, bounds_d: Optional[torch.Tensor], *, packed: bool,
+                     upper: bool, rna: bool) -> torch.Tensor:
+    """Section bytes -> rendered chars: unpack (nucleotide) or the raw
+    bytes, folded to upper case where ``upper`` (text); then +32 inside the
     masked spans whose bounds (char indices) ``bounds_d`` holds."""
-    chars = unpack_4bit(seq_d, rna)
+    if packed:
+        chars = unpack_4bit(seq_d, rna)
+    else:
+        chars = _upper(seq_d) if upper else seq_d
     if bounds_d is None:
         return chars
     tog = torch.zeros_like(chars)
@@ -169,7 +191,7 @@ def regular_session(plan: RenderPlan, seq_bytes: np.ndarray,
     blens = _body_lengths(plan, slens)
     sb = np.ascontiguousarray(seq_bytes, np.uint8)
     seq_d = torch.from_numpy(sb.copy()).to(device)
-    n_chars = 2 * sb.size
+    n_chars = 2 * sb.size if plan.packed else sb.size
     bounds = plan.bounds[plan.bounds < n_chars]
     bounds_d = torch.from_numpy(bounds.astype(np.int64)).to(device) if bounds.size else None
     hdr_d = torch.from_numpy(np.ascontiguousarray(plan.hdr, np.uint8).copy()).to(device)
@@ -188,7 +210,8 @@ def regular_session(plan: RenderPlan, seq_bytes: np.ndarray,
         o += nrec * w
 
     def run() -> torch.Tensor:
-        chars = _prep_chars_step(seq_d, bounds_d, rna=plan.rna)
+        chars = _prep_chars_step(seq_d, bounds_d, packed=plan.packed, upper=plan.upper,
+                                 rna=plan.rna)
         out = torch.empty(total, dtype=torch.uint8, device=seq_d.device)
         for o, nrec, hl, sl, w, c0, h0 in layout:
             view = out[o:o + nrec * w].view(nrec, w)
@@ -248,3 +271,263 @@ def render_regular(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.nd
     if run is None:
         return None
     return run().cpu().numpy().tobytes()
+
+
+# ---------------------------------------------------------------------------
+# ragged render
+# ---------------------------------------------------------------------------
+
+def _next_seq_char(plan: RenderPlan, p: int) -> int:
+    """Char index of the first sequence-char gather at out position >= p."""
+    if p >= plan.total_out:
+        return int(plan.E[-1]) if plan.E.size else 0
+    r = int(np.searchsorted(plan.O, p, side="right"))
+    rec_out = int(plan.O[r - 1]) if r > 0 else 0
+    e_prev = int(plan.E[r - 1]) if r > 0 else 0
+    sl = int(plan.slens[r])
+    q = p - rec_out
+    hl = int(plan.H[r] - (plan.H[r - 1] if r > 0 else 0))
+    if q <= hl:
+        return e_prev
+    u = q - hl
+    if plan.mode == MODE_FASTQ:
+        return e_prev + min(u, sl) if u <= sl else int(plan.E[r])
+    L = plan.line_len
+    src = u - u // (L + 1) if L > 0 else u
+    return e_prev + min(src, sl)
+
+
+def _next_qual_char(plan: RenderPlan, p: int) -> int:
+    """Char index of the first quality gather at out position >= p (FASTQ)."""
+    if p >= plan.total_out:
+        return int(plan.E[-1]) if plan.E.size else 0
+    r = int(np.searchsorted(plan.O, p, side="right"))
+    rec_out = int(plan.O[r - 1]) if r > 0 else 0
+    e_prev = int(plan.E[r - 1]) if r > 0 else 0
+    sl = int(plan.slens[r])
+    q = p - rec_out
+    hl = int(plan.H[r] - (plan.H[r - 1] if r > 0 else 0))
+    u = q - hl
+    if u <= sl + 3:
+        return e_prev
+    return e_prev + min(u - sl - 3, sl)
+
+
+#: every rebased index of a batch stays below this (the reference's pad
+#: sentinel, which its kernels must never meet)
+_PAD = 1 << 30
+
+
+def _at(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] for an i32 index tensor of any shape."""
+    return t[idx.long()]
+
+
+def _render_step(seq: torch.Tensor, qual: torch.Tensor, o0: int, c0: int, q0: int,
+                 E: torch.Tensor, O: torch.Tensor, H: torch.Tensor, hdr: torch.Tensor,
+                 bounds: torch.Tensor, *, osz: int, mode: int, line_len: int, rna: bool,
+                 packed: bool, upper: bool, masking: bool) -> torch.Tensor:
+    """u8[osz]: output positions [o0, o0+osz) of a batch, on the tensors'
+    device (the gather-minimal ``_make_kernel`` of the reference).
+
+    ``seq`` holds the batch's packed nibbles (or raw text bytes) from char
+    ``c0`` on, ``qual`` its quality bytes from char ``q0`` on; E, O, H are
+    the batch's i32 char, output and header prefix sums, ``hdr`` its header
+    bytes and ``bounds`` its masked-span bounds, all rebased to the batch
+    and unpadded (the reference pads them to shape buckets with 2^30
+    sentinels, which the port has no need of).
+    Each position finds its record by segment broadcasts: the record's
+    prefix values scattered to its start, spread by the max-scan kernel
+    (the prefix sums do not decrease).  Header bytes scatter from the blob
+    side; the mask parity is the add-scan kernel over toggles scattered to
+    the bounds' output positions.  Only the sequence and quality bytes are
+    gathered per position.
+    """
+    L = line_len
+    i32 = torch.int32
+    dev = E.device
+    R = E.numel()
+    zero1 = torch.zeros(1, dtype=i32, device=dev)
+    starts = torch.cat([zero1, O[:-1]])
+    e_before = torch.cat([zero1, E[:-1]])
+    h_before = torch.cat([zero1, H[:-1]])
+    # the record covering o0, and where each record starting in range starts
+    r0 = ((starts <= o0).sum(dtype=i32) - 1).clamp(0, R - 1).reshape(1)
+    sidx = starts - o0
+    valid = (sidx >= 0) & (sidx < osz)
+    slot = torch.where(valid, sidx, 0).long()
+
+    def bcast(vals: torch.Tensor) -> torch.Tensor:
+        arr = torch.full((osz,), S._NEG, dtype=i32, device=dev)
+        arr[:1] = _at(vals, r0)
+        arr.scatter_reduce_(0, slot, torch.where(valid, vals, S._NEG), reduce="amax")
+        return S.maxscan_best(arr)
+
+    q = torch.arange(osz, dtype=i32, device=dev) - (bcast(starts) - o0)
+    e_prev = bcast(e_before)
+    sl = bcast(E) - e_prev
+    hl = bcast(H) - bcast(h_before)
+    in_hdr = q < hl
+    u = q - hl
+    del q
+
+    # header bytes scatter from the blob side: byte k lands at its record's
+    # output start plus its offset in the record's header
+    k = torch.arange(hdr.numel(), dtype=i32, device=dev)
+    rk = torch.searchsorted(H, k, right=True, out_int32=True).clamp(max=R - 1)
+    hk_prev = torch.where(rk > 0, _at(H, (rk - 1).clamp(min=0)), 0)
+    out_pos = _at(starts, rk) + (k - hk_prev) - o0
+    out_pos = torch.where((out_pos >= 0) & (out_pos < osz), out_pos, osz)
+    hdr_at = torch.zeros(osz + 1, dtype=torch.uint8, device=dev)
+    hdr_at[out_pos.long()] = hdr
+    code_to_nuc = device_tables(C.SEQ_TYPE_RNA if rna else C.SEQ_TYPE_DNA, dev)["code_to_nuc"]
+
+    def char_at(idx: torch.Tensor) -> torch.Tensor:
+        kk = idx - c0
+        if packed:
+            byte = _at(seq, (kk >> 1).clamp(0, seq.numel() - 1)).to(i32)
+            ch = _at(code_to_nuc, torch.where((kk & 1) == 1, byte >> 4, byte & 15)).to(i32)
+        else:
+            ch = _at(seq, kk.clamp(0, seq.numel() - 1)).to(i32)
+            if upper:
+                ch = _upper(ch)
+        if masking:
+            # toggles at the bounds' output positions; chars after one flip
+            rb = torch.searchsorted(E, bounds, right=True, out_int32=True).clamp(max=R - 1)
+            eb = torch.where(rb > 0, _at(E, (rb - 1).clamp(min=0)), 0)
+            hb = _at(H, rb) - torch.where(rb > 0, _at(H, (rb - 1).clamp(min=0)), 0)
+            c_in = bounds - eb
+            body_off = c_in if mode == MODE_FASTQ or L <= 0 else c_in + c_in // L
+            tpos = _at(starts, rb) + hb + body_off - o0
+            base_par = (tpos < 0).sum(dtype=i32)
+            tpos = torch.where((tpos >= 0) & (tpos < osz), tpos, osz)
+            tog = torch.zeros(osz + 1, dtype=i32, device=dev)
+            tog.index_add_(0, tpos.long(), torch.ones_like(tpos))
+            ch = ch + 32 * ((S.cumsum_best(tog[:osz]) + base_par) & 1)
+        return ch
+
+    if mode == MODE_FASTQ:
+        in_seq = u < sl
+        in_qual = (u >= sl + 3) & (u < 2 * sl + 3)
+        seq_ch = char_at(e_prev + torch.minimum(u.clamp(min=0), sl))
+        qk = e_prev + torch.minimum((u - sl - 3).clamp(min=0), sl) - q0
+        qual_ch = _at(qual, qk.clamp(0, qual.numel() - 1)).to(i32)
+        sep_ch = (u == sl + 1).to(i32) * (ord("+") - ord("\n")) + ord("\n")   # "\n+\n"
+        body = torch.where(in_seq, seq_ch, torch.where(in_qual, qual_ch, sep_ch))
+    else:
+        if L > 0:
+            blen = torch.where(sl > 0, sl + (sl + L - 1) // L, 0)
+            is_nl = (((u + 1) % (L + 1)) == 0) | (u == blen - 1)
+            src = u - u // (L + 1)
+        else:
+            is_nl = u == sl
+            src = u
+        ch = char_at(e_prev + torch.minimum(src.clamp(min=0), sl))
+        body = torch.where(is_nl, ord("\n"), ch)
+    return torch.where(in_hdr, hdr_at[:osz].to(i32), body).to(torch.uint8)
+
+
+@dataclass
+class RenderBatch:
+    """One batch of a ragged render: host metadata, rebased to the batch."""
+
+    p0: int                 # output positions [p0, p1)
+    p1: int
+    o0: int                 # p0, c0, q0 rebased
+    c0: int
+    q0: int
+    b_lo: int               # section bytes [b_lo, b_hi) and quality [q_lo, q_hi)
+    b_hi: int
+    q_lo: int
+    q_hi: int
+    E: np.ndarray           # i32 rebased prefix sums of the batch's records
+    O: np.ndarray
+    H: np.ndarray
+    hdr: np.ndarray         # u8 header bytes of the batch's records
+    bounds: np.ndarray      # i32 rebased masked-span bounds
+
+
+def plan_batches(plan: RenderPlan, out_batch: int = 0) -> list[RenderBatch]:
+    """The batches of ``render_batched``, or RenderOverflow when one
+    record's span does not fit the i32 window of a batch."""
+    out_batch = min(out_batch or OUT_BATCH, 1 << 28)
+    # every rebased index of a batch must stay below the 1 << 30 sentinel:
+    # the largest is below out_batch plus the spans of the two records
+    # straddling the batch's edges
+    max_span = 0
+    for arr in (plan.O, plan.E, plan.H):
+        if arr.size:
+            max_span = max(max_span, int(np.diff(arr, prepend=np.int64(0)).max(initial=0)))
+    if out_batch + 2 * max_span >= _PAD:
+        raise RenderOverflow(f"record span {max_span} too large for device render batches")
+    batches = []
+    p0 = 0
+    while p0 < plan.total_out:
+        p1 = min(p0 + out_batch, plan.total_out)
+        r0 = int(np.searchsorted(plan.O, p0, side="right"))
+        r1 = min(int(np.searchsorted(plan.O, p1 - 1, side="right")) + 1, plan.O.size)
+        out_base = int(plan.O[r0 - 1]) if r0 > 0 else 0
+        char_base = int(plan.E[r0 - 1]) if r0 > 0 else 0
+        hdr_base = int(plan.H[r0 - 1]) if r0 > 0 else 0
+        # mask bounds clipped and rebased; whole pairs, so parity holds
+        char_hi = int(plan.E[r1 - 1])
+        lo = int(np.searchsorted(plan.bounds[1::2], char_base, side="right"))
+        hi = int(np.searchsorted(plan.bounds[0::2], char_hi, side="left"))
+        bounds = np.clip(plan.bounds[2 * lo:2 * hi] - char_base, 0, char_hi - char_base)
+        seq_lo, seq_hi = _next_seq_char(plan, p0), _next_seq_char(plan, p1)
+        if plan.mode == MODE_FASTQ:
+            q_lo, q_hi = _next_qual_char(plan, p0), _next_qual_char(plan, p1)
+        else:
+            q_lo = q_hi = 0
+        if plan.packed:
+            b_lo, b_hi, c0 = seq_lo // 2, (seq_hi + 1) // 2, (seq_lo // 2) * 2
+        else:
+            b_lo, b_hi, c0 = seq_lo, seq_hi, seq_lo
+        batches.append(RenderBatch(
+            p0=p0, p1=p1, o0=p0 - out_base, c0=c0 - char_base, q0=q_lo - char_base,
+            b_lo=b_lo, b_hi=b_hi, q_lo=q_lo, q_hi=q_hi,
+            E=(plan.E[r0:r1] - char_base).astype(np.int32),
+            O=(plan.O[r0:r1] - out_base).astype(np.int32),
+            H=(plan.H[r0:r1] - hdr_base).astype(np.int32),
+            hdr=plan.hdr[hdr_base:int(plan.H[r1 - 1])],
+            bounds=bounds.astype(np.int32)))
+        p0 = p1
+    return batches
+
+
+def ragged_session(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
+                   *, device, out_batch: int = 0):
+    """(batches, render): the batches of a ragged render, and a function
+    that renders one of them to a u8 tensor on ``device``.  The section
+    and quality bytes are uploaded once; each batch uploads its own
+    record-sized metadata."""
+    batches = plan_batches(plan, out_batch)
+    seq_d = torch.from_numpy(np.ascontiguousarray(seq_bytes, np.uint8).copy()).to(device)
+    qual_d = (torch.from_numpy(np.ascontiguousarray(qual, np.uint8).copy()).to(device)
+              if plan.mode == MODE_FASTQ and qual is not None else None)
+    masking = plan.bounds.size > 0
+    one = torch.zeros(1, dtype=torch.uint8, device=seq_d.device)
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(seq_d.device)
+
+    def render(bt: RenderBatch) -> torch.Tensor:
+        seq = seq_d[bt.b_lo:bt.b_hi] if bt.b_hi > bt.b_lo else one
+        qsl = (qual_d[bt.q_lo:bt.q_hi] if qual_d is not None and bt.q_hi > bt.q_lo else one)
+        return _render_step(seq, qsl, bt.o0, bt.c0, bt.q0, up(bt.E), up(bt.O), up(bt.H),
+                            up(bt.hdr), up(bt.bounds), osz=bt.p1 - bt.p0, mode=plan.mode,
+                            line_len=plan.line_len, rna=plan.rna, packed=plan.packed,
+                            upper=plan.upper, masking=masking)
+
+    return batches, render
+
+
+def render_batched(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
+                   *, device, out_batch: int = 0) -> bytes:
+    """The whole output of a ragged render on ``device``, batch by batch
+    (``render_sharded`` on one device); raises RenderOverflow where the
+    reference does."""
+    if plan.total_out == 0:
+        return b""
+    batches, render = ragged_session(plan, seq_bytes, qual, device=device, out_batch=out_batch)
+    return b"".join(render(bt).cpu().numpy().tobytes() for bt in batches)

@@ -1,20 +1,24 @@
-"""Device FASTA and FASTQ encode on one device: bytes -> fused block -> NAF
+"""Device FASTA and FASTQ encode on one device: bytes -> block -> NAF
 archive.
 
 ``encode_device`` is the one-device counterpart of
-``naf_tpu/parallel/pipeline.py:encode_sharded`` on its fused paths
-(``_try_encode_fused``, ``_try_encode_fused_fastq``): the kernels classify,
-compact and pack the input, and the host stitches the sparse tables and
-writes the container through the shared ``build_archive``, so the archive
-is byte-identical to host ``encode()``.
+``naf_tpu/parallel/pipeline.py:encode_sharded``.  A nucleotide block first
+takes the fused path (``_try_encode_fused``, ``_try_encode_fused_fastq``):
+one emit kernel classifies, compacts and packs it.  Where that path cannot
+finish (a tile past the sparse cap, or unexpected characters, whose
+histograms only the stats pass gives) and for protein and text, the same
+uploaded block takes the two-pass protocol: ``stats_block`` counts, then
+``emit_block`` compacts every section to the counted sizes.  The host
+stitches the sections and writes the container through the shared
+``build_archive``, so the archive is byte-identical to host ``encode()``.
 
-Inputs the port does not run on the device yet go to host ``encode()``
-with the same bytes, each by a named route counted in ``device.ROUTES``:
-not FASTA or FASTQ, protein or text, an unsafe ``--well-formed`` input, a
-FASTQ off the regular 4-line grid, a tile past the sparse cap, unexpected
-characters (whose histograms the reference takes from its two-pass
-protocol, not ported yet), or a FASTQ record whose quality length differs
-from its sequence length (the host parser raises the reference's error).
+Each way is a route counted in ``device.ROUTES``: ``encode_device`` (fused),
+``encode_device:two_pass:<why>`` (``text_like``, ``sparse_overflow``,
+``unexpected_chars``), and the host routes, which give host ``encode()``
+the same bytes: not FASTA or FASTQ, an unsafe ``--well-formed`` input, a
+FASTQ off the regular 4-line grid, ``--strict`` with unexpected characters
+(the host raises the reference's message), or a FASTQ record whose quality
+length differs from its sequence length (likewise).
 
 The host helpers below are jax-free copies of the reference's
 (``_wf_device_safe``, ``_merge_hist``, ``_pad2d``, ``parse_fused_fasta``,
@@ -35,8 +39,8 @@ from ..ops.mask import runs_to_units
 from ..ops.tables import NUC_CODE
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
-from .block import (blob_from_lens, fused_block, fused_block_fastq, make_blocks,
-                    make_blocks_fastq, stitch_lengths, stitch_packed, stitch_runs)
+from .block import (blob_from_lens, emit_block, fused_block, fused_block_fastq, make_blocks,
+                    make_blocks_fastq, stats_block, stitch_lengths, stitch_packed, stitch_runs)
 
 
 def _host(a) -> np.ndarray:
@@ -64,62 +68,92 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
     fastq = fmt == C.IN_FORMAT_FASTQ
     if not fastq and fmt != C.IN_FORMAT_FASTA:
         return _host_route("not_fasta", data, opts)
-    if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
-        return _host_route("text_like", data, opts)
     body = np.frombuffer(data, np.uint8)[marker + 1:]
     if opts.well_formed and not _wf_device_safe(body, fastq):
         return _host_route("well_formed_unsafe", data, opts)
     if fastq:
-        return _encode_fastq(data, body, opts, dev)
-
-    blocks = make_blocks(body, 1)
-    packed_d, scal_d, tv_d, a_d = fused_block(
-        blocks.data[0], int(blocks.prev[0]), bool(blocks.starts_in_seq[0]), 0,
-        seq_type=opts.seq_type, device=dev)
-    scal = _host(scal_d)
-    if not scal[:, 3].all():
-        return _host_route("sparse_overflow", data, opts)
-    if scal[:, 4:7].any():
-        return _host_route("unexpected_chars", data, opts)
-    parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
-    count_route("encode_device")
-    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
-    # no fallback: _stitch_and_build calls it only on a FASTQ length mismatch
-    return _stitch_and_build(
-        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
-        np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
-        parsed["longest"], zero_hists, parsed["em_np"], fallback=None)
-
-
-def _encode_fastq(data: bytes, body: np.ndarray, opts: EncodeOptions, dev):
-    """The FASTQ branch of ``encode_device`` (``_try_encode_fused_fastq``)."""
-    mb = make_blocks_fastq(body, 1)
-    if mb is None:
-        return _host_route("fastq_irregular", data, opts)
-    blocks, _ = mb
-    outs = fused_block_fastq(blocks.data[0], int(blocks.prev[0]), 0,
-                             seq_type=opts.seq_type, device=dev)
-    scal = _host(outs[3])
-    if not scal[:, 3].all():
-        return _host_route("sparse_overflow", data, opts)
-    if scal[:, 4:7].any() or scal[:, 12].any():
-        return _host_route("unexpected_chars", data, opts)
-    parsed = parse_fused_fastq(1, scal, outs)
+        mb = make_blocks_fastq(body, 1)
+        if mb is None:
+            return _host_route("fastq_irregular", data, opts)
+        blocks = mb[0]
+    else:
+        blocks = make_blocks(body, 1)
+    # one upload, shared by the fused attempt and the two-pass protocol
+    x = torch.from_numpy(blocks.data[0]).to(dev)
+    prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
     mismatch = []
 
     def fallback():
         mismatch.append(True)
         return _host_route("qual_length_mismatch", data, opts)
 
+    if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
+        why = "text_like"
+    else:
+        why, out = (_encode_fused_fastq if fastq else _encode_fused)(x, prev, sis, fmt, opts,
+                                                                     fallback)
+        if why is None:
+            if not mismatch:
+                count_route("encode_device")
+            return out
+    out = _encode_two_pass(x, prev, sis, fmt, opts, data, fallback)
+    if out is not None and not mismatch:
+        count_route(f"encode_device:two_pass:{why}")
+    return out if out is not None else _host_route("strict_unexpected", data, opts)
+
+
+def _encode_fused(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
+    """The fused FASTA path (``_try_encode_fused``): (None, archive), or
+    (why, None) when the two-pass protocol must take the block."""
+    packed_d, scal_d, tv_d, a_d = fused_block(x, prev, sis, 0, seq_type=opts.seq_type,
+                                              device=x.device)
+    scal = _host(scal_d)
+    if not scal[:, 3].all():
+        return "sparse_overflow", None
+    if scal[:, 4:7].any():
+        return "unexpected_chars", None
+    parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
     zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
-    out = _stitch_and_build(
-        1, C.IN_FORMAT_FASTQ, opts, parsed["counts"], parsed["id_bytes"],
-        parsed["com_bytes"], parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"],
-        parsed["first_lower"], parsed["longest"], zero_hists, parsed["em_np"],
-        fallback=fallback)
-    if not mismatch:
-        count_route("encode_device")
-    return out
+    return None, _stitch_and_build(
+        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
+        np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
+        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
+
+
+def _encode_fused_fastq(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
+    """The fused FASTQ path (``_try_encode_fused_fastq``), as
+    ``_encode_fused``."""
+    outs = fused_block_fastq(x, prev, 0, seq_type=opts.seq_type, device=x.device)
+    scal = _host(outs[3])
+    if not scal[:, 3].all():
+        return "sparse_overflow", None
+    if scal[:, 4:7].any() or scal[:, 12].any():
+        return "unexpected_chars", None
+    parsed = parse_fused_fastq(1, scal, outs)
+    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    return None, _stitch_and_build(
+        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
+        parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
+        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
+
+
+def _encode_two_pass(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, data: bytes,
+                     fallback):
+    """The two-pass protocol on the uploaded block (``encode_sharded``
+    after its fused attempt); None when ``--strict`` meets an unexpected
+    character, whose exact message only the host parser gives."""
+    fastq = fmt == C.IN_FORMAT_FASTQ
+    scalars, hists = stats_block(x, prev, sis, seq_type=opts.seq_type, fastq=fastq)
+    (counts, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
+     first_lower, longest) = scalars
+    if opts.strict and any(int(h.sum()) for h in hists):
+        return None
+    sizes = dict(count=counts[0], id_bytes=id_bytes[0], com_bytes=com_bytes[0],
+                 qual_bytes=qual_bytes[0], n_rec=n_rec[0], n_runs=n_runs[0])
+    em_np = emit_block(x, prev, sis, int(odd[0]), seq_type=opts.seq_type, fastq=fastq,
+                       pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN, sizes=sizes)
+    return _stitch_and_build(1, fmt, opts, counts, id_bytes, com_bytes, qual_bytes, n_rec,
+                             n_runs, first_lower, longest, hists, em_np, fallback=fallback)
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +364,20 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
     res.longest_line = int(longest[0])
 
     total_chars = int(counts.sum())
-    res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
-    res.packed = stitch_packed(packed, counts, first_codes)
+    text_like = opts.seq_type >= C.SEQ_TYPE_PROTEIN
+    if text_like:
+        # protein/text archives store raw bytes: per-block compacted char
+        # streams concatenate directly (no nibble parity); build_archive
+        # upper-cases under --no-mask
+        res.seq = (np.concatenate(
+            [packed[k, : int(counts[k])] for k in range(D)])
+            if total_chars else np.zeros(0, np.uint8)).astype(np.uint8)
+        res.packed = None
+    else:
+        res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
+        res.packed = stitch_packed(packed, counts, first_codes)
 
-    if not opts.no_mask:
+    if not opts.no_mask and not text_like:
         runs, state_first = stitch_runs(
             [run_lens[k, : int(n_runs[k])] for k in range(D)],
             [bool(first_lower[k]) for k in range(D)])

@@ -9,11 +9,13 @@ outputs.  The other output modes of the original (ids, names, lengths,
 mask, charcount, 4-bit, ranges, streaming output) are not ported.
 
 ``fasta_device`` and ``fastq_device`` render the sequence (and qualities) on
-the device through ``parallel.decode``.  Archives the device render does not
-take go to ``fasta()`` / ``fastq()`` by a named route counted in
-``device.ROUTES``: spill quirks (chars beyond the sum of the lengths), as
-the reference does, and what the uniform-group render declines
-(``parallel.decode.decline_reason``).
+the device through ``parallel.decode``: the uniform-group render
+(``decode_device``), or, where ``parallel.decode.decline_reason`` says it
+does not take the archive, the ragged render
+(``decode_device:ragged:<reason>``).  Routes counted in ``device.ROUTES``
+send the rest to ``fasta()`` / ``fastq()``: spill quirks (chars beyond the
+sum of the lengths), as the reference does, and a record too large for the
+ragged render's i32 batches (``render_overflow``).
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class Decoder:
         self._mask_units: Optional[np.ndarray] = None
         self._seq_raw: Optional[np.ndarray] = None      # section bytes as stored
         self._total_seq_len: Optional[int] = None
+        self._qual: Optional[np.ndarray] = None
 
     @property
     def is_nucleotide(self) -> bool:
@@ -145,8 +148,10 @@ class Decoder:
         return self._total_seq_len, self._seq_raw  # type: ignore[return-value]
 
     def _load_qual(self) -> np.ndarray:
-        qu, qpayload = self.r.load_section("quality")
-        return np.frombuffer(self._decode_payload(qpayload, qu), np.uint8)
+        if self._qual is None:
+            qu, qpayload = self.r.load_section("quality")
+            self._qual = np.frombuffer(self._decode_payload(qpayload, qu), np.uint8)
+        return self._qual
 
     # ---- host render ---------------------------------------------------------
 
@@ -336,6 +341,29 @@ class Decoder:
         return self._plan(DV.MODE_FASTA, masking)
 
 
+#: decline reasons of the uniform render that the ragged render takes
+_RAGGED = ("too_many_groups", "too_large", "spill")
+
+
+def _render(plan, raw, qual, dev, host) -> bytes:
+    """The device render of a plan: uniform, ragged, or ``host()`` by a
+    named route."""
+    reason = DV.decline_reason(plan)
+    if reason is None:
+        count_route("decode_device")
+        return DV.render_regular(plan, raw, qual, device=dev)
+    if reason not in _RAGGED:
+        count_route(f"decode_host:{reason}")
+        return host()
+    try:
+        out = DV.render_batched(plan, raw, qual, device=dev)
+    except DV.RenderOverflow:
+        count_route("decode_host:render_overflow")
+        return host()
+    count_route(f"decode_device:ragged:{reason}")
+    return out
+
+
 def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) -> bytes:
     """FASTA output of an open archive, rendered on ``device``; the same
     bytes as ``decoder.fasta(masking)``."""
@@ -349,12 +377,7 @@ def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) ->
         count_route("decode_host:spill_quirk")
         return decoder.fasta(masking)
     plan, raw = built
-    reason = DV.decline_reason(plan)
-    if reason is not None:
-        count_route(f"decode_host:{reason}")
-        return decoder.fasta(masking)
-    count_route("decode_device")
-    return DV.render_regular(plan, raw, device=dev)
+    return _render(plan, raw, None, dev, lambda: decoder.fasta(masking))
 
 
 def fastq_device(decoder: Decoder, *, device) -> bytes:
@@ -371,9 +394,4 @@ def fastq_device(decoder: Decoder, *, device) -> bytes:
         count_route("decode_host:spill_quirk")
         return decoder.fastq()
     plan, raw = built
-    reason = DV.decline_reason(plan)
-    if reason is not None:
-        count_route(f"decode_host:{reason}")
-        return decoder.fastq()
-    count_route("decode_device")
-    return DV.render_regular(plan, raw, decoder._load_qual(), device=dev)
+    return _render(plan, raw, decoder._load_qual(), dev, decoder.fastq)

@@ -2,16 +2,20 @@
 """Where a device encode and decode spend their time, stage by stage, on one
 CUDA card.
 
-    python3 stage_probe.py [--reps 5]
+    python3 stage_probe.py [--reps 5] [--inputs fused|two_pass]
 
-For bench.py's gen_fastq(500_000, read_len=150), gen_fastq(250_000) and
-gen_fasta_single(128), times each stage of ``encode_device`` and of
-``fasta_device`` / ``fastq_device`` with the host clock (each stage ends
-synchronised; median of --reps), the whole calls, and the host encode()
-and Decoder for comparison.  Then traces one whole encode and one whole
-decode with ``torch.profiler`` and prints the device's busy time (kernels
-and copies) over the wall time of the call.  One JSON line per input and
-direction; the last line says which card, as nvidia-smi names it.
+``fused`` (the default): bench.py's gen_fastq(500_000, read_len=150),
+gen_fastq(250_000) and gen_fasta_single(128), whose encodes take the fused
+emit and whose decodes the uniform render.  ``two_pass``: chip_smoke.py's
+swissprot_like(160), illumina_reads_fasta(750_000) and sra_fastq(400_000),
+whose encodes take the two-pass protocol and whose decodes the ragged
+render.  Times each stage of ``encode_device`` and of ``fasta_device`` /
+``fastq_device`` with the host clock (each stage ends synchronised; median
+of --reps), the whole calls, and the host encode() and Decoder for
+comparison.  Then traces one whole encode and one whole decode with
+``torch.profiler`` and prints the device's busy time (kernels and copies)
+over the wall time of the call.  One JSON line per input and direction;
+the last line says which card, as nvidia-smi names it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--inputs", choices=("fused", "two_pass"), default="fused")
     args = ap.parse_args()
 
     import bench
@@ -42,8 +47,8 @@ def main() -> int:
     from naf_tpu_torch.format import constants as C
     from naf_tpu_torch.parallel import decode as PD
     from naf_tpu_torch.parallel import pipeline as PP
-    from naf_tpu_torch.parallel.block import (fused_block, fused_block_fastq, make_blocks,
-                                              make_blocks_fastq)
+    from naf_tpu_torch.parallel.block import (emit_block, fused_block, fused_block_fastq,
+                                              make_blocks, make_blocks_fastq, stats_block)
     from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
     from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 
@@ -80,6 +85,86 @@ def main() -> int:
             return {"device_busy_s": None, "wall_s": wall, "idle_share": None}
         return {"device_busy_s": dev_us / 1e6, "wall_s": wall,
                 "idle_share": max(0.0, 1 - dev_us / 1e6 / wall)}
+
+    def probe_two_pass(name, data, o) -> None:
+        """The stages of a two-pass encode and of a ragged decode."""
+        fastq = data[:1] == b"@"
+        body = np.frombuffer(data, np.uint8)[1:]
+        st = {}
+        split = (lambda: make_blocks_fastq(body, 1)[0]) if fastq else (lambda: make_blocks(body, 1))
+        st["make_blocks"] = med(split)
+        blocks = split()
+        host_block = blocks.data[0]
+        st["upload"] = med(lambda: torch.from_numpy(host_block).to(dev))
+        x = torch.from_numpy(host_block).to(dev)
+        prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
+        if o.seq_type < C.SEQ_TYPE_PROTEIN:
+            st["fused_attempt"] = med(
+                (lambda: fused_block_fastq(x, prev, 0, seq_type=0, device=dev)[3].cpu())
+                if fastq else (lambda: fused_block(x, prev, sis, 0, seq_type=0,
+                                                   device=dev)[1].cpu()))
+        st["stats_block"] = med(lambda: stats_block(x, prev, sis, seq_type=o.seq_type,
+                                                    fastq=fastq))
+        sc, hists = stats_block(x, prev, sis, seq_type=o.seq_type, fastq=fastq)
+        sizes = dict(zip(("count", "id_bytes", "com_bytes", "qual_bytes", "n_rec", "n_runs"),
+                         (int(sc[i][0]) for i in (0, 2, 3, 4, 5, 6))))
+
+        def emit():
+            return emit_block(x, prev, sis, 0, seq_type=o.seq_type, fastq=fastq,
+                              pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN, sizes=sizes)
+        st["emit_block_with_fetch"] = med(emit)
+        em = emit()
+        fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
+        st["stitch_and_build"] = med(lambda: PP._stitch_and_build(
+            1, fmt, o, sc[0], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7], sc[8], hists, em,
+            fallback=None))
+        st["encode_device"] = med(lambda: PP.encode_device(data, o, device=dev))
+        st["host_encode"] = med(lambda: encode(data, o))
+        enc_busy = busy_share(lambda: PP.encode_device(data, o, device=dev))
+        print(json.dumps({"input": name, "direction": "encode", "bytes": len(data),
+                          "seconds": st, **enc_busy, "card": card}), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+        blob = encode(data, o)[0]
+        sd = {}
+
+        def plan():
+            d = Decoder(io.BytesIO(blob))
+            if fastq:
+                return d._plan(PD.MODE_FASTQ, False) + (d._load_qual(),)
+            return d._fasta_plan(d.masking) + (None,)
+        sd["container_zstd_plan"] = med(plan)
+        pl, raw, qual = plan()
+        sd["batches_and_upload"] = med(lambda: PD.ragged_session(pl, raw, qual, device=dev))
+        batches, render = PD.ragged_session(pl, raw, qual, device=dev)
+        sd["render_on_card"] = med(lambda: [render(b) for b in batches])
+        outs = [render(b) for b in batches]
+        sd["fetch_output"] = med(lambda: b"".join(t.cpu().numpy().tobytes() for t in outs))
+        device_decode = ((lambda: fastq_device(Decoder(io.BytesIO(blob)), device=dev)) if fastq
+                         else (lambda: fasta_device(Decoder(io.BytesIO(blob)), device=dev)))
+        sd["decode_device"] = med(device_decode)
+        sd["host_decode"] = med(lambda: (Decoder(io.BytesIO(blob)).fastq() if fastq
+                                         else Decoder(io.BytesIO(blob)).fasta()))
+        dec_busy = busy_share(device_decode)
+        print(json.dumps({"input": name, "direction": "decode", "bytes": pl.total_out,
+                          "batches": len(batches), "seconds": sd, **dec_busy, "card": card}),
+              flush=True)
+        del outs, render
+        torch.cuda.empty_cache()
+
+    if args.inputs == "two_pass":
+        import chip_smoke as CS
+
+        protein = EncodeOptions(level=1, threads=os.cpu_count() or 0,
+                                seq_type=C.SEQ_TYPE_PROTEIN)
+        for name, data, o in (("swissprot_like(160)", CS.swissprot_like(160), protein),
+                              ("illumina_reads_fasta(750000)", CS.illumina_reads_fasta(750_000),
+                               opts),
+                              ("sra_fastq(400000)", CS.sra_fastq(400_000), opts)):
+            probe_two_pass(name, data, o)
+        print(card)
+        return 0
 
     inputs = [("gen_fastq(500000,read_len=150)", bench.gen_fastq(500_000, read_len=150)),
               ("gen_fastq(250000)", bench.gen_fastq(250_000)),

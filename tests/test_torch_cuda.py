@@ -23,17 +23,20 @@ import torch
 
 from naf_tpu_torch import device as D
 from naf_tpu_torch.format import constants as C
+from naf_tpu_torch.ops import compact as CP
 from naf_tpu_torch.ops import emit_fused as EF
 from naf_tpu_torch.ops import pack as PK
 from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
-from naf_tpu_torch.ops.common import Q_TILE, TILE
+from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
-from torch_cases import (CLASSIFY_CASES, EMIT_CASES, FASTQ_CASES, case_change_behind_tile_start,
-                         classify_case, emit_case, fastq_case,
-                         fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads)
+from torch_cases import (CLASSIFY_CASES, COMPACT_DENSITIES, EMIT_CASES, FASTQ_CASES,
+                         case_change_behind_tile_start, classify_case, compact_input, emit_case,
+                         fastq_case, fastq_case_change_behind_tile_start, fastq_masked_reads,
+                         fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_input,
+                         sra_fastq, typed_fasta)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,12 +48,12 @@ def card() -> torch.device:
     return D.cuda_device()
 
 
-def _on(a, dev, k: int = 0) -> torch.Tensor:
-    """a's bytes on dev, at a data pointer k bytes past an aligned one."""
-    a = np.ascontiguousarray(a, np.uint8)
-    buf = torch.zeros(a.size + 16, dtype=torch.uint8, device=dev)
-    buf[k:k + a.size] = torch.from_numpy(a.copy()).to(dev)
-    return buf[k:k + a.size]
+def _on(a: np.ndarray, dev, k: int = 0) -> torch.Tensor:
+    """a (any dtype) on dev, at a data pointer k elements past an aligned one."""
+    t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=dev)
+    buf[k:k + t.numel()] = t.to(dev)
+    return buf[k:k + t.numel()]
 
 
 def _assert_dicts_equal(got: dict, want: dict) -> None:
@@ -177,10 +180,38 @@ def test_wrappers_launch_on_cuda_tensors(card):
     q = _on(fastq_case("masked"), card)
     EF.emit_fastq_fused(q, ord("@"))
     SF.classify_fastq(q, ord("@"))
+    SF.cumsum_i32(x)
+    SF.maxscan_i32(x)
+    CP.compact_u8(x, x)
+    CP.compact_u8_dense(x, x)
     torch.cuda.synchronize()
     assert D.LAUNCHES == {"emit_fasta": 1, "classify_fasta": 1, "pack_4bit": 1,
                           "unpack_4bit": 1, "apply_mask_parity": 1, "emit_fastq": 1,
-                          "classify_fastq": 1}
+                          "classify_fastq": 1, "cumsum_i32": 1, "maxscan_i32": 1,
+                          "compact": 1, "compact_dense": 1}
+
+
+@pytest.mark.parametrize("n", [1, 100, SCAN_TILE - 1, SCAN_TILE + 1, 3 * SCAN_TILE + 17,
+                               4000 * SCAN_TILE + 3])
+def test_scan_kernel_on_card(card, n):
+    for kind in ("bool", "u8", "i32"):
+        x = scan_input(n, kind)
+        for k in (0, 1):
+            t = _on(x, card, k)
+            assert torch.equal(SF.scan_i32_kernel(t, "add"), SF.cumsum_i32_plain(t.cpu()).to(card))
+            assert torch.equal(SF.scan_i32_kernel(t, "max"), SF.maxscan_i32_plain(t.cpu()).to(card))
+
+
+@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 7 * SCAN_TILE - 5, 3000 * SCAN_TILE + 9])
+def test_compact_kernel_on_card(card, n):
+    for kind in ("u8", "i32"):
+        v, keep = compact_input(n, COMPACT_DENSITIES, kind)
+        for k in (0, 3):
+            vt, kt = _on(v, card, k), _on(keep, card, k)
+            want, want_cnt = CP.compact_plain(vt.cpu(), kt.cpu())
+            for dense in (False, True):
+                out, cnt = CP.compact_kernel(vt, kt, dense=dense)
+                assert torch.equal(out.cpu(), want) and int(cnt) == int(want_cnt)
 
 
 def _records(seed: int, n_rec: int, sl: int, L: int = 70) -> bytes:
@@ -236,3 +267,42 @@ def test_fastq_round_trip_on_card(card, name, data, opts):
     assert out == Decoder(io.BytesIO(blob), DecodeOptions()).fastq()
     assert min(D.LAUNCHES[k] for k in ("emit_fastq", "pack_4bit", "unpack_4bit")) == 1
     assert D.LAUNCHES["apply_mask_parity"] == 0     # FASTQ output is never masked
+
+
+@pytest.mark.parametrize("name,data,opts,why", [
+    ("protein", lambda: typed_fasta(np.random.default_rng(1), C.SEQ_TYPE_PROTEIN, 3000),
+     EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN), "text_like"),
+    ("reads_fasta", lambda: reads_fasta(np.random.default_rng(2), 20_000), EncodeOptions(),
+     "sparse_overflow"),
+    ("unexpected", lambda: ragged_fasta(np.random.default_rng(3), 300, 5000,
+                                        alphabet=b"ACGTNRY!*"),
+     EncodeOptions(), "unexpected_chars"),
+    ("sra_fastq", lambda: sra_fastq(np.random.default_rng(4), 20_000), EncodeOptions(),
+     "sparse_overflow"),
+    ("ragged_fastq", lambda: ragged_fastq(np.random.default_rng(5), 3000) + b"@z\nAZ\n+\n!!\n",
+     EncodeOptions(), "unexpected_chars"),
+])
+def test_two_pass_and_ragged_round_trip_on_card(card, name, data, opts, why):
+    data = data()
+    fastq = data[:1] == b"@"
+    D.reset_counts()
+    blob, stats = encode_device(data, opts, device=card)
+    host_blob, host_stats = encode(data, opts)
+    assert blob == host_blob
+    assert np.array_equal(stats.unexpected_seq, host_stats.unexpected_seq)
+    assert D.ROUTES == {f"encode_device:two_pass:{why}": 1}
+    kernels = ["classify_fastq" if fastq else "classify_fasta", "cumsum_i32", "maxscan_i32",
+               "compact", "compact_dense"]
+    if opts.seq_type < C.SEQ_TYPE_PROTEIN:
+        kernels.append("pack_4bit")
+    assert min(D.LAUNCHES[k] for k in kernels) >= 1
+    D.reset_counts()
+    if fastq:
+        out = fastq_device(Decoder(io.BytesIO(blob), DecodeOptions()), device=card)
+        want = Decoder(io.BytesIO(blob), DecodeOptions()).fastq()
+    else:
+        out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device=card)
+        want = Decoder(io.BytesIO(blob), DecodeOptions()).fasta()
+    assert out == want
+    assert D.ROUTES == {"decode_device:ragged:too_many_groups": 1}
+    assert D.LAUNCHES["maxscan_i32"] >= 1      # the record lookups; the add scan is the mask's

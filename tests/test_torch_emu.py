@@ -23,15 +23,17 @@ import torch
 
 from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.native import build
+from naf_tpu_torch.ops import compact as CP
 from naf_tpu_torch.ops import emit_fused as EF
 from naf_tpu_torch.ops import pack as PK
 from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
-from naf_tpu_torch.ops.common import Q_TILE, TILE
+from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
-from torch_cases import (CLASSIFY_CASES, EMIT_CASES, FASTQ_CASES, case_change_behind_tile_start,
-                         classify_case, emit_case, fastq_case,
-                         fastq_case_change_behind_tile_start, fastq_reads)
+from torch_cases import (CLASSIFY_CASES, COMPACT_DENSITIES, EMIT_CASES, FASTQ_CASES,
+                         case_change_behind_tile_start, classify_case, compact_input, emit_case,
+                         fastq_case, fastq_case_change_behind_tile_start, fastq_reads,
+                         scan_input)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -55,10 +57,12 @@ def _t(a) -> torch.Tensor:
 
 
 def _offset(a: np.ndarray, k: int) -> torch.Tensor:
-    """A tensor of a's bytes whose data pointer is k bytes past an aligned one."""
-    buf = torch.zeros(a.size + 16, dtype=torch.uint8)
-    buf[k:k + a.size] = _t(a)
-    return buf[k:k + a.size]
+    """A tensor of a (any dtype) whose data pointer is k elements past an
+    aligned one."""
+    t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    buf[k:k + t.numel()] = t
+    return buf[k:k + t.numel()]
 
 
 def _assert_dicts_equal(got: dict, want: dict) -> None:
@@ -181,6 +185,28 @@ def test_fastq_kernels_ragged_lengths(emu, n):
                                 EF.emit_fastq_plain(x, prev))
 
 
+@pytest.mark.parametrize("n", [1, SCAN_TILE - 1, SCAN_TILE + 1, 2 * SCAN_TILE + 17])
+def test_scan_kernel_matches_plain(emu, n):
+    for kind in ("bool", "u8", "i32"):
+        x = scan_input(n, kind)
+        for k in (0, 1):                            # aligned and unaligned input
+            t = _offset(x, k)
+            assert torch.equal(SF.scan_i32_kernel(t, "add", lib=emu), SF.cumsum_i32_plain(t))
+            assert torch.equal(SF.scan_i32_kernel(t, "max", lib=emu), SF.maxscan_i32_plain(t))
+
+
+@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 3 * SCAN_TILE - 5])
+def test_compact_kernel_matches_plain(emu, n):
+    for kind in ("u8", "i32"):
+        v, keep = compact_input(n, COMPACT_DENSITIES, kind)
+        for k in (0, 3):                            # aligned and unaligned input
+            vt, kt = _offset(v, k), _offset(keep, k)
+            # both wrappers launch the one kernel; only the counter differs
+            out, cnt = CP.compact_kernel(vt, kt, dense=k > 0, lib=emu)
+            want, want_cnt = CP.compact_plain(vt, kt)
+            assert torch.equal(out, want) and int(cnt) == int(want_cnt)
+
+
 def test_launchers_refuse_host_tensors_without_the_emulation():
     x = torch.zeros(256, dtype=torch.uint8)
     for launch in (lambda: PK.pack_4bit_kernel(x), lambda: UP.unpack_4bit_kernel(x),
@@ -188,6 +214,8 @@ def test_launchers_refuse_host_tensors_without_the_emulation():
                    lambda: EF.emit_fasta_kernel(x, ord(">")),
                    lambda: EF.apply_mask_parity_kernel(x, x),
                    lambda: SF.classify_fastq_kernel(x, ord("@")),
-                   lambda: EF.emit_fastq_kernel(x, ord("@"))):
+                   lambda: EF.emit_fastq_kernel(x, ord("@")),
+                   lambda: SF.scan_i32_kernel(x, "add"), lambda: SF.scan_i32_kernel(x, "max"),
+                   lambda: CP.compact_kernel(x, x), lambda: CP.compact_kernel(x, x, dense=True)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             launch()

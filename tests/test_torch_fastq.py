@@ -10,7 +10,7 @@
     originals;
   * encode_device(device="cpu") on FASTQ equals naf_tpu's host encode(),
     fastq_device(device="cpu") equals naf_tpu's Decoder.fastq(), and every
-    host route is taken by name.
+    route, device or host, is taken by name.
 Everything is integer or bytes: tolerance 0.
 """
 
@@ -242,32 +242,38 @@ def test_fastq_device_uniform_takes_the_device():
     assert out.upper() == data.upper()
 
 
+#: case -> (input, options, route): protein, a tile past the sparse cap and
+#: unexpected characters take the two-pass device encode
 HOST_ROUTES = {
     "fastq_irregular": (lambda: _gen_fq(30, 40, 15) + b"@last\nACGT\n+\n!!!!",
-                        EncodeOptions()),
-    "text_like": (lambda: b"@p\nMKV\n+\n!!!\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN)),
-    "well_formed_unsafe": (lambda: b"@r\nAC GT\n+\n!!!!!\n", EncodeOptions(well_formed=True)),
+                        EncodeOptions(), "encode_host:fastq_irregular"),
+    "text_like": (lambda: b"@p\nMKV\n+\n!!!\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN),
+                  "encode_device:two_pass:text_like"),
+    "well_formed_unsafe": (lambda: b"@r\nAC GT\n+\n!!!!!\n", EncodeOptions(well_formed=True),
+                           "encode_host:well_formed_unsafe"),
     "unexpected_chars": (lambda: _gen_fq(100, 50, 11) + b"@z\nACZT\n+\n!!!!\n",
-                         EncodeOptions()),
+                         EncodeOptions(), "encode_device:two_pass:unexpected_chars"),
     "sparse_overflow": (lambda: b"@" + fastq_case("sparse_overflow").tobytes().rstrip(b"\n")
-                        + b"\n", EncodeOptions()),
+                        + b"\n", EncodeOptions(), "encode_device:two_pass:sparse_overflow"),
 }
 
 
 @pytest.mark.parametrize("route", list(HOST_ROUTES))
 def test_encode_fastq_host_routes(route):
-    make, opts = HOST_ROUTES[route]
+    make, opts, taken = HOST_ROUTES[route]
     data = make()
     D.reset_counts()
     assert encode_device(data, opts, device="cpu")[0] == _host(data, opts)
-    assert D.ROUTES == {f"encode_host:{route}": 1}
+    assert D.ROUTES == {taken: 1}
 
 
 def test_encode_fastq_unexpected_quality_goes_to_host():
+    """An unexpected quality byte: its histogram comes from the two-pass
+    stats, on the device."""
     data = _gen_fq(50, 40, 12) + b"@q\nACGT\n+\n!!\x7f!\n"
     D.reset_counts()
     assert encode_device(data, device="cpu")[0] == _host(data, EncodeOptions())
-    assert D.ROUTES == {"encode_host:unexpected_chars": 1}
+    assert D.ROUTES == {"encode_device:two_pass:unexpected_chars": 1}
 
 
 def test_encode_fastq_quality_length_mismatch_raises_as_host():
@@ -287,7 +293,7 @@ def test_fastq_device_decode_routes(monkeypatch):
     want = RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions()).fastq()
     D.reset_counts()
     assert fastq_device(Decoder(io.BytesIO(blob)), device="cpu") == want
-    assert D.ROUTES == {"decode_host:too_many_groups": 1}
+    assert D.ROUTES == {"decode_device:ragged:too_many_groups": 1}
 
     uniform = _uniform_masked(50, 60, 33)
     blob = _host(uniform, EncodeOptions())
@@ -295,7 +301,7 @@ def test_fastq_device_decode_routes(monkeypatch):
     monkeypatch.setattr(PD, "OUT_BATCH", 1024)
     D.reset_counts()
     assert fastq_device(Decoder(io.BytesIO(blob)), device="cpu") == want
-    assert D.ROUTES == {"decode_host:too_large": 1}
+    assert D.ROUTES == {"decode_device:ragged:too_large": 1}
 
 
 def test_fastq_device_spill_quirk_goes_to_host(monkeypatch):

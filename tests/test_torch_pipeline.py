@@ -5,9 +5,10 @@
   * fused_block on the CPU equals fused_blocks_sharded on a 1-device CPU
     mesh (interpret mode);
   * encode_device(device="cpu") archives equal naf_tpu's host encode(), on
-    the device path and on every named host route;
+    the fused and two-pass device paths and on every named host route;
   * fasta_device(device="cpu") gives back the input bytes and equals
-    naf_tpu.parallel.decode.render_regular on a 1-device CPU mesh;
+    naf_tpu.parallel.decode.render_regular on a 1-device CPU mesh, and a
+    ragged archive takes the ragged device render;
   * the port imports neither jax nor naf_tpu, importing it leaves the
     ``zstandard`` module alone, and asking for CUDA without a card raises.
 """
@@ -182,20 +183,22 @@ def test_encode_device_equals_host(name):
     assert D.ROUTES == {"encode_device": 1}
 
 
-#: case -> (input, options, the route it takes); FASTQ now runs on the
-#: device, and only a FASTQ off the regular 4-line grid goes to the host
+#: case -> (input, options, the route it takes); protein, text, a tile
+#: past the sparse cap and unexpected characters take the two-pass device
+#: encode, and only the rest goes to the host
 HOST_ROUTES = {
-    "fastq": (lambda: _gen_fq() + b"@last\nACGT\n+\n!!!!", EncodeOptions(), "fastq_irregular"),
-    "not_fasta": (lambda: b"", EncodeOptions(), "not_fasta"),
+    "fastq": (lambda: _gen_fq() + b"@last\nACGT\n+\n!!!!", EncodeOptions(),
+              "encode_host:fastq_irregular"),
+    "not_fasta": (lambda: b"", EncodeOptions(), "encode_host:not_fasta"),
     "text_like": (lambda: b">p\nMKVLAT*\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN),
-                  "text_like"),
+                  "encode_device:two_pass:text_like"),
     "well_formed_unsafe": (lambda: b">a\nAC GT\n", EncodeOptions(well_formed=True),
-                           "well_formed_unsafe"),
+                           "encode_host:well_formed_unsafe"),
     "unexpected_chars": (lambda: b">r1\nACGTZZACGT\n" + _gen(total=60_000, seed=3),
-                         EncodeOptions(), "unexpected_chars"),
+                         EncodeOptions(), "encode_device:two_pass:unexpected_chars"),
     "sparse_overflow": (lambda: b"".join(b">h%d very long comment line to overflow\nA\n" % i
                                          for i in range(3000)), EncodeOptions(),
-                        "sparse_overflow"),
+                        "encode_device:two_pass:sparse_overflow"),
 }
 
 
@@ -205,7 +208,7 @@ def test_encode_host_routes(case):
     data = make()
     D.reset_counts()
     assert encode_device(data, opts, device="cpu")[0] == encode(data, opts)[0]
-    assert D.ROUTES == {f"encode_host:{route}": 1}
+    assert D.ROUTES == {route: 1}
 
 
 def test_encode_format_mismatch_raises_as_host():
@@ -275,7 +278,7 @@ def test_fasta_device_ragged_goes_to_host():
     blob = encode(data, EncodeOptions())[0]
     D.reset_counts()
     out = fasta_device(Decoder(io.BytesIO(blob), DecodeOptions()), device="cpu")
-    assert D.ROUTES == {"decode_host:too_many_groups": 1}
+    assert D.ROUTES == {"decode_device:ragged:too_many_groups": 1}
     assert out == data
 
 

@@ -228,3 +228,107 @@ def fastq_case_change_behind_tile_start(where: str) -> np.ndarray:
         rows.append(b"@r%05d\n%s\n+\n%s\n" % (i, seq.tobytes(), qual.tobytes()))
     body = np.frombuffer(b"".join(rows), np.uint8)[1:]
     return pad_lf(body, N_FASTQ)
+
+
+# ---------------------------------------------------------------------------
+# scans, compaction, the two-pass encode and the ragged render
+# ---------------------------------------------------------------------------
+
+#: stream lengths of the scan and compaction cases: one element, ragged
+#: tails of the 8192-element kernel tile and of the TPU kernels' tiles
+SCAN_LENGTHS = [1, 100, 8193, 70001]
+#: keep densities of the compaction cases (tests/test_compact_kernel.py),
+#: one per 10,000-element segment of one stream
+COMPACT_DENSITIES = [0.99, 0.986, 0.5, 0.01, 1.0, 0.0, 0.7]
+#: the short (length, density) cases of tests/test_compact_kernel.py
+COMPACT_SHORT = [(1, 1.0), (130, 0.7)]
+
+
+def scan_input(n: int, kind: str, seed: int = 0) -> np.ndarray:
+    """A scan input of n elements: 'bool', 'u8', or 'i32' (values around
+    and below the max scan's floor of -2^30 included)."""
+    rng = np.random.default_rng(seed + n)
+    if kind == "bool":
+        return rng.random(n) < 0.3
+    if kind == "u8":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    x = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64)
+    x[::7] = rng.integers(-(1 << 30) - 3, -(1 << 30) + 3, x[::7].size)
+    return x.astype(np.int32)
+
+
+def compact_input(n: int, p_keep, kind: str):
+    """(values, keep) of a compaction case: u8 bytes or i32 positions.
+    ``p_keep`` is one density, or a list of densities for equal segments."""
+    dens = np.repeat(np.atleast_1d(p_keep), -(-n // np.atleast_1d(p_keep).size))[:n]
+    rng = np.random.default_rng(n)
+    keep = rng.random(n) < dens
+    if kind == "u8":
+        return rng.integers(0, 256, n, dtype=np.uint8), keep
+    return (np.arange(n, dtype=np.int32) * 3 - 7), keep
+
+
+def typed_fasta(rng, seq_type: int, n_rec: int = 20, max_len: int = 600) -> bytes:
+    """Records of one sequence type (tests/test_parallel.py _typed_fasta)."""
+    alpha = {C.SEQ_TYPE_DNA: b"ACGTacgtNn", C.SEQ_TYPE_RNA: b"ACGUacguNn",
+             C.SEQ_TYPE_PROTEIN: b"ACDEFGHIKLMNPQRSTVWYacdefghiklm*-",
+             C.SEQ_TYPE_TEXT: b"abcXYZ019{}#>~%$"}[seq_type]
+    rows = []
+    for i in range(n_rec):
+        com = b" com %d" % i if i % 2 else b""
+        rows.append(b">s%d%s\n" % (i, com))
+        seq = rng.choice(np.frombuffer(alpha, np.uint8), size=int(rng.integers(1, max_len)))
+        rows.append(b"\n".join(seq[j:j + 60].tobytes() for j in range(0, seq.size, 60)) + b"\n")
+    return b"".join(rows)
+
+
+def reads_fasta(rng, n_reads: int, read_len: int = 150) -> bytes:
+    """Short reads as FASTA with Illumina CASAVA 1.8 headers whose
+    coordinates vary in width: a header byte every three or four input
+    bytes, past the fused emit's sparse cap in every tile."""
+    rows = []
+    for i in range(n_reads):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=read_len).tobytes()
+        rows.append(b">A00123:8:H5KJ3DSXX:1:%d:%d:%d 1:N:0:ACGTAC\n%s\n"
+                    % (1101 + i % 50, rng.integers(1, 40000), rng.integers(1, 40000), seq))
+    return b"".join(rows)
+
+
+def sra_fastq(rng, n_reads: int, read_len: int = 150) -> bytes:
+    """Reads as fastq-dump writes them: '@SRR<n>.<i> <name> length=<len>',
+    the '+' line repeating the defline (past the FASTQ emit's sparse cap)."""
+    rows = []
+    for i in range(n_reads):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=read_len).tobytes()
+        qual = rng.integers(35, 74, size=read_len, dtype=np.uint8).tobytes()
+        d = b"SRR1234567.%d A00123:8:H5KJ3DSXX:1:1101:%d:%d length=%d" % (
+            i + 1, rng.integers(1, 40000), rng.integers(1, 40000), read_len)
+        rows.append(b"@%s\n%s\n+%s\n%s\n" % (d, seq, d, qual))
+    return b"".join(rows)
+
+
+def ragged_fasta(rng, n_rec: int = 30, max_len: int = 400,
+                 alphabet: bytes = b"ACGTacgtNnRYKMbdhv-", line: int = 61) -> bytes:
+    """Records of random length, some empty, some with comments
+    (tests/test_device_decode.py _fasta)."""
+    out = []
+    for i in range(n_rec):
+        if i % 5 == 1:
+            out.append(b">empty%d\n" % i)
+            continue
+        out.append(b">rec%d%s\n" % (i, b" some comment" if i % 3 else b""))
+        seq = rng.choice(np.frombuffer(alphabet, np.uint8),
+                         size=int(rng.integers(1, max_len))).tobytes()
+        out.extend(seq[j:j + line] + b"\n" for j in range(0, len(seq), line))
+    return b"".join(out)
+
+
+def ragged_fastq(rng, n_rec: int = 50, max_len: int = 150) -> bytes:
+    """Reads of random length (tests/test_device_decode.py _fastq)."""
+    out = []
+    for i in range(n_rec):
+        ln = int(rng.integers(1, max_len))
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=ln).tobytes()
+        qual = rng.integers(33, 74, size=ln, dtype=np.uint8).tobytes()
+        out.append(b"@read%d/%d\n%s\n+\n%s\n" % (i, i, seq, qual))
+    return b"".join(out)
