@@ -9,9 +9,11 @@ Phases, each printing JSON lines:
      of the main paths, byte for byte, with CUDA-event times, the plain
      version's and one library call's time where one computes the same
      function, and the bound (bytes the kernel must move over 3.35 TB/s:
-     for an emit or a compaction, the inputs and the kept prefix of each
-     output stream (and an emit's used sparse entries);
-     ``bound_padded_ms`` adds the zero fill up to the allocated sizes);
+     for an emit, the input and the kept prefix of each output stream and
+     its used sparse entries; for a compaction, the keep flags, the 32-byte
+     sectors of the values that hold a kept element and the kept prefix;
+     ``bound_padded_ms`` reads every input whole and adds the zero fill up
+     to the allocated sizes);
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -49,6 +51,8 @@ import time
 #: the card's memory rate (H100 SXM data sheet): the bound of a kernel that
 #: moves bytes
 HBM_BYTES_PER_S = 3.35e12
+#: the card's memory access granule: a load reads whole 32-byte sectors
+SECTOR_BYTES = 32
 
 
 def emit(row: dict) -> None:
@@ -113,6 +117,18 @@ def emit_bound_ms(block, out: dict, counts: tuple) -> float:
                   and v.dim())
     nbytes += sum(v.element_size() for v in out.values() if v.dim() == 0)
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def value_sectors(vals, keep) -> int:
+    """The 32-byte sectors of ``vals`` that hold at least one element where
+    ``keep`` is set: what a compaction must read of its values."""
+    import torch
+
+    per = SECTOR_BYTES // vals.element_size()
+    lead = vals.data_ptr() % SECTOR_BYTES // vals.element_size()
+    k = keep.bool()
+    k = torch.cat([k.new_zeros(lead), k, k.new_zeros(-(lead + k.numel()) % per)])
+    return int(k.view(-1, per).any(1).sum())
 
 
 def max_abs_err(a, b) -> int:
@@ -362,12 +378,14 @@ def main() -> int:
         if counts is not None:
             extra["bound_padded_ms"] = bound
             bound = emit_bound_ms(inputs[0], kout, counts)
-        if kept is not None:        # a compaction: the inputs and the kept prefix
+        if kept is not None:        # a compaction: see the module docstring
             extra["bound_padded_ms"] = bound
-            vals = inputs[0]
-            nbytes = sum(t.numel() * t.element_size() for t in inputs)
-            bound = (nbytes + int(kout[1]) * vals.element_size() + 4) / HBM_BYTES_PER_S * 1e3
-            extra["kept"] = int(kout[1])
+            vals, kp = inputs
+            n_kept, sectors = int(kout[1]), value_sectors(vals, kp)
+            nbytes = (kp.numel() * kp.element_size() + sectors * SECTOR_BYTES
+                      + n_kept * vals.element_size() + 4)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            extra.update(kept=n_kept, value_sectors=sectors)
         del kout, pout
         torch.cuda.empty_cache()
         ms = cuda_time(kfn, 10)
@@ -671,14 +689,11 @@ def main() -> int:
         blocks = make_blocks_fastq(body, 1)[0] if fastq else make_blocks(body, 1)
         xb = torch.from_numpy(blocks.data[0].copy()).to(dev)
         prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
-        scalars, _ = stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
-        sizes = dict(zip(("count", "id_bytes", "com_bytes", "qual_bytes", "n_rec", "n_runs"),
-                         (int(scalars[i][0]) for i in (0, 2, 3, 4, 5, 6))))
 
         def passes():
-            stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
-            emit_block(xb, prev, sis, 0, seq_type=o.seq_type, fastq=fastq,
-                       pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN, sizes=sizes)
+            stats, masks = stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
+            emit_block(xb, masks, stats, seq_type=o.seq_type, fastq=fastq,
+                       pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
 
         passes_ms = cuda_time(passes, 3)
         d = Decoder(io.BytesIO(blob), DecodeOptions())
@@ -723,7 +738,8 @@ def main() -> int:
         if k == "compact":
             i32 = kernel_rows["compact:i32"]
             row["i32"] = {f: i32[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_padded_ms", "library_ms", "kept")}
+                                              "bound_padded_ms", "library_ms", "kept",
+                                              "value_sectors")}
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))

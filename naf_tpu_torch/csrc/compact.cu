@@ -11,12 +11,15 @@
 // (block_exclusive_scan), stages its kept values in shared memory in
 // order, writes them out as one contiguous run at its offset, and writes
 // zero to the positions of its own range that lie at or past the total.
+// A thread none of whose 16 flags is set loads none of its values, so a
+// sparse keep (record starts, header bytes) reads little of the values.
 // Kept writes land below the total and zero writes at or past it, so no
 // two tiles write the same element.  Templated on the value type (u8 or
 // i32); both TPU wrappers launch this one kernel.
 //
-// Bound: memory.  Reads the keep flags twice and the values once; writes
-// the kept prefix and the zero tail once (n output elements in all).
+// Bound: memory.  Reads the keep flags twice and the values of the threads
+// that keep one; writes the kept prefix and the zero tail once (n output
+// elements in all).
 #include "scan.cuh"
 
 namespace naf {
@@ -48,13 +51,16 @@ __global__ void __launch_bounds__(SCAN_THREADS) compact_write_kernel(const T* va
   const long long start = elem_start();
   uint8_t k[SCAN_PER];
   load_elems<uint8_t>(keep, n, start, k, 0);
+  const int cnt = count_kept(k);
   T v[SCAN_PER];
-  load_elems<T>(vals, n, start, v, T(0));
+  if (cnt > 0) load_elems<T>(vals, n, start, v, T(0));
   int tile_cnt;
-  int j = block_exclusive_scan<SCAN_THREADS>(count_kept(k), 0, buf, AddOp(), &tile_cnt);
+  int j = block_exclusive_scan<SCAN_THREADS>(cnt, 0, buf, AddOp(), &tile_cnt);
+  if (cnt > 0) {
 #pragma unroll
-  for (int i = 0; i < SCAN_PER; ++i)
-    if (k[i]) stage[j++] = v[i];
+    for (int i = 0; i < SCAN_PER; ++i)
+      if (k[i]) stage[j++] = v[i];
+  }
   __syncthreads();
   const long long base = offs[blockIdx.x];
   for (int i = threadIdx.x; i < tile_cnt; i += SCAN_THREADS) out[base + i] = stage[i];

@@ -1,7 +1,7 @@
 """The scan and compaction entry points of the two-pass encode and the
 ragged render: the port of the dispatch in ``naf_tpu/ops/scan.py``
 (``cumsum_best``, ``maxscan_best``, ``compact_best``), with
-``longest_line_block`` and ``_hist_cond``.
+``longest_line_block``.
 
 The TPU package chose between its Pallas kernels and XLA formulations by
 the mesh's platform; here the tensor's device decides, as everywhere in the
@@ -30,15 +30,6 @@ def compact_best(mask: torch.Tensor, values: torch.Tensor, dense: bool = False):
     """(out, count) of the kept values: ``compact_u8_dense`` for the
     mostly-keep sequence and quality streams, ``compact_u8`` otherwise."""
     return (compact_u8_dense if dense else compact_u8)(values, mask)
-
-
-def _hist_cond(mask: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """i32[256] histogram of the bytes ``b`` where ``mask``; the count runs
-    only when some byte is set (the clean case skips it, as the TPU
-    package's ``lax.cond`` does)."""
-    if not bool(mask.any()):
-        return torch.zeros(256, dtype=torch.int32, device=b.device)
-    return torch.bincount(b[mask].long(), minlength=256).to(torch.int32)
 
 
 def longest_line_block(seq_keep: torch.Tensor, is_eol: torch.Tensor) -> torch.Tensor:

@@ -330,14 +330,21 @@ def _bit(flags: torch.Tensor, bit: int) -> torch.Tensor:
     return (flags & (1 << bit)) != 0
 
 
+def _hist_cond(mask: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """i32[256] histogram of the bytes ``b`` where ``mask``; the count runs
+    only when some byte is set (the clean case skips it, as the TPU
+    package's ``lax.cond`` does)."""
+    if not bool(mask.any()):
+        return torch.zeros(256, dtype=torch.int32, device=b.device)
+    return torch.bincount(b[mask].long(), minlength=256).to(torch.int32)
+
+
 def scan_fasta_fused(block: torch.Tensor, prev_byte: int, seq_type: int = C.SEQ_TYPE_DNA,
                      starts_in_seq: bool = False) -> dict:
     """The masks of a FASTA block (``naf_tpu/ops/scan_fused.py``'s dict of
     the same name): rec_start, stream_keep/val, seq_keep, is_eol, id_keep,
     id_unex, com_keep, com_unex, com_val, and the unexpected-byte
     histograms hist_id, hist_comment, hist_seq (i32[256])."""
-    from .scan import _hist_cond
-
     flags, sval = classify_fasta(block, prev_byte, starts_in_seq, seq_type=seq_type)
     seq_unex, seq_keep, id_unex = _bit(flags, 1), _bit(flags, 2), _bit(flags, 5)
     com_unex = _bit(flags, 7)
@@ -362,8 +369,6 @@ def scan_fastq_fused(block: torch.Tensor, prev_byte: int,
                      seq_type: int = C.SEQ_TYPE_DNA) -> dict:
     """The masks of a FASTQ block: those of ``scan_fasta_fused`` plus
     qual_keep, qual_unex, qual_val and hist_qual."""
-    from .scan import _hist_cond
-
     flags, sval = classify_fastq(block, prev_byte, seq_type=seq_type)
     b45, b5, com_keep, is_qual = _bit(flags, 4), _bit(flags, 5), _bit(flags, 6), _bit(flags, 7)
     seq_unex, seq_keep = _bit(flags, 1), _bit(flags, 2)

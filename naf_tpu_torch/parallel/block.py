@@ -159,80 +159,74 @@ def _scan_block(b: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_typ
     return scan_fasta_fused(b, prev_byte, seq_type=seq_type, starts_in_seq=starts_in_seq)
 
 
-def _hist_split(h: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """A histogram as (lo16, hi16) u32 halves, the layout of the reference's
-    psum'd histograms."""
-    hu = h.astype(np.uint32)
-    return (hu & 0xFFFF)[None], (hu >> 16)[None]
+#: pass 1's counts, in the order ``stats_block`` fetches them
+STATS_KEYS = ("count", "id_bytes", "com_bytes", "qual_bytes", "n_rec", "n_runs", "first_lower",
+              "longest")
 
 
 def stats_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
-                fastq: bool):
-    """Pass 1 on one block: ``_stats_fn`` for one device, in the layout of
-    ``unpack_stats``.
+                fastq: bool) -> tuple[dict, dict]:
+    """Pass 1 on one block: ``_stats_fn`` for one device.
 
-    Returns (scalars, hists): scalars are nine arrays of one element,
-    [count, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-    first_lower, longest] (odd, the parity of the chars before the block,
-    is False); hists the eight u32[1, 256] halves (lo, hi) of the id,
-    comment, sequence and quality histograms.  One fetch from the device.
+    Returns (stats, masks).  ``stats`` maps ``STATS_KEYS`` to ints
+    (first_lower to a bool) and ``hists`` to the id, comment, sequence and
+    quality histograms of unexpected bytes, each u64[257]; one fetch from
+    the device.  ``masks`` is the classify's mask dict, which
+    ``emit_block`` takes, so the block is classified once.
     """
     s = _scan_block(block, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
     first_lower, n_runs = _run_stats_uncompacted(s["stream_keep"], s["stream_val"])
     zero = torch.zeros((), dtype=torch.int32, device=block.device)
     row = torch.stack([
-        s["stream_keep"].sum(dtype=torch.int32), zero,
+        s["stream_keep"].sum(dtype=torch.int32),
         s["id_keep"].sum(dtype=torch.int32), s["com_keep"].sum(dtype=torch.int32),
         s["qual_keep"].sum(dtype=torch.int32) if fastq else zero,
         s["rec_start"].sum(dtype=torch.int32), _i32(n_runs), _i32(first_lower),
         _i32(S.longest_line_block(s["seq_keep"], s["is_eol"]))])
     hist_qual = s["hist_qual"] if fastq else torch.zeros_like(s["hist_seq"])
     h = torch.cat([row, s["hist_id"], s["hist_comment"], s["hist_seq"], hist_qual]).cpu().numpy()
-    scalars = [h[i:i + 1].astype(np.int64) for i in range(9)]
-    scalars[1] = scalars[1].astype(bool)
-    scalars[7] = scalars[7].astype(bool)
-    hists = [half for k in range(4) for half in _hist_split(h[9 + 256 * k: 9 + 256 * (k + 1)])]
-    return scalars, hists
+    stats = {k: int(v) for k, v in zip(STATS_KEYS, h)}
+    stats["first_lower"] = bool(stats["first_lower"])
+    hists = np.zeros((4, 257), np.uint64)
+    hists[:, :256] = h[len(STATS_KEYS):].reshape(4, 256)
+    stats["hists"] = list(hists)
+    return stats, s
 
 
-def emit_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, odd: int, *,
-               seq_type: int, fastq: bool, pack_nibbles: bool, sizes: dict) -> list:
+def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, fastq: bool,
+               pack_nibbles: bool) -> list:
     """Pass 2 on one block: ``_emit_fn`` for one device.
 
-    ``odd`` is the parity of the chars before the block; ``sizes`` holds
-    pass 1's ``count``, ``id_bytes``, ``com_bytes``, ``qual_bytes``,
-    ``n_rec`` and ``n_runs`` as ints, which size every output exactly.
-    Nucleotide streams are packed to nibbles (``pack_nibbles``); protein
-    and text keep the compacted bytes and store no mask.  Returns the
-    ``em_np`` list that ``_stitch_and_build`` takes: [packed, first_code,
-    cnt, id_vals, com_vals, qual_vals, seq_lens, id_lens, com_lens,
-    qual_lens, run_lens], host arrays with one row, fetched from the device
-    as one byte buffer and one i32 buffer holding the used prefixes.
+    ``masks`` and ``stats`` are what ``stats_block`` returned for this
+    block; the counts size every output exactly.  Nucleotide streams are
+    packed to nibbles (``pack_nibbles``) from parity 0, since no chars come
+    before the one block; protein and text keep the compacted bytes and
+    store no mask.  Returns the ``em_np`` list that ``_stitch_and_build``
+    takes: [packed, first_code, cnt, id_vals, com_vals, qual_vals, seq_lens,
+    id_lens, com_lens, qual_lens, run_lens], host arrays with one row,
+    fetched from the device as one byte buffer and one i32 buffer holding
+    the used prefixes.
     """
-    b = block
-    cnt = int(sizes["count"])
-    n_rec = int(sizes["n_rec"])
-    s = _scan_block(b, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
+    b, s = block, masks
+    cnt, n_rec = stats["count"], stats["n_rec"]
     seq_c, cnt_d = S.compact_best(s["stream_keep"], s["stream_val"], dense=True)
     if pack_nibbles:
-        # an odd parity leaves the block's first char to the previous one:
-        # pack chars[1:] and give chars[0]'s code apart
-        packed = pack_4bit(seq_c, shift=int(odd), out_len=(cnt + 1) // 2 + 1)
+        packed = pack_4bit(seq_c, shift=0, out_len=(cnt + 1) // 2 + 1)
         first_code = device_tables(seq_type, b.device)["nuc_code"][seq_c[:1].long()]
-        m_cap = max(int(sizes["n_runs"]), 2)
+        m_cap = max(stats["n_runs"], 2)
         lower = (seq_c >= 96) & (_arange(seq_c.numel(), seq_c) < cnt_d)
         run_lens = _run_lengths(lower, cnt_d, m_cap)
     else:
         packed = seq_c[:max(cnt, 1)]
         first_code = seq_c.new_zeros(1)
         run_lens = seq_c.new_zeros(2, dtype=torch.int32)
-    id_vals = S.compact_best(s["id_keep"], b)[0][:max(int(sizes["id_bytes"]), 1)]
-    com_vals = S.compact_best(s["com_keep"], s["com_val"])[0][:max(int(sizes["com_bytes"]), 1)]
+    id_vals = S.compact_best(s["id_keep"], b)[0][:max(stats["id_bytes"], 1)]
+    com_vals = S.compact_best(s["com_keep"], s["com_val"])[0][:max(stats["com_bytes"], 1)]
     bnd = _record_bounds(s["rec_start"], n_rec + 1)
     lens = [_segment_sum_bounds(s[k], bnd) for k in ("seq_keep", "id_keep", "com_keep")]
     if fastq:
         qual_vals = S.compact_best(s["qual_keep"], s["qual_val"], dense=True)[0][
-            :max(int(sizes["qual_bytes"]), 1)]
+            :max(stats["qual_bytes"], 1)]
         lens.append(_segment_sum_bounds(s["qual_keep"], bnd))
     else:
         qual_vals = b.new_zeros(1)

@@ -50,6 +50,8 @@ OUT_BATCH = 256 << 20
 class RenderOverflow(Exception):
     """A single record's output/char/header span exceeds the i32-rebased
     batch window; the caller renders on the host instead."""
+
+
 #: the most record shapes the uniform path lays out one by one
 _REG_MAX_GROUPS = 24
 

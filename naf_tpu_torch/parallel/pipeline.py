@@ -21,7 +21,7 @@ FASTQ off the regular 4-line grid, ``--strict`` with unexpected characters
 length differs from its sequence length (likewise).
 
 The host helpers below are jax-free copies of the reference's
-(``_wf_device_safe``, ``_merge_hist``, ``_pad2d``, ``parse_fused_fasta``,
+(``_wf_device_safe``, ``_pad2d``, ``parse_fused_fasta``,
 ``parse_fused_fastq``, ``_stitch_and_build``); the tests hold each against
 its original.
 """
@@ -39,8 +39,9 @@ from ..ops.mask import runs_to_units
 from ..ops.tables import NUC_CODE
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
-from .block import (blob_from_lens, emit_block, fused_block, fused_block_fastq, make_blocks,
-                    make_blocks_fastq, stats_block, stitch_lengths, stitch_packed, stitch_runs)
+from .block import (STATS_KEYS, blob_from_lens, emit_block, fused_block, fused_block_fastq,
+                    make_blocks, make_blocks_fastq, stats_block, stitch_lengths, stitch_packed,
+                    stitch_runs)
 
 
 def _host(a) -> np.ndarray:
@@ -96,7 +97,7 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
             if not mismatch:
                 count_route("encode_device")
             return out
-    out = _encode_two_pass(x, prev, sis, fmt, opts, data, fallback)
+    out = _encode_two_pass(x, prev, sis, fmt, opts, fallback)
     if out is not None and not mismatch:
         count_route(f"encode_device:two_pass:{why}")
     return out if out is not None else _host_route("strict_unexpected", data, opts)
@@ -113,7 +114,7 @@ def _encode_fused(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallba
     if scal[:, 4:7].any():
         return "unexpected_chars", None
     parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
-    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
     return None, _stitch_and_build(
         1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
@@ -130,30 +131,32 @@ def _encode_fused_fastq(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, 
     if scal[:, 4:7].any() or scal[:, 12].any():
         return "unexpected_chars", None
     parsed = parse_fused_fastq(1, scal, outs)
-    zero_hists = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+    zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
     return None, _stitch_and_build(
         1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
         parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
 
 
-def _encode_two_pass(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, data: bytes,
-                     fallback):
+def _encode_two_pass(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
     """The two-pass protocol on the uploaded block (``encode_sharded``
     after its fused attempt); None when ``--strict`` meets an unexpected
     character, whose exact message only the host parser gives."""
     fastq = fmt == C.IN_FORMAT_FASTQ
-    scalars, hists = stats_block(x, prev, sis, seq_type=opts.seq_type, fastq=fastq)
-    (counts, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-     first_lower, longest) = scalars
-    if opts.strict and any(int(h.sum()) for h in hists):
+    stats, masks = stats_block(x, prev, sis, seq_type=opts.seq_type, fastq=fastq)
+    if opts.strict and any(h.any() for h in stats["hists"]):
         return None
-    sizes = dict(count=counts[0], id_bytes=id_bytes[0], com_bytes=com_bytes[0],
-                 qual_bytes=qual_bytes[0], n_rec=n_rec[0], n_runs=n_runs[0])
-    em_np = emit_block(x, prev, sis, int(odd[0]), seq_type=opts.seq_type, fastq=fastq,
-                       pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN, sizes=sizes)
-    return _stitch_and_build(1, fmt, opts, counts, id_bytes, com_bytes, qual_bytes, n_rec,
-                             n_runs, first_lower, longest, hists, em_np, fallback=fallback)
+    em_np = emit_block(x, masks, stats, seq_type=opts.seq_type, fastq=fastq,
+                       pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN)
+    del masks
+    return build_two_pass(fmt, opts, stats, em_np, fallback=fallback)
+
+
+def build_two_pass(fmt: int, opts: EncodeOptions, stats: dict, em_np: list, fallback):
+    """``_stitch_and_build`` of one block's ``stats_block`` and
+    ``emit_block`` results."""
+    one = [np.asarray([stats[k]]) for k in STATS_KEYS]
+    return _stitch_and_build(1, fmt, opts, *one, stats["hists"], em_np, fallback=fallback)
 
 
 # ---------------------------------------------------------------------------
@@ -186,13 +189,6 @@ def _wf_device_safe(body: np.ndarray, fastq: bool) -> bool:
     first = body[np.minimum(starts[line_id], body.size - 1)]
     # line 0 is record 0's header (its '>' was stripped by the caller)
     return bool(np.all((line_id == 0) | (first == ord(">"))))
-
-
-def _merge_hist(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
-    """u32 (lo16, hi16) halves -> u64[257] histogram."""
-    h = np.zeros(257, np.uint64)
-    h[:256] = (hi.astype(np.uint64) << 16) + lo.astype(np.uint64)
-    return h
 
 
 def _pad2d(D, rows, dtype=np.int32):
@@ -331,7 +327,9 @@ def parse_fused_fastq(D, scal, outs):
 def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
                       n_rec, n_runs, first_lower, longest, hists, em_np,
                       fallback):
-    """Host carry stitching (O(blocks + records + runs)) + container."""
+    """Host carry stitching (O(blocks + records + runs)) + container;
+    ``hists`` are the id, comment, sequence and quality histograms of
+    unexpected bytes, each u64[257]."""
     fastq = fmt == C.IN_FORMAT_FASTQ
     (packed, first_codes, cnt2, id_vals, com_vals, qual_vals,
      seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
@@ -389,10 +387,8 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
         res.qual = np.concatenate(
             [qual_vals[k, : int(qual_bytes[k])] for k in range(D)])
 
-    res.unexpected_id = _merge_hist(hists[0][0], hists[1][0])
-    res.unexpected_comment = _merge_hist(hists[2][0], hists[3][0])
-    res.unexpected_seq = _merge_hist(hists[4][0], hists[5][0])
-    res.unexpected_qual = _merge_hist(hists[6][0], hists[7][0])
+    (res.unexpected_id, res.unexpected_comment, res.unexpected_seq,
+     res.unexpected_qual) = hists
 
     stats = EncodeStats(
         n_sequences=res.n_sequences, longest_line=res.longest_line,

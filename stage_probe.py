@@ -105,19 +105,16 @@ def main() -> int:
                                                    device=dev)[1].cpu()))
         st["stats_block"] = med(lambda: stats_block(x, prev, sis, seq_type=o.seq_type,
                                                     fastq=fastq))
-        sc, hists = stats_block(x, prev, sis, seq_type=o.seq_type, fastq=fastq)
-        sizes = dict(zip(("count", "id_bytes", "com_bytes", "qual_bytes", "n_rec", "n_runs"),
-                         (int(sc[i][0]) for i in (0, 2, 3, 4, 5, 6))))
+        stats, masks = stats_block(x, prev, sis, seq_type=o.seq_type, fastq=fastq)
 
         def emit():
-            return emit_block(x, prev, sis, 0, seq_type=o.seq_type, fastq=fastq,
-                              pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN, sizes=sizes)
+            return emit_block(x, masks, stats, seq_type=o.seq_type, fastq=fastq,
+                              pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
         st["emit_block_with_fetch"] = med(emit)
         em = emit()
+        del masks
         fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
-        st["stitch_and_build"] = med(lambda: PP._stitch_and_build(
-            1, fmt, o, sc[0], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7], sc[8], hists, em,
-            fallback=None))
+        st["stitch_and_build"] = med(lambda: PP.build_two_pass(fmt, o, stats, em, fallback=None))
         st["encode_device"] = med(lambda: PP.encode_device(data, o, device=dev))
         st["host_encode"] = med(lambda: encode(data, o))
         enc_busy = busy_share(lambda: PP.encode_device(data, o, device=dev))
@@ -199,7 +196,7 @@ def main() -> int:
                 return PP.parse_fused_fasta(1, scal.cpu().numpy(), packed, tv, a)
         st["fetch_and_parse"] = med(parse)
         p = parse()
-        zero = [np.zeros((1, 256), np.uint32) for _ in range(8)]
+        zero = [np.zeros(257, np.uint64) for _ in range(4)]
         fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
         qual_bytes = p.get("qual_bytes", np.zeros(1, np.int64))
         st["stitch_and_build"] = med(lambda: PP._stitch_and_build(

@@ -244,7 +244,7 @@ def test_fastq_device_uniform_takes_the_device():
 
 #: case -> (input, options, route): protein, a tile past the sparse cap and
 #: unexpected characters take the two-pass device encode
-HOST_ROUTES = {
+ROUTES = {
     "fastq_irregular": (lambda: _gen_fq(30, 40, 15) + b"@last\nACGT\n+\n!!!!",
                         EncodeOptions(), "encode_host:fastq_irregular"),
     "text_like": (lambda: b"@p\nMKV\n+\n!!!\n", EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN),
@@ -258,16 +258,16 @@ HOST_ROUTES = {
 }
 
 
-@pytest.mark.parametrize("route", list(HOST_ROUTES))
-def test_encode_fastq_host_routes(route):
-    make, opts, taken = HOST_ROUTES[route]
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_encode_fastq_routes(route):
+    make, opts, taken = ROUTES[route]
     data = make()
     D.reset_counts()
     assert encode_device(data, opts, device="cpu")[0] == _host(data, opts)
     assert D.ROUTES == {taken: 1}
 
 
-def test_encode_fastq_unexpected_quality_goes_to_host():
+def test_encode_fastq_unexpected_quality_takes_two_pass():
     """An unexpected quality byte: its histogram comes from the two-pass
     stats, on the device."""
     data = _gen_fq(50, 40, 12) + b"@q\nACGT\n+\n!!\x7f!\n"

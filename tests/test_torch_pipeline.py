@@ -104,9 +104,6 @@ def test_pipeline_helpers_match():
         body = np.frombuffer(raw, np.uint8)
         assert PP._wf_device_safe(body, False) == RP._wf_device_safe(body, False)
         assert PP._wf_device_safe(body, True) == RP._wf_device_safe(body, True)
-    lo = np.arange(256, dtype=np.uint32)
-    hi = np.arange(256, dtype=np.uint32)[::-1].copy()
-    assert np.array_equal(PP._merge_hist(lo, hi), RP._merge_hist(lo, hi))
     rows = [np.arange(3), np.arange(5), np.zeros(0, np.int64)]
     assert np.array_equal(PP._pad2d(3, rows), RP._pad2d(3, rows))
 
@@ -144,13 +141,15 @@ def test_fused_block_and_parse_match():
         assert np.array_equal(got[k], want[k]), k
     for x, y in zip(got["em_np"], want["em_np"]):
         assert np.array_equal(x, y)
-    zero = [np.zeros((1, 256), np.uint32) for _ in range(8)]
     args = (want["counts"], want["id_bytes"], want["com_bytes"], np.zeros(1, np.int64),
-            want["n_rec"], want["n_runs"], want["first_lower"], want["longest"], zero,
-            want["em_np"])
+            want["n_rec"], want["n_runs"], want["first_lower"], want["longest"])
+    zero = [np.zeros(257, np.uint64) for _ in range(4)]
+    zero_halves = [np.zeros((1, 256), np.uint32) for _ in range(8)]
     fmt = C.IN_FORMAT_FASTA
-    assert (PP._stitch_and_build(1, fmt, EncodeOptions(), *args, fallback=None)[0]
-            == RP._stitch_and_build(1, fmt, RENC.EncodeOptions(), *args, fallback=None)[0]
+    assert (PP._stitch_and_build(1, fmt, EncodeOptions(), *args, zero, want["em_np"],
+                                 fallback=None)[0]
+            == RP._stitch_and_build(1, fmt, RENC.EncodeOptions(), *args, zero_halves,
+                                    want["em_np"], fallback=None)[0]
             == encode(data, EncodeOptions())[0])
 
 
@@ -186,7 +185,7 @@ def test_encode_device_equals_host(name):
 #: case -> (input, options, the route it takes); protein, text, a tile
 #: past the sparse cap and unexpected characters take the two-pass device
 #: encode, and only the rest goes to the host
-HOST_ROUTES = {
+ROUTES = {
     "fastq": (lambda: _gen_fq() + b"@last\nACGT\n+\n!!!!", EncodeOptions(),
               "encode_host:fastq_irregular"),
     "not_fasta": (lambda: b"", EncodeOptions(), "encode_host:not_fasta"),
@@ -202,9 +201,9 @@ HOST_ROUTES = {
 }
 
 
-@pytest.mark.parametrize("case", list(HOST_ROUTES))
-def test_encode_host_routes(case):
-    make, opts, route = HOST_ROUTES[case]
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_encode_routes(case):
+    make, opts, route = ROUTES[case]
     data = make()
     D.reset_counts()
     assert encode_device(data, opts, device="cpu")[0] == encode(data, opts)[0]
@@ -270,7 +269,7 @@ def test_fasta_device_round_trip(name):
     assert out == RD.render_regular(plan, raw, None, mesh=block_mesh(1))
 
 
-def test_fasta_device_ragged_goes_to_host():
+def test_fasta_device_ragged_takes_ragged_render():
     rng = np.random.default_rng(11)
     data = b"".join(b">v%d\n" % i + rng.choice(np.frombuffer(b"ACGT", np.uint8),
                                               size=int(rng.integers(1, 900))).tobytes()

@@ -132,15 +132,17 @@ def test_stats_and_emit_block_match_sharded(name):
     blocks, st, em_r = _sharded_passes(body, seq_type, fastq)
     x = torch.from_numpy(blocks.data[0].copy())
     prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
-    scalars, hists = PB.stats_block(x, prev, sis, seq_type=seq_type, fastq=fastq)
-    for k, (got, want) in enumerate(zip(scalars + hists, st)):
-        assert np.array_equal(got, want.astype(got.dtype)), k
-    counts, odd, id_bytes, com_bytes, qual_bytes, n_rec, n_runs = (int(a[0]) for a in scalars[:7])
-    sizes = dict(count=counts, id_bytes=id_bytes, com_bytes=com_bytes, qual_bytes=qual_bytes,
-                 n_rec=n_rec, n_runs=n_runs)
+    stats, masks = PB.stats_block(x, prev, sis, seq_type=seq_type, fastq=fastq)
+    assert not st[1].any()                    # odd: no chars before the one block
+    for k, key in zip((0, 2, 3, 4, 5, 6, 7, 8), PB.STATS_KEYS):
+        assert stats[key] == st[k][0], key
+    for got, lo, hi in zip(stats["hists"], st[9::2], st[10::2]):
+        assert np.array_equal(got, RP._merge_hist(lo[0], hi[0]))
+    counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs = (
+        stats[k] for k in PB.STATS_KEYS[:6])
     text_like = seq_type >= C.SEQ_TYPE_PROTEIN
-    em = PB.emit_block(x, prev, sis, odd, seq_type=seq_type, fastq=fastq,
-                       pack_nibbles=not text_like, sizes=sizes)
+    em = PB.emit_block(x, masks, stats, seq_type=seq_type, fastq=fastq,
+                       pack_nibbles=not text_like)
     used = [counts if text_like else (counts + 1) // 2 + 1, None, None, id_bytes, com_bytes,
             qual_bytes if fastq else 0, n_rec + 1, n_rec + 1, n_rec + 1,
             n_rec + 1 if fastq else 0, 0 if text_like else n_runs]
