@@ -13,7 +13,10 @@ Phases, each printing JSON lines:
      its used sparse entries; for a compaction, the keep flags, the 32-byte
      sectors of the values that hold a kept element and the kept prefix;
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
-     to the allocated sizes);
+     to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
+     its contract writes past the count), and one line with the device
+     time of each launch within one call of each compaction
+     (torch.profiler);
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -129,6 +132,56 @@ def value_sectors(vals, keep) -> int:
     k = keep.bool()
     k = torch.cat([k.new_zeros(lead), k, k.new_zeros(-(lead + k.numel()) % per)])
     return int(k.view(-1, per).any(1).sum())
+
+
+def launch_split(fn, reps: int) -> dict:
+    """Device ms of each launch (by kernel name, template arguments cut)
+    within one call of fn: torch.profiler's device events over `reps`
+    calls after a warm-up, divided by `reps`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    split: dict = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].split("<")[0].removeprefix("void ")
+            split[name] = split.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    return dict(sorted(split.items()))
+
+
+def protein_masks(data: bytes, dev):
+    """(block, masks, positions) of phase 2's scans and compactions: the
+    protein input's two-pass block on the card, its masks from the
+    standalone classify as stats_block and emit_block pass them, and
+    i32 positions."""
+    import numpy as np
+    import torch
+
+    from naf_tpu_torch.format import constants as C
+    from naf_tpu_torch.ops import scan_fused as SF
+    from naf_tpu_torch.parallel.block import make_blocks
+
+    blk = make_blocks(np.frombuffer(data, np.uint8)[1:], 1)
+    xp = torch.from_numpy(blk.data[0].copy()).to(dev)
+    sm = SF.scan_fasta_fused(xp, int(blk.prev[0]), C.SEQ_TYPE_PROTEIN, False)
+    return xp, sm, torch.arange(xp.numel(), dtype=torch.int32, device=dev)
+
+
+def compactions(xp, sm, pos) -> tuple:
+    """(row key, launch counter, values, keep, dense, TPU kernel, what) of
+    each compaction call that phase 2 times."""
+    return (("compact", "compact", xp, sm["id_keep"], False, "naf_tpu/ops/compact.py:81",
+             "id bytes u8"),
+            ("compact:i32", "compact", pos, sm["rec_start"], False,
+             "naf_tpu/ops/compact.py:81", "record starts i32"),
+            ("compact_dense", "compact_dense", sm["stream_val"], sm["stream_keep"], True,
+             "naf_tpu/ops/compact.py:175", "sequence stream u8"))
 
 
 def max_abs_err(a, b) -> int:
@@ -385,7 +438,8 @@ def main() -> int:
             nbytes = (kp.numel() * kp.element_size() + sectors * SECTOR_BYTES
                       + n_kept * vals.element_size() + 4)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            extra.update(kept=n_kept, value_sectors=sectors)
+            extra.update(kept=n_kept, value_sectors=sectors,
+                         tail_bytes=(vals.numel() - n_kept) * vals.element_size())
         del kout, pout
         torch.cuda.empty_cache()
         ms = cuda_time(kfn, 10)
@@ -456,12 +510,9 @@ def main() -> int:
     # scans and compactions: the protein input's two-pass block, its masks
     # from the standalone classify, as stats_block and emit_block pass them
     name, data = two_pass_inputs[0][:2]
-    blk = make_blocks(np.frombuffer(data, np.uint8)[1:], 1)
-    xp = torch.from_numpy(blk.data[0].copy()).to(dev)
+    xp, sm, pos = protein_masks(data, dev)
     n = xp.numel()
-    sm = SF.scan_fasta_fused(xp, int(blk.prev[0]), C.SEQ_TYPE_PROTEIN, False)
     keep, val = sm["stream_keep"], sm["stream_val"]
-    pos = torch.arange(n, dtype=torch.int32, device=dev)
     enc = torch.where(keep, pos * 2 + (keep & (val >= 96)).to(torch.int32), -(1 << 30))
     shape = f"{name} block [{n}]"
     check("cumsum_i32", lambda: SF.scan_i32_kernel(keep, "add"),
@@ -473,19 +524,17 @@ def main() -> int:
           "naf_tpu/ops/scan_fused.py:283", f"{shape} run-start code i32 -> i32", [enc],
           library=lambda: torch.cummax(enc, 0),
           library_name="torch.cummax (values and indices, no floor)")
-    for key, kname, vals, kp, dense, repl, what in (
-            ("compact", "compact", xp, sm["id_keep"], False, "naf_tpu/ops/compact.py:81",
-             "id bytes u8"),
-            ("compact:i32", "compact", pos, sm["rec_start"], False,
-             "naf_tpu/ops/compact.py:81", "record starts i32"),
-            ("compact_dense", "compact_dense", val, keep, True, "naf_tpu/ops/compact.py:175",
-             "sequence stream u8")):
+    split = {}
+    for key, kname, vals, kp, dense, repl, what in compactions(xp, sm, pos):
         check(kname, lambda: CP.compact_kernel(vals, kp, dense=dense),
               lambda: CP.compact_plain(vals, kp), "naf_tpu_torch/csrc/compact.cu", repl,
               f"{shape} {what}", [vals, kp], kept=True,
               library=lambda: torch.masked_select(vals, kp),
               library_name="torch.masked_select (the kept prefix only: no zero tail, no "
                            "count tensor)", row_key=key)
+        split[key] = launch_split(lambda: CP.compact_kernel(vals, kp, dense=dense), 10)
+    emit({"phase": "compact_launches", "card": card, "shape": shape,
+          "device_ms_per_call": split})
     del xp, sm, keep, val, pos, enc
     torch.cuda.empty_cache()
 
@@ -738,8 +787,8 @@ def main() -> int:
         if k == "compact":
             i32 = kernel_rows["compact:i32"]
             row["i32"] = {f: i32[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_padded_ms", "library_ms", "kept",
-                                              "value_sectors")}
+                                              "bound_padded_ms", "tail_bytes", "library_ms",
+                                              "kept", "value_sectors")}
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the FASTA emit and classify kernels of several checkouts of the port
-on one CUDA card, in the order given and then in reverse (A B B A).
+"""Time the FASTA emit and classify kernels and the compactions of several
+checkouts of the port on one CUDA card, in the order given and then in
+reverse (A B B A).
 
     python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10]
 
@@ -9,17 +10,20 @@ Each DIR is the root of a checkout (the directory that holds
 ``git archive`` into a directory that .gitignore lists.  All checkouts
 build their kernels first, side by side; nvcc's resource log of each goes
 to standard error.  Then each timing runs in a process of its own with its
-checkout first on ``sys.path``.  The input is chip_smoke.py's phase-2 FASTA
-block (bench.py's gen_fasta_single(128) as one block); each time is the
-CUDA-event mean over --reps calls after a warm-up, and ``passes_ms`` the
-device time of each CUDA kernel inside the emit call (torch.profiler, mean
-over --reps calls).  One JSON line per timing, then the card's name and
-power limit as nvidia-smi gives them.
+checkout first on ``sys.path``.  The inputs are chip_smoke.py's phase-2
+shapes, made by this checkout's chip_smoke.py: the FASTA block (bench.py's
+gen_fasta_single(128) as one block) and the three compaction calls on the
+swissprot_like(160) block and its masks.  Each time is the CUDA-event mean
+over --reps calls after a warm-up; ``passes_ms`` and ``<call>_launches_ms``
+give the device time of each launch inside one emit or compaction call
+(torch.profiler, mean over --reps calls).  One JSON line per timing, then
+the card's name and power limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -46,6 +50,10 @@ def child(root: str, what: str, reps: int) -> None:
         return
     sys.path.insert(1, str(HERE))
     import bench
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    from naf_tpu_torch.ops import compact as CP
     from naf_tpu_torch.ops import emit_fused as EF
     from naf_tpu_torch.ops import scan_fused as SF
     from naf_tpu_torch.parallel.block import make_blocks
@@ -80,6 +88,11 @@ def child(root: str, what: str, reps: int) -> None:
             name = e.name if "naf" in e.name else "torch ops"
             passes[name] += e.device_time_total / 1e3 / reps
     row["passes_ms"] = dict(sorted(passes.items()))
+    xp, sm, pos = CS.protein_masks(CS.swissprot_like(160), "cuda")
+    for key, _, vals, kp, dense, *_ in CS.compactions(xp, sm, pos):
+        call = lambda: CP.compact_kernel(vals, kp, dense=dense)  # noqa: E731
+        row[f"{key}_ms"] = cuda_time(call)
+        row[f"{key}_launches_ms"] = CS.launch_split(call, reps)
     print(json.dumps(row), flush=True)
 
 

@@ -1,14 +1,14 @@
-// Shared pieces of the i32 prefix scan and the stream compaction: element
-// tiles, their loads and stores, the scan operators, and the carry kernel
-// that scans per-tile totals in one block.
+// Pieces of the i32 prefix scan: element tiles, their loads and stores, the
+// scan operators, and the carry kernel that scans per-tile totals in one
+// block.
 //
-// Both kernels work on tiles of SCAN_TILE elements, one thread block of
+// The scan works on tiles of SCAN_TILE elements, one thread block of
 // SCAN_THREADS threads per tile, SCAN_PER contiguous elements per thread
 // (16 u8 or 16 i32: one or four 16-byte loads).  A CUDA grid runs its
 // blocks in no order, so nothing carries from one tile to the next inside
-// a launch: each kernel is three launches on one stream, a per-tile
-// reduce, scan_carry_kernel over the [tiles] totals, and a per-tile pass
-// that applies each tile's carry.
+// a launch: the scan is three launches on one stream, a per-tile reduce,
+// scan_carry_kernel over the [tiles] totals, and a per-tile pass that
+// applies each tile's carry.
 #pragma once
 
 #include "common.cuh"

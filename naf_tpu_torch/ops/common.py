@@ -10,9 +10,11 @@ TILE = 1 << 16
 #: bytes per tile of the FASTQ kernels (csrc/classify_fastq.cuh Q_TILE; the
 #: TPU FASTQ emit's _TILE_Q, so its per-tile sparse cap means the same)
 Q_TILE = 1 << 15
-#: elements per tile of the scan and compaction kernels (csrc/scan.cuh
-#: SCAN_TILE); nothing outside the kernels depends on it
+#: elements per tile of the scan kernel (csrc/scan.cuh SCAN_TILE); nothing
+#: outside the kernels depends on it
 SCAN_TILE = 1 << 13
+#: elements per tile of the compaction kernel (csrc/compact.cu CT_TILE)
+COMPACT_TILE = 1 << 15
 
 
 def check_1d(t: torch.Tensor, dtype, name: str) -> None:

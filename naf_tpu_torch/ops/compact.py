@@ -17,7 +17,7 @@ import torch
 
 from ..device import LAUNCHES
 from ..native import build
-from .common import SCAN_TILE, check_1d, n_tiles
+from .common import COMPACT_TILE, check_1d, n_tiles
 
 
 def _check(values: torch.Tensor, keep: torch.Tensor) -> None:
@@ -45,13 +45,13 @@ def compact_kernel(values: torch.Tensor, keep: torch.Tensor, *, dense: bool = Fa
     out = torch.empty_like(values)
     if n == 0:
         return out, torch.zeros((), dtype=torch.int32, device=values.device)
-    g = n_tiles(n, SCAN_TILE)
-    scratch = torch.empty(2 * g + 1, dtype=torch.int32, device=values.device)
+    g = n_tiles(n, COMPACT_TILE)
+    # a ticket, the count, and one u64 look-back status word per tile, all 0
+    scratch = torch.zeros(2 + 2 * g, dtype=torch.int32, device=values.device)
     build.call(lib, "naf_compact", values.data_ptr(), values.element_size(), keep.data_ptr(), n,
-               scratch.data_ptr(), scratch[g:].data_ptr(), out.data_ptr(), g,
-               build.stream_of(values))
+               scratch.data_ptr(), out.data_ptr(), g, build.stream_of(values))
     LAUNCHES["compact_dense" if dense else "compact"] += 1
-    return out, scratch[2 * g]
+    return out, scratch[1]
 
 
 def compact_u8(values: torch.Tensor, keep: torch.Tensor):

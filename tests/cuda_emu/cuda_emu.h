@@ -3,13 +3,22 @@
 // CPU in the tests.  Each block runs as THREADS host threads joined by a
 // std::barrier at __syncthreads; blocks run one after another, so a
 // function-local `static` stands in for a block's __shared__ variable.
-// Only semantics are emulated: no warps, no timing, no memory model beyond
-// the barrier.
+// Each 32 threads form a warp with a barrier of its own: a warp intrinsic
+// posts the lane's value to a slot, meets the warp, reads the slots it
+// needs and meets it again, so every lane of the warp must call it (the
+// kernels call them with the full mask).  Because blocks run in order of
+// their index, a ticket taken with atomicAdd equals the block index and a
+// decoupled look-back only ever meets earlier tiles that have finished:
+// the wait for an unpublished tile is compiled but never taken here.
+// Only semantics are emulated: no timing, no memory model beyond the
+// barriers.
 #pragma once
 
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -41,12 +50,18 @@ inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 #define __align__(n) alignas(n)
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 namespace naf_emu {
 
 inline thread_local dim3 thread_idx, block_idx;
 inline dim3 block_dim, grid_dim;
 inline std::barrier<>* block_barrier = nullptr;
+inline std::deque<std::barrier<>>* warp_barriers = nullptr;
+inline uint64_t* warp_slots = nullptr;  // one per thread of the block
 alignas(16) inline uint8_t dyn_smem[232448];
 
 template <typename K, typename... A>
@@ -55,7 +70,13 @@ void launch(K kernel, dim3 grid, dim3 block, A... args) {
   grid_dim = grid;
   for (unsigned b = 0; b < grid.x; ++b) {
     std::barrier<> bar(block.x);
+    std::deque<std::barrier<>> warps;
+    for (unsigned w = 0; w * 32 < block.x; ++w)
+      warps.emplace_back(block.x - w * 32 < 32 ? block.x - w * 32 : 32);
+    std::vector<uint64_t> slots(block.x);
     block_barrier = &bar;
+    warp_barriers = &warps;
+    warp_slots = slots.data();
     std::vector<std::thread> threads;
     threads.reserve(block.x);
     for (unsigned t = 0; t < block.x; ++t)
@@ -68,6 +89,32 @@ void launch(K kernel, dim3 grid, dim3 block, A... args) {
   }
 }
 
+inline void warp_sync() { (*warp_barriers)[thread_idx.x / 32].arrive_and_wait(); }
+
+// Post v for this lane and meet the warp; returns the warp's 32 slots.
+template <typename T>
+const uint64_t* warp_post(T v) {
+  uint64_t b = 0;
+  std::memcpy(&b, &v, sizeof(T));
+  warp_slots[thread_idx.x] = b;
+  warp_sync();
+  return warp_slots + (thread_idx.x & ~31u);
+}
+
+template <typename T>
+T warp_read(const uint64_t* slots, unsigned lane) {
+  T v;
+  std::memcpy(&v, slots + lane, sizeof(T));
+  warp_sync();  // every lane has read before a slot is posted again
+  return v;
+}
+
+inline unsigned lane() { return thread_idx.x & 31u; }
+inline unsigned warp_size() {
+  const unsigned w0 = thread_idx.x & ~31u;
+  return block_dim.x - w0 < 32 ? block_dim.x - w0 : 32;
+}
+
 }  // namespace naf_emu
 
 #define threadIdx naf_emu::thread_idx
@@ -76,3 +123,30 @@ void launch(K kernel, dim3 grid, dim3 block, A... args) {
 #define gridDim naf_emu::grid_dim
 
 inline void __syncthreads() { naf_emu::block_barrier->arrive_and_wait(); }
+
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) {
+  return naf_emu::warp_read<T>(naf_emu::warp_post(v), static_cast<unsigned>(src) & 31u);
+}
+
+template <typename T>
+T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const unsigned l = naf_emu::lane();
+  return naf_emu::warp_read<T>(naf_emu::warp_post(v), l >= d ? l - d : l);
+}
+
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  const unsigned l = naf_emu::lane(), src = l ^ static_cast<unsigned>(m);
+  return naf_emu::warp_read<T>(naf_emu::warp_post(v), src < naf_emu::warp_size() ? src : l);
+}
+
+inline unsigned __ballot_sync(unsigned, int p) {
+  const uint64_t* s = naf_emu::warp_post<int>(p != 0);
+  unsigned mask = 0;
+  for (unsigned i = 0; i < naf_emu::warp_size(); ++i) mask |= static_cast<unsigned>(s[i] != 0) << i;
+  naf_emu::warp_sync();
+  return mask;
+}
+
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }

@@ -32,8 +32,9 @@ from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
-from torch_cases import (CLASSIFY_CASES, COMPACT_DENSITIES, EMIT_CASES, FASTQ_CASES,
-                         case_change_behind_tile_start, classify_case, compact_input, emit_case,
+from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, EMIT_CASES,
+                         FASTQ_CASES, case_change_behind_tile_start, classify_case, compact_case,
+                         emit_case,
                          fastq_case, fastq_case_change_behind_tile_start, fastq_masked_reads,
                          fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_input,
                          sra_fastq, typed_fasta)
@@ -202,10 +203,13 @@ def test_scan_kernel_on_card(card, n):
             assert torch.equal(SF.scan_i32_kernel(t, "max"), SF.maxscan_i32_plain(t.cpu()).to(card))
 
 
-@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 7 * SCAN_TILE - 5, 3000 * SCAN_TILE + 9])
+@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 7 * SCAN_TILE - 5, 3000 * SCAN_TILE + 9,
+                               *COMPACT_CASES, *COMPACT_CARD_CASES])
 def test_compact_kernel_on_card(card, n):
+    """The named long cases make the look-back meet tiles that have not
+    published yet, and the zero fill span thousands of tiles."""
     for kind in ("u8", "i32"):
-        v, keep = compact_input(n, COMPACT_DENSITIES, kind)
+        v, keep = compact_case(n, kind)
         for k in (0, 3):
             vt, kt = _on(v, card, k), _on(keep, card, k)
             want, want_cnt = CP.compact_plain(vt.cpu(), kt.cpu())

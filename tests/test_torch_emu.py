@@ -30,8 +30,8 @@ from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
-from torch_cases import (CLASSIFY_CASES, COMPACT_DENSITIES, EMIT_CASES, FASTQ_CASES,
-                         case_change_behind_tile_start, classify_case, compact_input, emit_case,
+from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, EMIT_CASES, FASTQ_CASES,
+                         case_change_behind_tile_start, classify_case, compact_case, emit_case,
                          fastq_case, fastq_case_change_behind_tile_start, fastq_reads,
                          scan_input)
 
@@ -195,14 +195,15 @@ def test_scan_kernel_matches_plain(emu, n):
             assert torch.equal(SF.scan_i32_kernel(t, "max", lib=emu), SF.maxscan_i32_plain(t))
 
 
-@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 3 * SCAN_TILE - 5])
+@pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 3 * SCAN_TILE - 5, *COMPACT_CASES])
 def test_compact_kernel_matches_plain(emu, n):
     for kind in ("u8", "i32"):
-        v, keep = compact_input(n, COMPACT_DENSITIES, kind)
-        for k in (0, 3):                            # aligned and unaligned input
-            vt, kt = _offset(v, k), _offset(keep, k)
+        v, keep = compact_case(n, kind)
+        # aligned, unaligned, and values and flags unaligned apart
+        for kv, kk in ((0, 0), (3, 3), (1, 6)):
+            vt, kt = _offset(v, kv), _offset(keep, kk)
             # both wrappers launch the one kernel; only the counter differs
-            out, cnt = CP.compact_kernel(vt, kt, dense=k > 0, lib=emu)
+            out, cnt = CP.compact_kernel(vt, kt, dense=kv > 0, lib=emu)
             want, want_cnt = CP.compact_plain(vt, kt)
             assert torch.equal(out, want) and int(cnt) == int(want_cnt)
 

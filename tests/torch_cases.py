@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from naf_tpu_torch.format import constants as C
-from naf_tpu_torch.ops.common import Q_TILE, TILE
+from naf_tpu_torch.ops.common import COMPACT_TILE, Q_TILE, TILE
 
 #: one padded length for every classify case
 N_CLASSIFY = 2 * TILE + 64
@@ -266,6 +266,40 @@ def compact_input(n: int, p_keep, kind: str):
     if kind == "u8":
         return rng.integers(0, 256, n, dtype=np.uint8), keep
     return (np.arange(n, dtype=np.int32) * 3 - 7), keep
+
+
+#: named compaction cases of compact_case, each several 32,768-element
+#: tiles of the compaction kernel long
+COMPACT_CASES = ["tile_edges", "all_kept", "none_kept", "last_only", "first_half", "byte_flags"]
+#: longer ones for the card: a zero tail over thousands of tiles, tens of
+#: thousands of tiles, a length that is not a multiple of 16
+COMPACT_CARD_CASES = ["first_half_long", "many_tiles", "ragged_16"]
+
+
+def compact_case(case, kind: str):
+    """(values, keep) of a compaction case: a length (COMPACT_DENSITIES in
+    equal segments) or a name of COMPACT_CASES or COMPACT_CARD_CASES."""
+    if isinstance(case, int):
+        return compact_input(case, COMPACT_DENSITIES, kind)
+    t = COMPACT_TILE
+    n = {"tile_edges": 5 * t + 100, "all_kept": 3 * t + 9, "none_kept": 3 * t + 9,
+         "last_only": 2 * t + 77, "first_half": 6 * t + 5, "byte_flags": 3 * t + 21,
+         "first_half_long": 3000 * t + 5, "many_tiles": 20_000 * t + 9,
+         "ragged_16": 1000 * t + 13}[case]
+    v, keep = compact_input(n, COMPACT_DENSITIES if case == "many_tiles" else 0.5, kind)
+    if case == "tile_edges":        # all | none | half | all | none, changing at tile edges
+        keep[:t], keep[t:2 * t], keep[3 * t:4 * t], keep[4 * t:] = True, False, True, False
+    elif case == "all_kept":
+        keep[:] = True
+    elif case in ("none_kept", "last_only"):
+        keep[:] = False
+        keep[-1] = case == "last_only"
+    elif case.startswith("first_half"):
+        keep[:n // 2], keep[n // 2:] = True, False
+    elif case == "byte_flags":      # u8 flags: any nonzero byte keeps
+        keep = np.random.default_rng(n).choice(
+            np.array([0, 0, 0, 1, 2, 0x7F, 0x80, 0xFF], np.uint8), size=n)
+    return v, keep
 
 
 def typed_fasta(rng, seq_type: int, n_rec: int = 20, max_len: int = 600) -> bytes:
