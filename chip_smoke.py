@@ -14,9 +14,9 @@ Phases, each printing JSON lines:
      sectors of the values that hold a kept element and the kept prefix;
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
      to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
-     its contract writes past the count), and one line with the device
-     time of each launch within one call of each compaction
-     (torch.profiler);
+     its contract writes past the count), the device time of each launch
+     within one call of the FASTQ emit (its row's ``launch_split``), and
+     one line with the same for each compaction (torch.profiler);
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -421,7 +421,7 @@ def main() -> int:
     kernel_rows = {}
 
     def check(kname, kfn, pfn, src, repl, shape, inputs, kout=None, pout=None, counts=None,
-              kept=None, library=None, library_name=None, row_key=None):
+              kept=None, library=None, library_name=None, row_key=None, split=False):
         kout = kfn() if kout is None else kout
         pout = pfn() if pout is None else pout
         torch.cuda.synchronize()
@@ -447,6 +447,8 @@ def main() -> int:
         lib_ms = cuda_time(library, 10) if library is not None else None
         if library_name:
             extra["library_call"] = library_name
+        if split:                   # device ms of each launch inside one call
+            extra["launch_split"] = launch_split(kfn, 10)
         torch.cuda.empty_cache()
         row = {"name": kname, "route": "cuda", "source": src, "replaces": repl,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -464,7 +466,8 @@ def main() -> int:
     shape = f"{name} block u8[{xq.numel()}]"
     check("emit_fastq", lambda: EF.emit_fastq_kernel(xq, prev_q),
           lambda: EF.emit_fastq_plain(xq, prev_q), "naf_tpu_torch/csrc/emit_fastq.cu",
-          "naf_tpu/ops/emit_fused.py:515", shape, [xq], counts=("cnt", "cnt_qual", "cnt_id"))
+          "naf_tpu/ops/emit_fused.py:515", shape, [xq], counts=("cnt", "cnt_qual", "cnt_id"),
+          split=True)
     check("classify_fastq", lambda: SF.classify_fastq_kernel(xq, prev_q),
           lambda: SF.classify_fastq_plain(xq, prev_q),
           "naf_tpu_torch/csrc/classify_fastq.cu", "naf_tpu/ops/scan_fused.py:364", shape, [xq])

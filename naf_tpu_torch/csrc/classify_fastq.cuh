@@ -1,5 +1,6 @@
-// Per-byte FASTQ classify: the device functions that the FASTQ emit and the
-// standalone FASTQ classify share.
+// Per-byte FASTQ classify: the device functions of the standalone FASTQ
+// classify, and the tile geometry and tables that the FASTQ emit shares
+// with it (emit_fastq.cu computes the same classes bit-parallel).
 //
 // Replaces naf_tpu/ops/scan_fused.py:_make_fastq_kernel (classify_fastq_fused).
 // The TPU kernel carries three scalars across its in-order grid: the header

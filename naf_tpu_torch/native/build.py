@@ -30,7 +30,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 
-#: argument types of each C entry (see csrc/*.cu); the last is the stream
+#: argument types of each C entry (see csrc/*.cu); the last is the stream, but for
+#: naf_emit_fastq_scratch, which launches nothing
 SIGNATURES = {
     "naf_fasta_tile_maps": [_P, _L, _I, _P, _P, _I, _P],
     "naf_classify_fasta": [_P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _P],
@@ -42,9 +43,9 @@ SIGNATURES = {
     "naf_mask_parity_apply": [_P, _P, _L, _P, _P, _I, _P],
     "naf_fastq_tile_maps": [_P, _L, _P, _P, _P, _I, _P],
     "naf_classify_fastq": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P],
-    "naf_emit_fastq_summary": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _I, _P],
-    "naf_emit_fastq_write": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _P],
+    "naf_emit_fastq_scratch": [_I],
+    "naf_emit_fastq": [_P, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _P],
     "naf_scan_i32": [_P, _I, _L, _I, _P, _P, _P, _I, _P],
     "naf_compact": [_P, _I, _P, _L, _P, _P, _I, _P],
 }

@@ -8,9 +8,11 @@ markers and case changes, with the scalars the host stitch needs.
 ``emit_fastq_fused`` does the same for a FASTQ block, with three dense
 compactions (stream, quality, id) and a sparse channel of comment bytes,
 record starts (carrying their sequence, quality and id prefixes) and case
-changes.  Each kernel (``csrc/emit_fasta.cu``, ``csrc/emit_fastq.cu``) runs
-three passes; the scans over tile summaries between them are torch ops on
-[tiles]-sized tensors.
+changes.  The FASTA kernel (``csrc/emit_fasta.cu``) runs three passes; the
+scans over tile summaries between them are torch ops on [tiles]-sized
+tensors.  The FASTQ kernel (``csrc/emit_fastq.cu``) is one pass over the
+block that carries across tiles by decoupled look-back, then a launch for
+the zero fill and the block scalars.
 
 One difference from the reference, on purpose: a case change at a tile's
 first kept byte is found even when that byte is not the tile's first byte.
@@ -27,8 +29,7 @@ from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
 from .common import Q_TILE, TILE, check_1d, n_tiles
-from .scan_fused import (classify_fastq_masks, classify_masks, entry_states, fastq_tile_entry,
-                         start_state, tile_maps)
+from .scan_fused import classify_fastq_masks, classify_masks, entry_states, start_state, tile_maps
 from .tables import device_tables
 
 #: sparse entries kept per tile (the TPU kernels' _CS_CAP), for the 64 KiB
@@ -36,7 +37,6 @@ from .tables import device_tables
 CS_CAP = 2048
 TAG_ID, TAG_COM, TAG_REC, TAG_CHG = 0, 1, 2, 3
 SUMMARY_COLS = 16          # csrc/emit_fasta.cu pass-B row width
-Q_SUMMARY_COLS = 17        # csrc/emit_fastq.cu pass-B row width
 
 
 def _plain_cases(stream_keep: torch.Tensor, sval: torch.Tensor):
@@ -253,40 +253,33 @@ def emit_fastq_plain(block: torch.Tensor, prev_byte: int, *,
                 sp_tv=sp_tv, sp_a=sp_a, sp_b=sp_b, sp_c=sp_c)
 
 
+#: the order of the scalars ``naf_emit_fastq`` writes (csrc/emit_fastq.cu)
+_Q_SCALARS = ("cnt", "cnt_seq", "cnt_qual", "cnt_id", "n_sp", "sp_ok", "unex_id", "unex_com",
+              "unex_seq", "unex_qual", "longest", "first_lower", "first_sval")
+
+
 def emit_fastq_kernel(block: torch.Tensor, prev_byte: int, *, seq_type: int = C.SEQ_TYPE_DNA,
                       lib=None) -> dict:
     """Launch the FASTQ emit kernel on ``block``'s device (``lib`` as in
-    ``scan_fused.classify_fasta_kernel``)."""
+    ``scan_fused.classify_fasta_kernel``): one pass over the block, then
+    the zero fill and the scalars, with no host sync between."""
     n = _check_block(block)
     lib = build.kernel_lib(block, lib)
     dev = block.device
     tabs = device_tables(seq_type, dev)
-    pe0 = start_state(prev_byte, False)[0]
     g = n_tiles(n, Q_TILE)
-    stream = build.stream_of(block)
-    args = (tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], tabs["repl_qual"])
-
-    entry = fastq_tile_entry(block, tabs["cls"], lib)
-    summ = torch.empty((g, Q_SUMMARY_COLS), dtype=torch.int32, device=dev)
-    build.call(lib, "naf_emit_fastq_summary", block.data_ptr(), n, pe0, entry.data_ptr(),
-               *args, summ.data_ptr(), g, stream)
-    s = summ.long()
-    r = _scan_summaries(s)
-    n_qual, n_id = s[:, 14], s[:, 15]
-    tile_in = torch.stack([entry[:, 0].long(), entry[:, 1].long(), r.pop("stream_off"),
-                           r.pop("seq_off"), torch.cumsum(n_qual, 0) - n_qual,
-                           torch.cumsum(n_id, 0) - n_id, r.pop("prev_lower"),
-                           r.pop("sp_off")], 1).int()
-    cnt_qual, cnt_id = n_qual.sum(), n_id.sum()
-    totals = torch.stack([r["cnt"], r["n_sp"], cnt_qual, cnt_id]).int()
+    scratch = torch.zeros(lib.naf_emit_fastq_scratch(g), dtype=torch.int32, device=dev)
+    scal = torch.empty(len(_Q_SCALARS), dtype=torch.int32, device=dev)
     sv, qv, iv = (torch.empty(g * Q_TILE, dtype=torch.uint8, device=dev) for _ in range(3))
     sp = [torch.empty(g * CS_CAP, dtype=torch.int32, device=dev) for _ in range(4)]
-    build.call(lib, "naf_emit_fastq_write", block.data_ptr(), n, pe0, tile_in.data_ptr(),
-               totals.data_ptr(), *args, CS_CAP, sv.data_ptr(), qv.data_ptr(), iv.data_ptr(),
-               *(a.data_ptr() for a in sp), g, stream)
+    build.call(lib, "naf_emit_fastq", block.data_ptr(), n, start_state(prev_byte, False)[0],
+               tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], tabs["repl_qual"],
+               CS_CAP, scratch.data_ptr(), scal.data_ptr(), sv.data_ptr(), qv.data_ptr(),
+               iv.data_ptr(), *(a.data_ptr() for a in sp), g, build.stream_of(block))
     LAUNCHES["emit_fastq"] += 1
-    return _i32(sv=sv, qv=qv, iv=iv, cnt_qual=cnt_qual, cnt_id=cnt_id,
-                unex_qual=s[:, 16].sum(), **r, sp_tv=sp[0], sp_a=sp[1], sp_b=sp[2], sp_c=sp[3])
+    r = dict(zip(_Q_SCALARS, scal.unbind()))
+    r["sp_ok"] = r["sp_ok"] != 0
+    return dict(sv=sv, qv=qv, iv=iv, **r, sp_tv=sp[0], sp_a=sp[1], sp_b=sp[2], sp_c=sp[3])
 
 
 def emit_fastq_fused(block: torch.Tensor, prev_byte: int, *,

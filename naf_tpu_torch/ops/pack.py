@@ -1,5 +1,6 @@
 """4-bit nucleotide pack: the port of ``naf_tpu/ops/pack.py``'s
-``pack_4bit_pallas``, and its host numpy ``pack_4bit`` (``pack_4bit_np``).
+``pack_4bit_pallas``; its host numpy ``pack_4bit`` (``pack_4bit_np``) lives
+in the torch-free ``nibble_np`` and is re-exported here.
 
 ``pack_4bit`` also takes the parallel encoder's two steps around the TPU
 kernel: the one-byte roll on odd nibble parity (``shift``) and the zero
@@ -9,36 +10,13 @@ runs between the emit and the pack.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..device import LAUNCHES
 from ..native import build
 from .common import check_1d
-from .tables import NUC_CODE, device_tables
-
-
-def pack_4bit_np(seq_np: np.ndarray, parity_nibble: int | None = None
-                 ) -> tuple[np.ndarray, int | None]:
-    """Host numpy pack of ASCII bytes into 4-bit codes, low nibble first.
-
-    ``parity_nibble`` is the pending low nibble carried from the previous
-    piece, or None; returns (packed bytes, new carry nibble or None), as
-    ennaf/src/encoders.c:40-68.
-    """
-    seq_np = np.ascontiguousarray(seq_np, dtype=np.uint8)
-    prefix = np.zeros(0, np.uint8)
-    if parity_nibble is not None:
-        if seq_np.size == 0:
-            return prefix, parity_nibble
-        prefix = np.asarray([parity_nibble | (int(NUC_CODE[seq_np[0]]) << 4)], np.uint8)
-        seq_np = seq_np[1:]
-    carry = None
-    if seq_np.size % 2:
-        carry = int(NUC_CODE[seq_np[-1]])
-        seq_np = seq_np[:-1]
-    codes = NUC_CODE[seq_np]
-    return np.concatenate([prefix, codes[0::2] | (codes[1::2] << 4)]), carry
+from .nibble_np import pack_4bit_np  # noqa: F401  (the host half, re-exported)
+from .tables import device_tables
 
 
 def _check(seq: torch.Tensor, shift: int, out_len: int | None) -> int:

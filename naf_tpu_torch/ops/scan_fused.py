@@ -24,8 +24,9 @@ from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
 from .common import Q_TILE, SCAN_TILE, check_1d, n_tiles
-from .tables import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT, IS_EOL,
-                     device_tables)
+from .tables import device_tables
+from .tables_np import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT,
+                        IS_EOL)
 
 ST_ID, ST_COM, ST_SEQ = 0, 1, 2
 M_IDENT, M_SPACE, M_CID, M_CCOM, M_CSEQ = range(5)

@@ -1,8 +1,8 @@
-"""The byte tables: host numpy constants and the tensors the kernels take.
+"""The byte tables as the tensors the kernels take.
 
 This system has no weights; its state is its byte tables.  The numpy
-constants are those of ``naf_tpu/ops/tables.py``, made from the port's copy
-of the format constants; the kernels get them as arguments (a block copies
+constants live in the torch-free ``tables_np``; ``device_tables`` puts
+them on a device, and the kernels get them as arguments (a block copies
 each into shared memory).
 """
 
@@ -10,31 +10,10 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..format import constants as C
-
-NUC_CODE = np.asarray(C.NUC_CODE[:256], dtype=np.uint8)
-CODE_TO_NUC_DNA = np.asarray(C.CODE_TO_NUC_DNA, dtype=np.uint8)
-CODE_TO_NUC_RNA = np.asarray(C.CODE_TO_NUC_RNA, dtype=np.uint8)
-IS_EOL = np.asarray(C.IS_EOL[:256])
-UNEXPECTED_BY_TYPE = {t: np.asarray(tab[:256]) for t, tab in C.UNEXPECTED_BY_TYPE.items()}
-IS_UNEXPECTED_COMMENT = np.asarray(C.IS_UNEXPECTED_COMMENT[:256])
-IS_UNEXPECTED_TEXT = np.asarray(C.IS_UNEXPECTED_TEXT[:256])
-IS_UNEXPECTED_QUAL = np.asarray(C.IS_UNEXPECTED_QUAL[:256])
-
-# bits of the class table (csrc/common.cuh CLS_*)
-CLS_UNEX_SEQ, CLS_UNEX_TEXT, CLS_UNEX_COM, CLS_EOL, CLS_UNEX_QUAL = 1, 2, 4, 8, 16
-
-
-def class_table(seq_type: int) -> np.ndarray:
-    """u8[256]: the classify kernels' byte classes as bits."""
-    return (UNEXPECTED_BY_TYPE[seq_type].astype(np.uint8) * CLS_UNEX_SEQ
-            | IS_UNEXPECTED_TEXT.astype(np.uint8) * CLS_UNEX_TEXT
-            | IS_UNEXPECTED_COMMENT.astype(np.uint8) * CLS_UNEX_COM
-            | IS_EOL.astype(np.uint8) * CLS_EOL
-            | IS_UNEXPECTED_QUAL.astype(np.uint8) * CLS_UNEX_QUAL)
+from .tables_np import CODE_TO_NUC_DNA, CODE_TO_NUC_RNA, NUC_CODE, class_table
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,26 +1,20 @@
 """4-bit nucleotide unpack: the port of ``naf_tpu/ops/unpack.py``'s
-``unpack_4bit_pallas``, and its host numpy ``unpack_4bit``
-(``unpack_4bit_np``).  The kernel writes the interleaved u8 chars
-directly; the TPU kernel's u16 output only dodged a TPU relayout.
+``unpack_4bit_pallas``; its host numpy ``unpack_4bit`` (``unpack_4bit_np``)
+lives in the torch-free ``nibble_np`` and is re-exported here.  The kernel
+writes the interleaved u8 chars directly; the TPU kernel's u16 output only
+dodged a TPU relayout.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
 from .common import check_1d
+from .nibble_np import unpack_4bit_np  # noqa: F401  (the host half, re-exported)
 from .tables import device_tables
-
-
-def unpack_4bit_np(packed_np: np.ndarray, total_chars: int, rna: bool = False) -> np.ndarray:
-    """Host numpy unpack of 4-bit codes to ``total_chars`` ASCII bytes."""
-    packed_np = np.ascontiguousarray(packed_np, dtype=np.uint8)
-    lut = C.CODES_TO_NUCS_RNA if rna else C.CODES_TO_NUCS_DNA
-    return lut[packed_np].reshape(-1)[:total_chars]
 
 
 def _table(packed: torch.Tensor, rna: bool) -> torch.Tensor:

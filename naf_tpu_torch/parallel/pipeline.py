@@ -36,7 +36,7 @@ import torch
 from ..device import count_route, resolve
 from ..format import constants as C
 from ..ops.mask import runs_to_units
-from ..ops.tables import NUC_CODE
+from ..ops.tables_np import NUC_CODE
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
 from .block import (STATS_KEYS, blob_from_lens, emit_block, fused_block, fused_block_fastq,

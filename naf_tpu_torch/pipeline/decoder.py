@@ -16,6 +16,10 @@ does not take the archive, the ragged render
 send the rest to ``fasta()`` / ``fastq()``: spill quirks (chars beyond the
 sum of the lengths), as the reference does, and a record too large for the
 ragged render's i32 batches (``render_overflow``).
+
+Importing this module, and the host ``fasta()`` and ``fastq()``, load no
+torch: the device half (``device``, ``parallel.decode``) is imported inside
+``_plan`` and the two device entry points.
 """
 
 from __future__ import annotations
@@ -26,15 +30,13 @@ from typing import BinaryIO, Optional
 import numpy as np
 
 from ..codec import decompress_section, decompress_section_blocked
-from ..device import count_route, resolve
 from ..format import constants as C
 from ..format.container import NafReader
 from ..native import host as native
 from ..ops.assemble import Column, const_column, ragged_concat, split_blob
 from ..ops.mask import apply_mask_np, expand_mask_np, merge_units
+from ..ops.nibble_np import unpack_4bit_np
 from ..ops.render import body_length, wrap_records_np
-from ..ops.unpack import unpack_4bit_np
-from ..parallel import decode as DV
 
 
 class DecodeError(ValueError):
@@ -320,6 +322,8 @@ class Decoder:
     def _plan(self, mode: int, masking: bool):
         """(RenderPlan, raw section bytes) for device render, or None when
         the archive has spill quirks only the host renderer reproduces."""
+        from ..parallel import decode as DV
+
         n = self.r.n_sequences
         ids, com, merged, spans = self._batch_metadata(masking)
         total, raw = self._load_seq_raw()
@@ -338,7 +342,9 @@ class Decoder:
         return plan, raw
 
     def _fasta_plan(self, masking: bool):
-        return self._plan(DV.MODE_FASTA, masking)
+        from ..parallel.decode import MODE_FASTA
+
+        return self._plan(MODE_FASTA, masking)
 
 
 #: decline reasons of the uniform render that the ragged render takes
@@ -348,6 +354,9 @@ _RAGGED = ("too_many_groups", "too_large", "spill")
 def _render(plan, raw, qual, dev, host) -> bytes:
     """The device render of a plan: uniform, ragged, or ``host()`` by a
     named route."""
+    from ..device import count_route
+    from ..parallel import decode as DV
+
     reason = DV.decline_reason(plan)
     if reason is None:
         count_route("decode_device")
@@ -367,6 +376,8 @@ def _render(plan, raw, qual, dev, host) -> bytes:
 def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) -> bytes:
     """FASTA output of an open archive, rendered on ``device``; the same
     bytes as ``decoder.fasta(masking)``."""
+    from ..device import count_route, resolve
+
     dev = resolve(device)
     if not decoder.h.has_sequence:
         count_route("decode_host:no_sequence")
@@ -383,13 +394,16 @@ def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) ->
 def fastq_device(decoder: Decoder, *, device) -> bytes:
     """FASTQ output of an open archive, rendered on ``device``; the same
     bytes as ``decoder.fastq()``.  The mask is never applied (unnaf.c:443)."""
+    from ..device import count_route, resolve
+    from ..parallel.decode import MODE_FASTQ
+
     dev = resolve(device)
     if not decoder.h.has_sequence or decoder.r.n_sequences == 0:
         count_route("decode_host:no_sequence")
         return b""
     if not decoder.h.has_quality:
         raise DecodeError("FASTQ output requested, but input has no qualities")
-    built = decoder._plan(DV.MODE_FASTQ, False)
+    built = decoder._plan(MODE_FASTQ, False)
     if built is None:
         count_route("decode_host:spill_quirk")
         return decoder.fastq()

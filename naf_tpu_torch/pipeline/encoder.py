@@ -21,7 +21,7 @@ from ..codec import SectionCompressor, check_engine, compress_section_blocked
 from ..format import constants as C
 from ..format.container import NafArchive, NafHeader, Section, naf_bytes
 from ..ops.mask import mask_units_from_bytes
-from ..ops.pack import pack_4bit_np
+from ..ops.nibble_np import pack_4bit_np
 from . import parser as P
 
 

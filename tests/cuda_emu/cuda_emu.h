@@ -8,8 +8,11 @@
 // needs and meets it again, so every lane of the warp must call it (the
 // kernels call them with the full mask).  Because blocks run in order of
 // their index, a ticket taken with atomicAdd equals the block index and a
-// decoupled look-back only ever meets earlier tiles that have finished:
-// the wait for an unpublished tile is compiled but never taken here.
+// decoupled look-back only ever meets earlier tiles that have finished
+// (the FASTQ emit's two chained look-backs too, and every payload that a
+// flag publishes is already written): the wait for an unpublished tile is
+// compiled but never taken here, and __threadfence is a plain fence.  The
+// card tests (tests/test_torch_cuda.py) meet unfinished tiles.
 // Only semantics are emulated: no timing, no memory model beyond the
 // barriers.
 #pragma once
@@ -50,7 +53,24 @@ inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 #define __align__(n) alignas(n)
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+inline int __clz(int v) { return v ? __builtin_clz(static_cast<unsigned>(v)) : 32; }
+// 0xFF in each byte of a that equals (or is at least, unsigned) b's
+inline unsigned __vcmpeq4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i += 8) r |= ((a >> i & 0xFFu) == (b >> i & 0xFFu) ? 0xFFu : 0u) << i;
+  return r;
+}
+inline unsigned __vcmpgeu4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i += 8) r |= ((a >> i & 0xFFu) >= (b >> i & 0xFFu) ? 0xFFu : 0u) << i;
+  return r;
+}
+// Blocks run one after another, so a fence between a payload and the flag
+// that publishes it orders nothing that another block could see early.
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -133,6 +153,12 @@ template <typename T>
 T __shfl_up_sync(unsigned, T v, unsigned d) {
   const unsigned l = naf_emu::lane();
   return naf_emu::warp_read<T>(naf_emu::warp_post(v), l >= d ? l - d : l);
+}
+
+template <typename T>
+T __shfl_down_sync(unsigned, T v, unsigned d) {
+  const unsigned l = naf_emu::lane();
+  return naf_emu::warp_read<T>(naf_emu::warp_post(v), l + d < naf_emu::warp_size() ? l + d : l);
 }
 
 template <typename T>

@@ -33,9 +33,9 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, EMIT_CASES,
-                         FASTQ_CASES, case_change_behind_tile_start, classify_case, compact_case,
-                         emit_case,
-                         fastq_case, fastq_case_change_behind_tile_start, fastq_masked_reads,
+                         FASTQ_EMIT_CASES, case_change_behind_tile_start, classify_case,
+                         compact_case, emit_case, fastq_big_block, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_masked_reads,
                          fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_input,
                          sra_fastq, typed_fasta)
 
@@ -138,7 +138,7 @@ def test_mask_parity_kernel_on_card(card, n):
 
 
 @pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
-@pytest.mark.parametrize("name", FASTQ_CASES)
+@pytest.mark.parametrize("name", FASTQ_EMIT_CASES)
 def test_fastq_kernels_on_card(card, name, seq_type):
     x = _on(fastq_case(name), card)
     flags, sval = SF.classify_fastq_kernel(x, ord("@"), seq_type=seq_type)
@@ -165,6 +165,17 @@ def test_fastq_kernels_ragged_lengths_on_card(card, n):
         f_ref, v_ref = SF.classify_fastq_plain(x, ord("@"))
         assert torch.equal(f, f_ref) and torch.equal(v, v_ref)
         _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@")), EF.emit_fastq_plain(x, ord("@")))
+
+
+@pytest.mark.parametrize("flip_case", [False, True], ids=["upper", "flipped_case"])
+def test_emit_fastq_many_tiles_on_card(card, flip_case):
+    """4,096 tiles (134 MB) of ragged reads, where the look-back meets tiles
+    that have not published yet; with flip_case, case changes at many tile
+    starts.  Three calls, each byte-equal to the plain version."""
+    x = _on(fastq_big_block(4096, flip_case), card)
+    want = EF.emit_fastq_plain(x, ord("@"))
+    for _ in range(3):
+        _assert_dicts_equal(EF.emit_fastq_kernel(x, ord("@")), want)
 
 
 def test_wrappers_launch_on_cuda_tensors(card):

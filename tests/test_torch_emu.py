@@ -30,7 +30,7 @@ from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
-from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, EMIT_CASES, FASTQ_CASES,
+from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, EMIT_CASES, FASTQ_EMIT_CASES,
                          case_change_behind_tile_start, classify_case, compact_case, emit_case,
                          fastq_case, fastq_case_change_behind_tile_start, fastq_reads,
                          scan_input)
@@ -151,7 +151,7 @@ def test_mask_parity_kernel_matches_plain(emu, n):
 
 
 @pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
-@pytest.mark.parametrize("name", FASTQ_CASES)
+@pytest.mark.parametrize("name", FASTQ_EMIT_CASES)
 def test_fastq_kernels_match_plain(emu, name, seq_type):
     body = fastq_case(name)
     x = _t(body)
@@ -171,7 +171,8 @@ def test_emit_fastq_kernel_case_change_at_tile_first_kept_byte(emu, where):
                         EF.emit_fastq_plain(x, ord("@")))
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, Q_TILE - 1, Q_TILE + 1, 3 * Q_TILE + 333])
+@pytest.mark.parametrize("n", [1, 127, 129, Q_TILE - 1, Q_TILE + 1, 3 * Q_TILE + 333,
+                               6 * Q_TILE + 16 * 99 + 5])
 def test_fastq_kernels_ragged_lengths(emu, n):
     body = fastq_reads(np.random.default_rng(64 + n), 2 + n // 150,
                        alphabet=b"ACGTacgtN@+ \x01")[:n]

@@ -262,6 +262,42 @@ print(decoder.Decoder(io.BytesIO(blob)).fastq().hex())
     assert out == RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions()).fastq()
 
 
+@pytest.mark.parametrize("native_off", [False, True], ids=["native", "numpy"])
+def test_host_stack_loads_no_torch(native_off):
+    """The package, the host encoder and decoder import, and a host FASTA and
+    FASTQ round trip (encode(), then Decoder.fasta() and fastq()) run, with
+    torch absent from sys.modules; on the native runtime and on numpy."""
+    code = r"""
+import io, sys
+import naf_tpu_torch
+from naf_tpu_torch import codec, format
+from naf_tpu_torch.native import host
+from naf_tpu_torch.pipeline import decoder, encoder, parser
+fa = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
+fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
+out = []
+for data in (fa, fq):
+    blob = encoder.encode(data, encoder.EncodeOptions())[0]
+    d = decoder.Decoder(io.BytesIO(blob))
+    out += [blob.hex(), (d.fastq() if data[:1] == b"@" else d.fasta()).hex()]
+assert "torch" not in sys.modules, sorted(m for m in sys.modules if m.startswith("torch"))
+print(" ".join(out))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "NAF_TPU_TORCH_NO_NATIVE"}
+    env["PYTHONPATH"] = str(REPO)
+    if native_off:
+        env["NAF_TPU_TORCH_NO_NATIVE"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
+    fa_blob, fa_out, fq_blob, fq_out = (bytes.fromhex(x) for x in r.stdout.split())
+    fa = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
+    fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
+    assert fa_blob == RENC.encode(fa, RENC.EncodeOptions())[0] and fa_out == fa
+    assert fq_blob == RENC.encode(fq, RENC.EncodeOptions())[0]
+    assert fq_out == RDEC.Decoder(io.BytesIO(fq_blob), RDEC.DecodeOptions()).fastq()
+
+
 def test_native_runtime_builds_beside_the_kernels():
     assert native.available()
     so = native._build()

@@ -171,7 +171,8 @@ def fastq_masked_reads(rng, n_reads=300, read_len=90, masked=True):
 
 
 def fastq_case(name: str) -> np.ndarray:
-    """The LF-padded body (past the leading '@') of one FASTQ case."""
+    """The body (past the leading '@') of one FASTQ case, LF-padded to
+    N_FASTQ (many_tiles to 41 tiles; ragged_16 not padded)."""
     if name == "multi_tile":
         return pad_lf(fastq_reads(np.random.default_rng(11), 1200), N_FASTQ)
     if name == "long_reads":             # reads longer than a tile
@@ -198,11 +199,104 @@ def fastq_case(name: str) -> np.ndarray:
     if name == "sparse_overflow":        # a tile of comment bytes past the cap
         rows = [b"@r%d %s\nA\n+\n!\n" % (i, b"c" * 300) for i in range(300)]
         return pad_lf(np.frombuffer(b"".join(rows), np.uint8)[1:], N_FASTQ)
+    if name == "many_tiles":             # 41 tiles, a lower-case run in one read of three
+        return pad_lf(fastq_masked_reads(np.random.default_rng(24), 4200, 150), 41 * Q_TILE)
+    if name == "line_edges":
+        return fastq_line_edges()
+    if name == "unexpected_lanes":
+        return fastq_unexpected_lanes()
+    if name == "ragged_16":              # reads to a length not a multiple of 16
+        body = fastq_reads(np.random.default_rng(25), 900, alphabet=b"ACGTacgt")
+        return body[: 3 * Q_TILE + 16 * 37 + 9]
     raise KeyError(name)
 
 
 FASTQ_CASES = ["multi_tile", "long_reads", "weird_bytes", "lf_tail", "masked",
                "tiny_unexpected", "varied", "sparse_overflow"]
+
+
+def _fastq_record(rng, i: int, h: int, s: int, qual_first: bytes = b"") -> bytes:
+    """One record with an h-byte header and s bases (and quality bytes)."""
+    head = (b"r%d" % i + b"c" * h)[:h]
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=s).tobytes()
+    qual = (qual_first + rng.integers(35, 74, size=s, dtype=np.uint8).tobytes())[:s]
+    return b"@%s\n%s\n+\n%s\n" % (head, seq, qual)
+
+
+def fastq_line_edges() -> np.ndarray:
+    """Reads placed so that a header, a sequence and a quality line each
+    cross a 32 KiB tile edge and a 128-byte chunk edge inside a tile."""
+    rng = np.random.default_rng(22)
+    out = bytearray()
+    edges = [(Q_TILE, "header"), (Q_TILE + 128 * 37, "sequence"), (2 * Q_TILE, "quality"),
+             (2 * Q_TILE + 128 * 101, "header"), (3 * Q_TILE, "sequence"),
+             (3 * Q_TILE + 128 * 200, "quality")]
+    i = 0
+    for edge, line in edges:
+        while len(out) < edge - 700:
+            out += _fastq_record(rng, i, int(rng.integers(5, 40)), int(rng.integers(50, 150)))
+            i += 1
+        room = edge - len(out)                      # bytes before the edge, 300 to 700
+        if line == "header":                        # '@' + header crosses the edge
+            rec = _fastq_record(rng, i, room + 9, 80)
+        elif line == "sequence":
+            rec = _fastq_record(rng, i, 20, room - 22 + 11)
+        else:                                       # quality from room // 2 on, past the
+            rec = _fastq_record(rng, i, 20, room // 2)  # edge
+        out += rec
+        i += 1
+    return pad_lf(np.frombuffer(bytes(out), np.uint8)[1:], N_FASTQ)
+
+
+def fastq_unexpected_lanes() -> np.ndarray:
+    """Unexpected bytes in every lane: id, comment, sequence, the '+' line
+    and quality; quality lines that start with '@', a space or a tab."""
+    rng = np.random.default_rng(23)
+    rows = []
+    for i in range(700):
+        k = i % 7
+        head = [b"r%d" % i, b"r\x01%d" % i, b"r%d c\x01m" % i, b"r%d\x80 x\tz" % i,
+                b"r%d" % i, b"r%d c" % i, b"\x7fr%d" % i][k]
+        seq = bytearray(rng.choice(np.frombuffer(b"ACGTacgtN", np.uint8),
+                                   size=int(rng.integers(1, 120))).tobytes())
+        if k in (2, 3, 6):
+            seq[int(rng.integers(0, len(seq)))] = b"Z\x01\x80\xff"[i % 4]
+        qual = bytearray(rng.integers(35, 74, size=len(seq), dtype=np.uint8).tobytes())
+        if k in (1, 4):
+            qual[int(rng.integers(0, len(qual)))] = b"\x01\x7f\xff "[i % 4]
+        if k in (0, 4, 5):
+            qual[0] = b"@ \t"[k % 3]
+        plus = [b"+", b"+r\x01", b"+\x80x"][i % 3]
+        rows.append(b"@%s\n%s\n%s\n%s\n" % (head, bytes(seq), plus, bytes(qual)))
+    return pad_lf(np.frombuffer(b"".join(rows), np.uint8)[1:], N_FASTQ)
+
+
+def fastq_big_block(tiles: int, flip_case: bool, seed: int = 26) -> np.ndarray:
+    """A FASTQ block (past the leading '@') of at least ``tiles`` 32 KiB
+    tiles of reads of 1 to 400 bases, comments on one header in two; with
+    ``flip_case``, each read in lower case with probability 1/2, so that
+    case changes sit at many tile starts."""
+    rng = np.random.default_rng(seed)
+    n_rec = tiles * Q_TILE // 400 + 1
+    lens = rng.integers(1, 401, n_rec)
+    pool = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=int(lens.sum()))
+    if flip_case:
+        pool |= np.repeat((rng.random(n_rec) < 0.5).astype(np.uint8) * 32, lens)
+    qual = rng.integers(35, 74, size=pool.size, dtype=np.uint8).tobytes()
+    seq = pool.tobytes()
+    rows, o = [], 0
+    for i, ln in enumerate(lens.tolist()):
+        com = b" x:%d" % i if i % 2 else b""
+        rows.append(b"@r%d%s\n%s\n+\n%s\n" % (i, com, seq[o:o + ln], qual[o:o + ln]))
+        o += ln
+    body = np.frombuffer(b"".join(rows), np.uint8)[1:]
+    assert body.size >= tiles * Q_TILE
+    return body
+
+
+#: the FASTQ cases, and those the FASTQ emit's look-back and bit masks need
+#: besides (run under host emulation and on the card)
+FASTQ_EMIT_CASES = FASTQ_CASES + ["many_tiles", "line_edges", "unexpected_lanes", "ragged_16"]
 
 
 def fastq_case_change_behind_tile_start(where: str) -> np.ndarray:
