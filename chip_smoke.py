@@ -15,7 +15,7 @@ Phases, each printing JSON lines:
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
      to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
      its contract writes past the count), the device time of each launch
-     within one call of the FASTQ emit (its row's ``launch_split``), and
+     within one call of each emit (its row's ``launch_split``), and
      one line with the same for each compaction (torch.profiler);
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
@@ -485,7 +485,7 @@ def main() -> int:
     cnt = int(kern["cnt"])
     check("emit_fasta", lambda: EF.emit_fasta_kernel(x, prev), lambda: EF.emit_fasta_plain(x, prev),
           "naf_tpu_torch/csrc/emit_fasta.cu", "naf_tpu/ops/emit_fused.py:242", shape, [x],
-          kout=kern, counts=("cnt",))
+          kout=kern, counts=("cnt",), split=True)
     del kern
     check("classify_fasta", lambda: SF.classify_fasta_kernel(x, prev),
           lambda: SF.classify_fasta_plain(x, prev), "naf_tpu_torch/csrc/classify.cu",

@@ -19,9 +19,10 @@ time is the CUDA-event mean over --reps calls after a warm-up
 (``classify_fastq_ms``: the standalone FASTQ classify on the FASTQ block);
 ``fastq_passes_ms``, ``passes_ms`` and ``<call>_launches_ms`` give the
 device time of each launch inside one FASTQ emit, FASTA emit or compaction
-call (torch.profiler, mean over --reps calls; the torch ops between the
-launches summed as "torch ops").  One JSON line per timing, then the
-card's name and power limit as nvidia-smi gives them.
+call (torch.profiler, mean over --reps calls; the wrapper's zeroing of its
+scratch as "scratch memset", any other torch op as "torch ops").  One JSON
+line per timing, then the card's name and power limit as nvidia-smi gives
+them.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
     import naf_tpu_torch
     from naf_tpu_torch.native import build
 
-    if not naf_tpu_torch.__file__.startswith(str(Path(root).resolve())):
+    if not Path(naf_tpu_torch.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise AssertionError(f"imported {naf_tpu_torch.__file__}, not the one under {root}")
     build.library()
     if what == "build":
@@ -72,7 +73,8 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 name = e.name.split("(")[0].removeprefix("void ")
-                name = name if "naf" in name else "torch ops"
+                if "naf" not in name:
+                    name = "scratch memset" if "FillFunctor" in name else "torch ops"
                 passes[name] += e.device_time_total / 1e3 / reps
         return dict(sorted(passes.items()))
 

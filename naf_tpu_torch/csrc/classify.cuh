@@ -1,5 +1,6 @@
-// Per-byte FASTA classify: the device function that the emit kernel and the
-// standalone classify launch share.
+// Per-byte FASTA classify: the device functions of the standalone classify,
+// and the parser monoid, tables and padding that the FASTA emit shares with
+// it (emit_fasta.cu computes the same classes bit-parallel).
 //
 // Replaces naf_tpu/ops/scan_fused.py:_make_fasta_kernel.  The TPU kernel
 // runs a Hillis-Steele compose over a 5-element transition monoid inside a
@@ -38,7 +39,8 @@ struct ComposeOp {
 
 // Tables a block keeps in shared memory.  The FASTQ kernels add the
 // quality replacement in QTables; the FASTA kernels keep this layout (with
-// the extra field their emit's summary pass ran 23% slower on the H100).
+// the extra field the summary pass of an earlier FASTA emit ran 23% slower
+// on the H100).
 struct Tables {
   uint8_t cls[256];
   uint32_t repl_seq, repl_name;
@@ -128,7 +130,7 @@ __device__ __forceinline__ void classify_chunk(const uint32_t (&w)[WORDS], bool 
   }
 }
 
-// Shared prologue of every classify-based pass: tables to shared memory,
+// Prologue of the standalone classify: tables to shared memory,
 // the thread's bytes to registers, the thread's entry parser state.
 // st_tile is the parser state entering the tile; pe0 whether the byte
 // before the block is an EOL.  Every thread of the block must call this.

@@ -1,13 +1,15 @@
 // Shared pieces of the naf_tpu_torch kernels: tile geometry, chunk loads,
-// the block-wide scan, the carry algebra of the emit kernels, and the
-// launch macro.
+// the block-wide scan, the line-length summary of the emit kernels, and
+// the launch macro.
 //
 // Every kernel here works on tiles of 128 contiguous bytes per thread, one
 // thread block per tile: 64 KiB tiles of 512 threads (FASTA, and the
-// per-byte kernels), or 32 KiB tiles of 256 threads (FASTQ).  A thread keeps its 128 bytes in 32
-// registers, so a kernel that walks them several times reads device memory
-// once.  Carries across threads go through block_exclusive_scan; carries
-// across tiles are scanned between launches over [tiles]-sized arrays.
+// per-byte kernels), or 32 KiB tiles of 256 threads (FASTQ).  A thread
+// keeps its 128 bytes in 32 registers, so a kernel that walks them several
+// times reads device memory once.  The standalone kernels carry across
+// threads through block_exclusive_scan and across tiles by scans between
+// launches over [tiles]-sized arrays; the emits carry by warp scans and
+// decoupled look-back in one pass (emit_common.cuh).
 //
 // Built with NAF_CPU_EMU defined, the same sources compile as plain C++
 // against tests/cuda_emu/cuda_emu.h, which runs each block's threads as host
@@ -121,32 +123,6 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T identity, T* buf, Op op
   return excl;
 }
 
-// Kept-byte case runs of a chunk: first and last kept byte's case and the
-// number of case changes inside it.
-struct Cases {
-  int has, first, last, chg;
-};
-
-__device__ __forceinline__ Cases combine(const Cases& a, const Cases& b) {
-  Cases r;
-  r.has = a.has | b.has;
-  r.first = a.has ? a.first : b.first;
-  r.last = b.has ? b.last : a.last;
-  r.chg = a.chg + b.chg + ((a.has && b.has && a.last != b.first) ? 1 : 0);
-  return r;
-}
-
-// Add one kept byte of case lw (0 upper, 1 lower) to a chunk's Cases.
-__device__ __forceinline__ void add_case(Cases& c, int lw) {
-  if (!c.has) {
-    c.has = 1;
-    c.first = lw;
-  } else if (lw != c.last) {
-    ++c.chg;
-  }
-  c.last = lw;
-}
-
 // Line-length summary of kept sequence bytes between EOLs: total, whether
 // an EOL occurs, kept bytes before the first EOL and after the last, and
 // the longest line that lies wholly inside.
@@ -165,30 +141,5 @@ __device__ __forceinline__ Lines combine(const Lines& a, const Lines& b) {
   r.mx = m;
   return r;
 }
-
-// Walk of a chunk's Lines, byte by byte: run counts the kept sequence
-// bytes of the open line.
-struct LineWalk {
-  Lines ln{};
-  int run = 0;
-  __device__ __forceinline__ void step(bool seq_keep, bool eol) {
-    if (seq_keep) ++run;
-    if (eol) {
-      if (!ln.has) {
-        ln.has = 1;
-        ln.pre = run;
-      } else if (run > ln.mx) {
-        ln.mx = run;
-      }
-      run = 0;
-    }
-  }
-  __device__ __forceinline__ Lines finish(int n_seq) {
-    ln.total = n_seq;
-    ln.post = run;
-    if (!ln.has) ln.pre = run;
-    return ln;
-  }
-};
 
 }  // namespace naf

@@ -64,140 +64,18 @@
 // block an SM (80 registers, 96 bytes spilled) or one (241 registers) is
 // slower, and the look-backs cost no measurable time.  The sparse channel
 // keeps the TPU kernel's 32 KiB tiles and cap of sp_cap entries a tile,
-// so sp_ok means the same.
+// so sp_ok means the same.  The bit masks, the look-backs, the staging
+// copy and the fill launch's helpers live in emit_common.cuh, shared with
+// the FASTA emit.
 #include "classify_fastq.cuh"
+#include "emit_common.cuh"
 
 namespace naf {
 
 constexpr int QE_WARPS = Q_THREADS / 32;
 constexpr int QE_STAGE = Q_TILE + 96;   // dense stage: three streams, each 16-byte aligned
-constexpr int QE_HEAD = 16;             // i32 words before the status words (the ticket)
-constexpr int QE_STATUS = 16;           // u32 words of a tile's count status
-constexpr int QE_REC = 13;              // i32 columns of a tile's record
-constexpr int QE_FILL_THREADS = 256;
-constexpr int QE_FILL_BLOCKS = 1024;
-constexpr unsigned QE_FULL = 0xFFFFFFFFu;
-constexpr unsigned QE_AGG = 1, QE_PREFIX = 2;  // states of a status
-constexpr int TAG_COM = 1, TAG_REC = 2, TAG_CHG = 3;
-
-// ---------------------------------------------------------------------------
-// 128-bit masks of a thread's bytes: bit k of the mask is byte k
-// ---------------------------------------------------------------------------
-
-struct Bits {
-  uint32_t q[4];
-};
-
-__device__ __forceinline__ Bits operator&(Bits a, const Bits& b) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a.q[i] &= b.q[i];
-  return a;
-}
-__device__ __forceinline__ Bits operator|(Bits a, const Bits& b) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a.q[i] |= b.q[i];
-  return a;
-}
-__device__ __forceinline__ Bits operator^(Bits a, const Bits& b) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a.q[i] ^= b.q[i];
-  return a;
-}
-__device__ __forceinline__ Bits operator~(Bits a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a.q[i] = ~a.q[i];
-  return a;
-}
-__device__ __forceinline__ Bits when(bool c, const Bits& a) {
-  Bits r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.q[i] = c ? a.q[i] : 0u;
-  return r;
-}
-__device__ __forceinline__ int popc(const Bits& a) {
-  return __popc(a.q[0]) + __popc(a.q[1]) + __popc(a.q[2]) + __popc(a.q[3]);
-}
-__device__ __forceinline__ bool any(const Bits& a) {
-  return (a.q[0] | a.q[1] | a.q[2] | a.q[3]) != 0;
-}
-// Set bits below bit p, 0 <= p <= 128.
-__device__ __forceinline__ int below(const Bits& a, int p) {
-  int r = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = p - 32 * i;
-    r += __popc(a.q[i] & (s >= 32 ? QE_FULL : (s <= 0 ? 0u : (1u << s) - 1u)));
-  }
-  return r;
-}
-// Bit p, for a p known only at run time.
-__device__ __forceinline__ uint32_t bit(const Bits& a, int p) {
-  const uint32_t w = p < 64 ? (p < 32 ? a.q[0] : a.q[1]) : (p < 96 ? a.q[2] : a.q[3]);
-  return (w >> (p & 31)) & 1u;
-}
-// Lowest and highest set bit (128 and -1 when none).
-__device__ __forceinline__ int lowest(const Bits& a) {
-  int r = 128;
-#pragma unroll
-  for (int i = 3; i >= 0; --i)
-    if (a.q[i]) r = 32 * i + __ffs(static_cast<int>(a.q[i])) - 1;
-  return r;
-}
-__device__ __forceinline__ int highest(const Bits& a) {
-  int r = -1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (a.q[i]) r = 32 * i + 31 - __clz(static_cast<int>(a.q[i]));
-  return r;
-}
-// Shifted one byte later, c entering at bit 0.
-__device__ __forceinline__ Bits later(const Bits& a, uint32_t c) {
-  Bits r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.q[i] = a.q[i] << 1 | (i ? a.q[i - 1] >> 31 : c);
-  return r;
-}
-// Bit k: c xor the parity of a's bits below k.
-__device__ __forceinline__ Bits parity_before(const Bits& a, uint32_t c) {
-  Bits r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t x = a.q[i];
-    x ^= x << 1;
-    x ^= x << 2;
-    x ^= x << 4;
-    x ^= x << 8;
-    x ^= x << 16;
-    x ^= c ? QE_FULL : 0u;
-    r.q[i] = x << 1 | c;
-    c = x >> 31;
-  }
-  return r;
-}
-// Set/reset latch, s and r disjoint: bit k is set when the last set or
-// reset bit at or before k is a set bit, or when neither came and c.
-__device__ __forceinline__ Bits latch(const Bits& s, const Bits& r, uint32_t c) {
-  Bits out;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t p = ~r.q[i];
-    uint32_t g = s.q[i] | (c & p & 1u);
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      g |= (g << d) & p;
-      p &= p << d;
-    }
-    out.q[i] = g;
-    c = g >> 31;
-  }
-  return out;
-}
-
-// The high bits of the bytes of two words as 8 bits, x's bytes lowest: one
-// multiply gathers both (no two partial products meet).
-__device__ __forceinline__ uint32_t gather8(uint32_t x, uint32_t y) {
-  return ((((x & 0x80808080u) >> 7 | (y & 0x80808080u) >> 3) * 0x00204081u) >> 21) & 0xFFu;
-}
+using QAgg = CaseAgg<4>;                 // stream, seq, quality and id counts
+using QLayout = EmitLayout<4, 4>;        // unexpected id, comment, sequence and quality bytes
 
 // The masks a thread's classify starts from.
 struct RawMasks {
@@ -250,148 +128,13 @@ __device__ __forceinline__ void build_masks(const uint32_t (&w)[WORDS], const QT
 
 // Line index mod 4 (bits 0-1) and composed header map (bits 2-4) of a run
 // of bytes; the first look-back's value.
-__device__ __forceinline__ uint32_t map_lf_op(uint32_t earlier, uint32_t later) {
-  return ((earlier + later) & 3u) |
-         static_cast<uint32_t>(compose(static_cast<int>(later >> 2),
-                                       static_cast<int>(earlier >> 2))) << 2;
-}
-
-// What the counts look-back carries over a run of tiles: the stream,
-// sequence, quality and id counts, and the sparse count capped per tile.
-// A tile's capped count depends on whether its first kept stream byte
-// changes case against the byte before the run, so the run's first tile
-// that keeps a stream byte stays pending: f holds its raw count (bits
-// 0-15) and the run's has (16), first (17) and last (18) kept case, and
-// pending (19); s the rest of the run's capped count.
-struct QAgg {
-  uint32_t n[4];
-  uint32_t s, f;
+struct LaneMapOp {
+  __device__ static uint32_t op(uint32_t earlier, uint32_t later) {
+    return ((earlier + later) & 3u) |
+           static_cast<uint32_t>(compose(static_cast<int>(later >> 2),
+                                         static_cast<int>(earlier >> 2))) << 2;
+  }
 };
-
-__device__ __forceinline__ QAgg agg_op(const QAgg& a, const QAgg& b, int cap) {
-  QAgg r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.n[i] = a.n[i] + b.n[i];
-  const uint32_t ah = a.f >> 16 & 1u, bh = b.f >> 16 & 1u;
-  r.s = a.s + b.s;
-  if (!bh) {
-    r.f = a.f;
-  } else if (!ah) {
-    r.f = b.f;
-  } else {
-    if (b.f >> 19 & 1u) {
-      const int raw = static_cast<int>(b.f & 0xFFFFu) + ((a.f >> 18 & 1u) != (b.f >> 17 & 1u));
-      r.s += static_cast<uint32_t>(raw < cap ? raw : cap);
-    }
-    r.f = (a.f & 0xBFFFFu) | (b.f & (1u << 18));  // a's pending count and first case
-  }
-  return r;
-}
-
-// The capped sparse count of a run with nothing kept before it.
-__device__ __forceinline__ uint32_t resolved(const QAgg& a, int cap) {
-  const int raw = static_cast<int>(a.f & 0xFFFFu);
-  return a.s + ((a.f >> 19 & 1u) ? static_cast<uint32_t>(raw < cap ? raw : cap) : 0u);
-}
-
-__device__ __forceinline__ QAgg shfl_down(const QAgg& v, int d) {
-  QAgg r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.n[i] = __shfl_down_sync(QE_FULL, v.n[i], d);
-  r.s = __shfl_down_sync(QE_FULL, v.s, d);
-  r.f = __shfl_down_sync(QE_FULL, v.f, d);
-  return r;
-}
-
-__device__ __forceinline__ uint32_t shfl_down(uint32_t v, int d) {
-  return __shfl_down_sync(QE_FULL, v, d);
-}
-
-__device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
-  return *reinterpret_cast<const volatile uint32_t*>(p);
-}
-
-__device__ __forceinline__ void store_volatile(uint32_t* p, uint32_t v) {
-  *reinterpret_cast<volatile uint32_t*>(p) = v;
-}
-
-// Status of the first look-back: one word a tile, state in bits 30-31.
-struct MapLfStatus {
-  uint32_t* w;
-  __device__ uint32_t peek(int j) const { return load_volatile(w + j); }
-  __device__ static uint32_t state(uint32_t word) { return word >> 30; }
-  __device__ uint32_t value(int, uint32_t word) const { return word & 0x1Fu; }
-  __device__ void publish(int j, uint32_t st, uint32_t v) const {
-    store_volatile(w + j, st << 30 | v);
-  }
-  __device__ static uint32_t op(uint32_t a, uint32_t b, int) { return map_lf_op(a, b); }
-  __device__ static uint32_t identity() { return 0u; }
-};
-
-// Status of the counts look-back: QE_STATUS words a tile, the state word,
-// the aggregate (1-6) and the inclusive prefix (7-12), each written before
-// the state that names it, with a fence between.
-struct CountStatus {
-  uint32_t* w;
-  __device__ uint32_t peek(int j) const { return load_volatile(w + j * QE_STATUS); }
-  __device__ static uint32_t state(uint32_t word) { return word; }
-  __device__ QAgg value(int j, uint32_t st) const {
-    const uint32_t* p = w + j * QE_STATUS + (st == QE_PREFIX ? 7 : 1);
-    QAgg r;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) r.n[i] = load_volatile(p + i);
-    r.s = load_volatile(p + 4);
-    r.f = load_volatile(p + 5);
-    return r;
-  }
-  __device__ void publish(int j, uint32_t st, const QAgg& v) const {
-    uint32_t* p = w + j * QE_STATUS + (st == QE_PREFIX ? 7 : 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) store_volatile(p + i, v.n[i]);
-    store_volatile(p + 4, v.s);
-    store_volatile(p + 5, v.f);
-    __threadfence();
-    store_volatile(w + j * QE_STATUS, st);
-  }
-  __device__ static QAgg op(const QAgg& a, const QAgg& b, int cap) { return agg_op(a, b, cap); }
-  __device__ static QAgg identity() { return QAgg{{0u, 0u, 0u, 0u}, 0u, 0u}; }
-};
-
-// What the tiles before tile t > 0 carry, by the 32 lanes of one warp:
-// each round reads the status of the 32 tiles below `top` (lane l tile
-// top - l), waits until each has published, and combines them in tile
-// order from the nearest back to the nearest inclusive prefix; with no
-// prefix among them, it moves down.
-template <typename S>
-__device__ __forceinline__ auto look_back(const S& st, int t, int lane, int cap) {
-  auto excl = S::identity();
-  for (int top = t - 1;; top -= 32) {
-    const int j = top - lane;
-    uint32_t word = j >= 0 ? st.peek(j) : 0u;
-    uint32_t state = j >= 0 ? S::state(word) : QE_PREFIX;
-    while (__any_sync(QE_FULL, state == 0)) {
-      if (state == 0) {
-        word = st.peek(j);
-        state = S::state(word);
-      }
-    }
-    __threadfence();
-    auto v = j >= 0 ? st.value(j, word) : S::identity();
-    const unsigned pre = __ballot_sync(QE_FULL, state == QE_PREFIX);
-    const int stop = pre ? __ffs(static_cast<int>(pre)) - 1 : 32;
-    if (lane > stop) v = S::identity();
-    // lane l + d holds earlier tiles than lane l
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const auto o = shfl_down(v, d);
-      if (lane + d < 32) v = S::op(o, v, cap);
-    }
-    // lane 0 holds the round's run, and returns the carry
-    excl = S::op(v, excl, cap);
-    if (pre) break;
-  }
-  return excl;
-}
 
 // Packed counts of a run of bytes inside a tile, each field below 2^16:
 // a stream | seq << 16, b quality | id << 16, c the sparse entries | has
@@ -402,116 +145,13 @@ struct Q3 {
 };
 
 __device__ __forceinline__ Q3 q3_op(const Q3& x, const Q3& y) {
-  const uint32_t hx = x.c >> 16 & 1u, hy = y.c >> 16 & 1u;
-  const uint32_t sp = (x.c & 0xFFFFu) + (y.c & 0xFFFFu) +
-                      (hx && hy && (x.c >> 18 & 1u) != (y.c >> 17 & 1u));
-  const uint32_t first = hx ? x.c >> 17 & 1u : y.c >> 17 & 1u;
-  const uint32_t last = hy ? y.c >> 18 & 1u : x.c >> 18 & 1u;
-  return Q3{x.a + y.a, x.b + y.b, sp | (hx | hy) << 16 | first << 17 | last << 18};
+  return Q3{x.a + y.a, x.b + y.b, cases_op(x.c, y.c)};
 }
 
 __device__ __forceinline__ Q3 shfl_up(const Q3& v, int d) {
-  return Q3{__shfl_up_sync(QE_FULL, v.a, d), __shfl_up_sync(QE_FULL, v.b, d),
-            __shfl_up_sync(QE_FULL, v.c, d)};
+  return Q3{__shfl_up_sync(FULL, v.a, d), __shfl_up_sync(FULL, v.b, d),
+            __shfl_up_sync(FULL, v.c, d)};
 }
-
-__device__ __forceinline__ Lines shfl_down(const Lines& v, int d) {
-  return Lines{__shfl_down_sync(QE_FULL, v.total, d), __shfl_down_sync(QE_FULL, v.has, d),
-               __shfl_down_sync(QE_FULL, v.pre, d), __shfl_down_sync(QE_FULL, v.post, d),
-               __shfl_down_sync(QE_FULL, v.mx, d)};
-}
-
-// Lines of a run of lanes' Lines, lane 0's the whole warp's (lane l + d
-// holds later bytes than lane l).
-__device__ __forceinline__ Lines warp_lines(Lines v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Lines o = shfl_down(v, d);
-    if (lane + d < 32) v = combine(v, o);
-  }
-  return v;
-}
-
-// Line summary of the kept sequence bytes between LFs of a thread's bytes.
-__device__ __forceinline__ Lines thread_lines(const Bits& seq, const Bits& lf) {
-  Lines ln{popc(seq), 0, 0, 0, 0};
-  int from = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t m = lf.q[i];
-    while (m) {
-      const int p = 32 * i + __ffs(static_cast<int>(m)) - 1;
-      m &= m - 1;
-      const int len = below(seq, p) - below(seq, from);
-      if (!ln.has) {
-        ln.has = 1;
-        ln.pre = len;
-      } else if (len > ln.mx) {
-        ln.mx = len;
-      }
-      from = p + 1;
-    }
-  }
-  ln.post = ln.total - below(seq, from);
-  if (!ln.has) ln.pre = ln.total;
-  return ln;
-}
-
-__device__ __forceinline__ Bits with_bit(Bits a, int p) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a.q[i] |= (p >> 5) == i ? 1u << (p & 31) : 0u;
-  return a;
-}
-
-__device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
-
-// The 32 bytes x[start:start+32] again, through the read-only cache: the
-// tile's bytes were loaded a few microseconds before, so these mostly hit
-// L1 or L2 (bytes at and past n read as 0, and are never kept).
-__device__ __forceinline__ void load32(const uint8_t* x, long long n, long long start,
-                                       uint32_t (&r)[8]) {
-  const uint8_t* p = x + start;
-  if (start + 32 <= n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      r[4 * i] = v.x;
-      r[4 * i + 1] = v.y;
-      r[4 * i + 2] = v.z;
-      r[4 * i + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v |= byte_or(x, n, start + 4 * i + k, 0u) << (8 * k);
-      r[i] = v;
-    }
-  }
-}
-
-// out[lo:end] = st[lo:end], out 16-byte aligned: 16-byte stores between
-// element-wise ends.
-__device__ __forceinline__ void copy_out(const uint8_t* st, uint8_t* out, int lo, int end) {
-  for (int s = threadIdx.x; s * 16 < end; s += Q_THREADS) {
-    const int e0 = s * 16;
-    if (e0 >= lo && e0 + 16 <= end) {
-      reinterpret_cast<uint4*>(out)[s] = reinterpret_cast<const uint4*>(st)[s];
-    } else {
-      for (int e = e0 > lo ? e0 : lo; e < e0 + 16 && e < end; ++e) out[e] = st[e];
-    }
-  }
-}
-
-// The tile record's columns: the tile's kept sequence bytes, its Lines
-// (has, pre, post, mx), its unexpected id, comment, sequence and quality
-// bytes, its sparse entries before the cap, whether it keeps a stream
-// byte, the first one's case and value.
-constexpr int R_SEQ = 0, R_LINES = 1, R_UNEX = 5, R_SP = 9, R_HAS = 10, R_LOWER = 11, R_SVAL = 12;
-// scal: cnt, cnt_seq, cnt_qual, cnt_id, n_sp, sp_ok, unex_id, unex_com,
-// unex_seq, unex_qual, longest, first_lower, first_sval
-constexpr int S_NSP = 4, S_OK = 5, S_UNEX = 6, S_LONGEST = 10, S_FIRST = 11;
 
 __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
     const uint8_t* x, long long n, int pe0, const uint8_t* cls, int repl_seq, int repl_name,
@@ -529,10 +169,10 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   NAF_EXTERN_SHARED(uint8_t, stage);  // QE_STAGE bytes: the kept sv, qv and iv bytes
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles = static_cast<int>(gridDim.x);
-  uint32_t* status = reinterpret_cast<uint32_t*>(scratch + QE_HEAD);
-  const CountStatus cst{status};
-  const MapLfStatus mst{status + static_cast<long long>(tiles) * QE_STATUS};
-  int* recs = scratch + QE_HEAD + static_cast<long long>(tiles) * (QE_STATUS + 1);
+  uint32_t* status = reinterpret_cast<uint32_t*>(scratch + LB_HEAD);
+  const CountStatus<4> cst{status};
+  const WordStatus<LaneMapOp> mst{status + static_cast<long long>(tiles) * LB_STATUS};
+  int* recs = scratch + LB_HEAD + static_cast<long long>(tiles) * (LB_STATUS + 1);
   if (tid == 0) {
     s_tile = static_cast<int>(atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u));
     s_fsval = 0;
@@ -557,32 +197,32 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   uint32_t inc1 = (static_cast<uint32_t>(popc(m.lf)) & 3u) | map << 2;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t o = __shfl_up_sync(QE_FULL, inc1, d);
-    if (lane >= d) inc1 = map_lf_op(o, inc1);
+    const uint32_t o = __shfl_up_sync(FULL, inc1, d);
+    if (lane >= d) inc1 = LaneMapOp::op(o, inc1);
   }
-  uint32_t ex1 = __shfl_up_sync(QE_FULL, inc1, 1);
+  uint32_t ex1 = __shfl_up_sync(FULL, inc1, 1);
   if (lane == 0) ex1 = 0;
   if (lane == 31) s_w1[warp] = inc1;
   __syncthreads();
   uint32_t pre1 = 0, tile1 = 0;
 #pragma unroll
   for (int i = 0; i < QE_WARPS; ++i) {
-    if (i < warp) pre1 = map_lf_op(pre1, s_w1[i]);
-    tile1 = map_lf_op(tile1, s_w1[i]);
+    if (i < warp) pre1 = LaneMapOp::op(pre1, s_w1[i]);
+    tile1 = LaneMapOp::op(tile1, s_w1[i]);
   }
   if (warp == 0) {
     uint32_t e = 0;
     if (t > 0) {
-      if (lane == 0) mst.publish(t, QE_AGG, tile1);
+      if (lane == 0) mst.publish(t, LB_AGG, tile1);
       e = look_back(mst, t, lane, sp_cap);
     }
     if (lane == 0) {
-      mst.publish(t, QE_PREFIX, map_lf_op(e, tile1));
+      mst.publish(t, LB_PREFIX, LaneMapOp::op(e, tile1));
       s_e1 = e;
     }
   }
   __syncthreads();
-  const uint32_t in1 = map_lf_op(map_lf_op(s_e1, pre1), ex1);
+  const uint32_t in1 = LaneMapOp::op(LaneMapOp::op(s_e1, pre1), ex1);
   const uint32_t lane0 = in1 & 3u;
   const uint32_t com0 = apply_map(static_cast<int>(in1 >> 2), ST_ID) == ST_COM ? 1u : 0u;
 
@@ -607,10 +247,8 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   const Bits keep = seq_keep | id_unex;  // the stream
   const Bits lower = (m.low & ~id_unex & ~seq_unex) | when(tb.repl_name >= 96, id_unex) |
                      when(tb.repl_seq >= 96, seq_unex);
-  const Bits kl = keep & lower;
   // case changes after the thread's first kept byte
-  const Bits chg_in = keep & later(latch(keep, Bits{}, 0u), 0u) &
-                      (lower ^ later(latch(kl, keep & ~kl, 0u), 0u));
+  const Bits chg_in = case_changes(keep, lower);
   const int kfirst = lowest(keep);
   const uint32_t has = kfirst < 128 ? 1u : 0u;
   const uint32_t first = has ? bit(lower, kfirst) : 0u;
@@ -633,8 +271,8 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   uint32_t un1 = static_cast<uint32_t>(popc(seq_unex) | popc(qual_unex) << 16);
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
-    un0 += __shfl_xor_sync(QE_FULL, un0, d);
-    un1 += __shfl_xor_sync(QE_FULL, un1, d);
+    un0 += __shfl_xor_sync(FULL, un0, d);
+    un1 += __shfl_xor_sync(FULL, un1, d);
   }
   const Lines wl = warp_lines(thread_lines(seq_keep, m.lf), lane);
   if (lane == 31) s_w2[warp] = inc2;
@@ -659,36 +297,23 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
 
   // 4. the counts before the tile; the tile's record
   if (warp == 0) {
-    const uint32_t th = tot.c >> 16 & 1u, sp_int = tot.c & 0xFFFFu;
-    QAgg own{{tot.a & 0xFFFFu, tot.a >> 16, tot.b & 0xFFFFu, tot.b >> 16}, 0u, 0u};
-    if (th) {
-      own.f = sp_int | (tot.c & (7u << 16)) | 1u << 19;
-    } else {
-      own.s = sp_int < static_cast<uint32_t>(sp_cap) ? sp_int : static_cast<uint32_t>(sp_cap);
-    }
-    QAgg e = CountStatus::identity();
+    const uint32_t sp_int = tot.c & 0xFFFFu;
+    const uint32_t n4[4] = {tot.a & 0xFFFFu, tot.a >> 16, tot.b & 0xFFFFu, tot.b >> 16};
+    const QAgg own = own_agg(n4, sp_int, tot.c, sp_cap);
+    QAgg e = CountStatus<4>::identity();
     if (t > 0) {
-      if (lane == 0) cst.publish(t, QE_AGG, own);
+      if (lane == 0) cst.publish(t, LB_AGG, own);
       e = look_back(cst, t, lane, sp_cap);
     }
     if (lane == 0) {
-      const uint32_t base_sp = resolved(e, sp_cap);
-      const uint32_t eh = e.f >> 16 & 1u, el = e.f >> 18 & 1u;
-      const uint32_t bchg = eh && th && el != (tot.c >> 17 & 1u) ? 1u : 0u;
-      const int nt = static_cast<int>(sp_int + bchg);
-      QAgg inc;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) inc.n[i] = e.n[i] + own.n[i];
-      inc.s = base_sp + static_cast<uint32_t>(nt < sp_cap ? nt : sp_cap);
-      inc.f = (eh | th) << 16 | (eh ? e.f >> 17 & 1u : tot.c >> 17 & 1u) << 17 |
-              (th ? tot.c >> 18 & 1u : el) << 18;
-      cst.publish(t, QE_PREFIX, inc);
+      const TileBase<4> tbase = tile_base(e, own, sp_int, tot.c, sp_cap);
+      cst.publish(t, LB_PREFIX, tbase.inc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) s_base[i] = static_cast<int>(e.n[i]);
-      s_base[4] = static_cast<int>(base_sp);
-      s_base[5] = static_cast<int>(eh);
-      s_base[6] = static_cast<int>(el);
-      s_base[7] = static_cast<int>(bchg);
+      s_base[4] = static_cast<int>(tbase.sp);
+      s_base[5] = static_cast<int>(tbase.eh);
+      s_base[6] = static_cast<int>(tbase.el);
+      s_base[7] = static_cast<int>(tbase.bchg);
       Lines ln = s_ln[0];
 #pragma unroll
       for (int i = 1; i < QE_WARPS; ++i) ln = combine(ln, s_ln[i]);
@@ -698,24 +323,13 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
         u0 += s_un[i][0];
         u1 += s_un[i][1];
       }
-      int* r = recs + static_cast<long long>(t) * QE_REC;
-      r[R_SEQ] = static_cast<int>(own.n[1]);
-      r[R_LINES] = ln.has;
-      r[R_LINES + 1] = ln.pre;
-      r[R_LINES + 2] = ln.post;
-      r[R_LINES + 3] = ln.mx;
-      r[R_UNEX] = static_cast<int>(u0 & 0xFFFFu);
-      r[R_UNEX + 1] = static_cast<int>(u0 >> 16);
-      r[R_UNEX + 2] = static_cast<int>(u1 & 0xFFFFu);
-      r[R_UNEX + 3] = static_cast<int>(u1 >> 16);
-      r[R_SP] = nt;
-      r[R_HAS] = static_cast<int>(th);
-      r[R_LOWER] = static_cast<int>(tot.c >> 17 & 1u);
-      r[R_SVAL] = s_fsval;
+      const uint32_t u[4] = {u0 & 0xFFFFu, u0 >> 16, u1 & 0xFFFFu, u1 >> 16};
+      QLayout::put_record(recs + static_cast<long long>(t) * QLayout::REC,
+                          static_cast<int>(own.n[1]), ln, u, tbase.nt, tot.c, s_fsval);
       if (t == tiles - 1) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) scal[i] = static_cast<int>(inc.n[i]);
-        scal[S_NSP] = static_cast<int>(inc.s);
+        for (int i = 0; i < 4; ++i) scal[i] = static_cast<int>(tbase.inc.n[i]);
+        scal[QLayout::S_NSP] = static_cast<int>(tbase.inc.s);
       }
     }
   }
@@ -794,99 +408,12 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
     oi += __popc(ki);
   }
   __syncthreads();
-  copy_out(stage, sv + s_base[0] - sh_s, sh_s, sh_s + ts);
-  copy_out(stage + r_q, qv + s_base[2] - sh_q, sh_q, sh_q + tq);
-  copy_out(stage + r_i, iv + s_base[3] - sh_i, sh_i, sh_i + ti);
+  copy_out<Q_THREADS>(stage, sv + s_base[0] - sh_s, sh_s, sh_s + ts);
+  copy_out<Q_THREADS>(stage + r_q, qv + s_base[2] - sh_q, sh_q, sh_q + tq);
+  copy_out<Q_THREADS>(stage + r_i, iv + s_base[3] - sh_i, sh_i, sh_i + ti);
 }
 
-// out[c:n] = 0: 16-byte stores between an element-wise head and tail,
-// grid-stride.
-template <typename T>
-__device__ __forceinline__ void fill_zero(T* out, long long c, long long n) {
-  constexpr int V = 16 / sizeof(T);
-  if (c >= n) return;
-  const long long lead =
-      (V - static_cast<long long>((reinterpret_cast<uintptr_t>(out + c) & 15) / sizeof(T))) % V;
-  const long long a = c + lead < n ? c + lead : n;
-  const long long slots = (n - a) / V;
-  const long long tail = a + slots * V;
-  uint4* q = reinterpret_cast<uint4*>(out + a);
-  const uint4 zero = {0u, 0u, 0u, 0u};
-  const long long stride = static_cast<long long>(gridDim.x) * QE_FILL_THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * QE_FILL_THREADS + threadIdx.x;
-       i < slots; i += stride)
-    q[i] = zero;
-  if (blockIdx.x == 0) {
-    if (threadIdx.x < a - c) out[c + threadIdx.x] = T(0);
-    if (threadIdx.x < n - tail) out[tail + threadIdx.x] = T(0);
-  }
-}
-
-// The block scalars from the tile records, by one block: each thread folds
-// a run of tiles in order, then the warps, then the eight warp results.
-__device__ __forceinline__ void block_scalars(int* scal, const int* recs, int tiles, int cap) {
-  __shared__ Lines s_ln[QE_WARPS];
-  __shared__ int s_u[QE_WARPS][5];
-  __shared__ int s_first[QE_WARPS][3];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lo = static_cast<int>(static_cast<long long>(tiles) * tid / QE_FILL_THREADS);
-  const int hi = static_cast<int>(static_cast<long long>(tiles) * (tid + 1) / QE_FILL_THREADS);
-  Lines ln{0, 0, 0, 0, 0};
-  int u[4] = {0, 0, 0, 0}, mx_sp = 0, f_has = 0, f_lower = 0, f_sval = 0;
-  for (int j = lo; j < hi; ++j) {
-    const int* r = recs + static_cast<long long>(j) * QE_REC;
-    ln = combine(ln, Lines{r[R_SEQ], r[R_LINES], r[R_LINES + 1], r[R_LINES + 2],
-                           r[R_LINES + 3]});
-#pragma unroll
-    for (int i = 0; i < 4; ++i) u[i] += r[R_UNEX + i];
-    mx_sp = r[R_SP] > mx_sp ? r[R_SP] : mx_sp;
-    if (!f_has && r[R_HAS]) {
-      f_has = 1;
-      f_lower = r[R_LOWER];
-      f_sval = r[R_SVAL];
-    }
-  }
-  ln = warp_lines(ln, lane);
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) u[i] += __shfl_xor_sync(QE_FULL, u[i], d);
-    const int o = __shfl_xor_sync(QE_FULL, mx_sp, d);
-    mx_sp = o > mx_sp ? o : mx_sp;
-  }
-  const unsigned fb = __ballot_sync(QE_FULL, f_has);
-  const int src = fb ? __ffs(static_cast<int>(fb)) - 1 : 0;
-  f_lower = __shfl_sync(QE_FULL, f_lower, src);
-  f_sval = __shfl_sync(QE_FULL, f_sval, src);
-  if (lane == 0) {
-    s_ln[warp] = ln;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s_u[warp][i] = u[i];
-    s_u[warp][4] = mx_sp;
-    s_first[warp][0] = fb != 0;
-    s_first[warp][1] = f_lower;
-    s_first[warp][2] = f_sval;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    Lines all = s_ln[0];
-    int su[4] = {0, 0, 0, 0}, smx = 0, fw = -1;
-    for (int i = 0; i < QE_WARPS; ++i) {
-      if (i) all = combine(all, s_ln[i]);
-      for (int k = 0; k < 4; ++k) su[k] += s_u[i][k];
-      smx = s_u[i][4] > smx ? s_u[i][4] : smx;
-      if (fw < 0 && s_first[i][0]) fw = i;
-    }
-    scal[S_OK] = smx <= cap;
-    for (int k = 0; k < 4; ++k) scal[S_UNEX + k] = su[k];
-    int longest = all.mx > all.pre ? all.mx : all.pre;
-    scal[S_LONGEST] = all.post > longest ? all.post : longest;
-    scal[S_FIRST] = fw < 0 ? 0 : 1 + s_first[fw][1];
-    scal[S_FIRST + 1] = fw < 0 ? 0 : s_first[fw][2];
-  }
-}
-
-__global__ void __launch_bounds__(QE_FILL_THREADS) emit_fastq_fill_kernel(
+__global__ void __launch_bounds__(FILL_THREADS) emit_fastq_fill_kernel(
     int* scal, const int* recs, int tiles, int sp_cap, uint8_t* sv, uint8_t* qv, uint8_t* iv,
     int* sp_tv, int* sp_a, int* sp_b, int* sp_c) {
   const long long size = static_cast<long long>(tiles) * Q_TILE;
@@ -894,19 +421,19 @@ __global__ void __launch_bounds__(QE_FILL_THREADS) emit_fastq_fill_kernel(
   fill_zero(sv, scal[0], size);
   fill_zero(qv, scal[2], size);
   fill_zero(iv, scal[3], size);
-  const long long n_sp = scal[S_NSP];
+  const long long n_sp = scal[QLayout::S_NSP];
   fill_zero(sp_tv, n_sp, sp_size);
   fill_zero(sp_a, n_sp, sp_size);
   fill_zero(sp_b, n_sp, sp_size);
   fill_zero(sp_c, n_sp, sp_size);
-  if (blockIdx.x == 0) block_scalars(scal, recs, tiles, sp_cap);
+  if (blockIdx.x == 0) QLayout::block_scalars(scal, recs, tiles, sp_cap);
 }
 
 }  // namespace naf
 
 // i32 words of the scratch that naf_emit_fastq takes for `tiles` tiles.
 extern "C" int naf_emit_fastq_scratch(int tiles) {
-  return naf::QE_HEAD + tiles * (naf::QE_STATUS + 1 + naf::QE_REC);
+  return naf::LB_HEAD + tiles * (naf::LB_STATUS + 1 + naf::QLayout::REC);
 }
 
 // The FASTQ emit of x[0:n] (tiles = ceil(n / 32768) >= 1): sv, qv, iv
@@ -920,14 +447,12 @@ extern "C" int naf_emit_fastq(const uint8_t* x, long long n, int pe0, const uint
                               int* scratch, int* scal, uint8_t* sv, uint8_t* qv, uint8_t* iv,
                               int* sp_tv, int* sp_a, int* sp_b, int* sp_c, int tiles,
                               void* stream) {
-  const int* recs = scratch + naf::QE_HEAD + static_cast<long long>(tiles) * (naf::QE_STATUS + 1);
-  const long long slots = static_cast<long long>(tiles) * naf::Q_TILE / 16;
-  const long long want = (slots + 4LL * naf::QE_FILL_THREADS - 1) / (4LL * naf::QE_FILL_THREADS);
-  const int fill_blocks = static_cast<int>(want < naf::QE_FILL_BLOCKS ? want : naf::QE_FILL_BLOCKS);
+  const int* recs = scratch + naf::LB_HEAD + static_cast<long long>(tiles) * (naf::LB_STATUS + 1);
   NAF_LAUNCH(naf::emit_fastq_kernel, tiles, naf::Q_THREADS, naf::QE_STAGE, stream, x, n, pe0,
              cls, repl_seq, repl_name, repl_qual, sp_cap, scratch, scal, sv, qv, iv, sp_tv, sp_a,
              sp_b, sp_c);
-  NAF_LAUNCH(naf::emit_fastq_fill_kernel, fill_blocks, naf::QE_FILL_THREADS, 0, stream, scal,
-             recs, tiles, sp_cap, sv, qv, iv, sp_tv, sp_a, sp_b, sp_c);
+  NAF_LAUNCH(naf::emit_fastq_fill_kernel,
+             naf::fill_blocks(static_cast<long long>(tiles) * naf::Q_TILE), naf::FILL_THREADS, 0,
+             stream, scal, recs, tiles, sp_cap, sv, qv, iv, sp_tv, sp_a, sp_b, sp_c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,11 +8,10 @@ markers and case changes, with the scalars the host stitch needs.
 ``emit_fastq_fused`` does the same for a FASTQ block, with three dense
 compactions (stream, quality, id) and a sparse channel of comment bytes,
 record starts (carrying their sequence, quality and id prefixes) and case
-changes.  The FASTA kernel (``csrc/emit_fasta.cu``) runs three passes; the
-scans over tile summaries between them are torch ops on [tiles]-sized
-tensors.  The FASTQ kernel (``csrc/emit_fastq.cu``) is one pass over the
-block that carries across tiles by decoupled look-back, then a launch for
-the zero fill and the block scalars.
+changes.  Each kernel (``csrc/emit_fasta.cu``, ``csrc/emit_fastq.cu``) is
+one pass over the block that carries across tiles by decoupled look-back,
+then a launch for the zero fill and the block scalars; the wrapper runs no
+torch op between them but the zeroing of the scratch.
 
 One difference from the reference, on purpose: a case change at a tile's
 first kept byte is found even when that byte is not the tile's first byte.
@@ -29,14 +28,13 @@ from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
 from .common import Q_TILE, TILE, check_1d, n_tiles
-from .scan_fused import classify_fastq_masks, classify_masks, entry_states, start_state, tile_maps
+from .scan_fused import classify_fastq_masks, classify_masks, start_state
 from .tables import device_tables
 
 #: sparse entries kept per tile (the TPU kernels' _CS_CAP), for the 64 KiB
 #: FASTA tiles and the 32 KiB FASTQ tiles alike
 CS_CAP = 2048
 TAG_ID, TAG_COM, TAG_REC, TAG_CHG = 0, 1, 2, 3
-SUMMARY_COLS = 16          # csrc/emit_fasta.cu pass-B row width
 
 
 def _plain_cases(stream_keep: torch.Tensor, sval: torch.Tensor):
@@ -122,41 +120,6 @@ def emit_fasta_plain(block: torch.Tensor, prev_byte: int, starts_in_seq: bool = 
                 first_sval=first_sval, sp_tv=sp_tv, sp_a=sp_a)
 
 
-def _scan_summaries(s: torch.Tensor) -> dict:
-    """Scans over the tile summaries that both emit kernels write (pass-B
-    columns 0-13: stream, seq and sparse counts, unexpected counts, the
-    first and last kept byte's case, the first kept value, the line
-    summary): each tile's offsets, and the block's scalars."""
-    g = s.shape[0]
-    n_stream, n_seq, n_sp_in, has, first, last = (s[:, k] for k in (0, 1, 2, 6, 7, 8))
-    stream_off = torch.cumsum(n_stream, 0) - n_stream
-    seq_off = torch.cumsum(n_seq, 0) - n_seq
-    idx = torch.arange(g, device=s.device)
-    last_k = torch.cummax(torch.where(has == 1, idx, -1), 0).values
-    prev_k = torch.cat([last_k.new_full((1,), -1), last_k[:-1]])
-    prev_lower = torch.where(prev_k >= 0, last[prev_k.clamp(min=0)], -1)
-    n_t = n_sp_in + ((has == 1) & (prev_k >= 0) & (first != prev_lower)).long()
-    capped = n_t.clamp(max=CS_CAP)
-    sp_off = torch.cumsum(capped, 0) - capped
-    cnt_seq = n_seq.sum()
-
-    f_tile = torch.argmax(has)
-    any_kept = has[f_tile] == 1
-    l_has, l_pre, l_post, l_mx = (s[:, k] for k in (10, 11, 12, 13))
-    eol_end = torch.where(l_has == 1, seq_off + n_seq - l_post, -1)
-    last_e = torch.cummax(eol_end, 0).values
-    base = torch.cat([last_e.new_zeros(1), last_e[:-1]]).clamp(min=0)
-    first_line = torch.where(l_has == 1, seq_off + l_pre - base, 0)
-    return dict(
-        stream_off=stream_off, seq_off=seq_off, prev_lower=prev_lower, sp_off=sp_off,
-        cnt=n_stream.sum(), cnt_seq=cnt_seq, n_sp=capped.sum(), sp_ok=(n_t <= CS_CAP).all(),
-        unex_id=s[:, 3].sum(), unex_com=s[:, 4].sum(), unex_seq=s[:, 5].sum(),
-        longest=torch.maximum(torch.maximum(l_mx.max(), first_line.max()),
-                              cnt_seq - last_e[-1].clamp(min=0)),
-        first_lower=torch.where(any_kept, 1 + first[f_tile], 0),
-        first_sval=torch.where(any_kept, s[f_tile, 9], 0))
-
-
 def _check_block(block: torch.Tensor) -> int:
     check_1d(block, torch.uint8, "block")
     n = block.numel()
@@ -166,35 +129,40 @@ def _check_block(block: torch.Tensor) -> int:
     return n
 
 
+#: the order of the scalars ``naf_emit_fasta`` writes (csrc/emit_fasta.cu)
+_F_SCALARS = ("cnt", "cnt_seq", "n_sp", "sp_ok", "unex_id", "unex_com", "unex_seq", "longest",
+              "first_lower", "first_sval")
+
+
+def _scalars(scal: torch.Tensor, names: tuple) -> dict:
+    """The i32 scalars a kernel wrote, as 0-dim views of ``scal``; sp_ok (0
+    or 1) as a bool view of its lowest byte (little-endian), so that no
+    launch follows the kernel's."""
+    r = dict(zip(names, scal.unbind()))
+    r["sp_ok"] = scal.view(torch.uint8)[4 * names.index("sp_ok")].view(torch.bool)
+    return r
+
+
 def emit_fasta_kernel(block: torch.Tensor, prev_byte: int, starts_in_seq: bool = False,
                       *, seq_type: int = C.SEQ_TYPE_DNA, lib=None) -> dict:
     """Launch the FASTA emit kernel on ``block``'s device (``lib`` as in
-    ``scan_fused.classify_fasta_kernel``)."""
+    ``scan_fused.classify_fasta_kernel``): one pass over the block, then
+    the zero fill and the scalars, with no host sync between."""
     n = _check_block(block)
     lib = build.kernel_lib(block, lib)
     dev = block.device
     tabs = device_tables(seq_type, dev)
     pe0, st0 = start_state(prev_byte, starts_in_seq)
     g = n_tiles(n)
-    stream = build.stream_of(block)
-    args = (tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"])
-
-    st_in = entry_states(tile_maps(block, pe0, tabs["cls"], lib), st0)
-    summ = torch.empty((g, SUMMARY_COLS), dtype=torch.int32, device=dev)
-    build.call(lib, "naf_emit_fasta_summary", block.data_ptr(), n, pe0, st_in.data_ptr(),
-               *args, summ.data_ptr(), g, stream)
-    r = _scan_summaries(summ.long())
-    tile_in = torch.stack([st_in.long(), r.pop("stream_off"), r.pop("seq_off"),
-                           r.pop("prev_lower"), r.pop("sp_off")], 1).int()
-    totals = torch.stack([r["cnt"], r["n_sp"]]).int()
+    scratch = torch.zeros(lib.naf_emit_fasta_scratch(g), dtype=torch.int32, device=dev)
+    scal = torch.empty(len(_F_SCALARS), dtype=torch.int32, device=dev)
     sv = torch.empty(g * TILE, dtype=torch.uint8, device=dev)
-    sp_tv = torch.empty(g * CS_CAP, dtype=torch.int32, device=dev)
-    sp_a = torch.empty(g * CS_CAP, dtype=torch.int32, device=dev)
-    build.call(lib, "naf_emit_fasta_write", block.data_ptr(), n, pe0, tile_in.data_ptr(),
-               totals.data_ptr(), *args, CS_CAP, sv.data_ptr(), sp_tv.data_ptr(),
-               sp_a.data_ptr(), g, stream)
+    sp_tv, sp_a = (torch.empty(g * CS_CAP, dtype=torch.int32, device=dev) for _ in range(2))
+    build.call(lib, "naf_emit_fasta", block.data_ptr(), n, pe0, st0, tabs["cls"].data_ptr(),
+               tabs["repl_seq"], tabs["repl_name"], CS_CAP, scratch.data_ptr(), scal.data_ptr(),
+               sv.data_ptr(), sp_tv.data_ptr(), sp_a.data_ptr(), g, build.stream_of(block))
     LAUNCHES["emit_fasta"] += 1
-    return _i32(sv=sv, **r, sp_tv=sp_tv, sp_a=sp_a)
+    return dict(sv=sv, **_scalars(scal, _F_SCALARS), sp_tv=sp_tv, sp_a=sp_a)
 
 
 def emit_fasta_fused(block: torch.Tensor, prev_byte: int, starts_in_seq: bool = False,
@@ -277,9 +245,8 @@ def emit_fastq_kernel(block: torch.Tensor, prev_byte: int, *, seq_type: int = C.
                CS_CAP, scratch.data_ptr(), scal.data_ptr(), sv.data_ptr(), qv.data_ptr(),
                iv.data_ptr(), *(a.data_ptr() for a in sp), g, build.stream_of(block))
     LAUNCHES["emit_fastq"] += 1
-    r = dict(zip(_Q_SCALARS, scal.unbind()))
-    r["sp_ok"] = r["sp_ok"] != 0
-    return dict(sv=sv, qv=qv, iv=iv, **r, sp_tv=sp[0], sp_a=sp[1], sp_b=sp[2], sp_c=sp[3])
+    return dict(sv=sv, qv=qv, iv=iv, **_scalars(scal, _Q_SCALARS), sp_tv=sp[0], sp_a=sp[1],
+                sp_b=sp[2], sp_c=sp[3])
 
 
 def emit_fastq_fused(block: torch.Tensor, prev_byte: int, *,

@@ -32,9 +32,10 @@ from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
-from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, EMIT_CASES,
-                         FASTQ_EMIT_CASES, case_change_behind_tile_start, classify_case,
-                         compact_case, emit_case, fastq_big_block, fastq_case,
+from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
+                         FASTQ_EMIT_CASES, START_STATES, case_change_behind_tile_start,
+                         classify_case, compact_case, emit_case, fasta_big_block,
+                         fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads,
                          fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_input,
                          sra_fastq, typed_fasta)
@@ -76,12 +77,30 @@ def test_classify_kernel_on_card(card, case, seq_type):
         assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
 
 
-@pytest.mark.parametrize("name", EMIT_CASES)
+@pytest.mark.parametrize("name", FASTA_EMIT_CASES)
 def test_emit_kernel_on_card(card, name):
     body, prev, sis, seq_type = emit_case(name)
     x = _on(body, card)
     _assert_dicts_equal(EF.emit_fasta_kernel(x, prev, sis, seq_type=seq_type),
                         EF.emit_fasta_plain(x, prev, sis, seq_type=seq_type))
+
+
+@pytest.mark.parametrize("prev,sis", START_STATES)
+def test_emit_kernel_start_states_on_card(card, prev, sis):
+    x = _on(fasta_start_states(), card, 5)
+    _assert_dicts_equal(EF.emit_fasta_kernel(x, prev, sis), EF.emit_fasta_plain(x, prev, sis))
+
+
+@pytest.mark.parametrize("flip_case", [False, True], ids=["upper", "flipped_case"])
+def test_emit_fasta_many_tiles_on_card(card, flip_case):
+    """2,048+ tiles (140 MB) of short records near the sparse cap, where both
+    look-backs meet tiles that have not published yet; with flip_case, case
+    changes at many tile starts.  Three calls, each byte-equal to the plain
+    version."""
+    x = _on(fasta_big_block(2048, flip_case), card)
+    want = EF.emit_fasta_plain(x, ord(">"))
+    for _ in range(3):
+        _assert_dicts_equal(EF.emit_fasta_kernel(x, ord(">")), want)
 
 
 def test_emit_kernel_case_change_at_tile_first_kept_byte_on_card(card):

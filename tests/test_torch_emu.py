@@ -30,10 +30,10 @@ from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
-from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, EMIT_CASES, FASTQ_EMIT_CASES,
-                         case_change_behind_tile_start, classify_case, compact_case, emit_case,
-                         fastq_case, fastq_case_change_behind_tile_start, fastq_reads,
-                         scan_input)
+from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, FASTA_EMIT_CASES, FASTQ_EMIT_CASES,
+                         START_STATES, case_change_behind_tile_start, classify_case, compact_case,
+                         emit_case, fasta_start_states, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_reads, scan_input)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -83,7 +83,7 @@ def test_classify_kernel_matches_plain(emu, case, seq_type):
         assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
 
 
-@pytest.mark.parametrize("name", EMIT_CASES)
+@pytest.mark.parametrize("name", FASTA_EMIT_CASES)
 def test_emit_kernel_matches_plain(emu, name):
     body, prev, sis, seq_type = emit_case(name)
     x = _t(body)
@@ -92,6 +92,14 @@ def test_emit_kernel_matches_plain(emu, name):
     _assert_dicts_equal(got, want)
     if name == "sparse_overflow":
         assert not bool(got["sp_ok"])
+
+
+@pytest.mark.parametrize("prev,sis", START_STATES)
+def test_emit_kernel_start_states(emu, prev, sis):
+    """A block whose first byte is '>': a marker only after a line end."""
+    x = _offset(fasta_start_states(), 5)
+    _assert_dicts_equal(EF.emit_fasta_kernel(x, prev, sis, lib=emu),
+                        EF.emit_fasta_plain(x, prev, sis))
 
 
 def test_emit_kernel_case_change_at_tile_first_kept_byte(emu):

@@ -115,11 +115,132 @@ def emit_case(name: str):
     if name == "fuzz":
         pool = np.frombuffer(b">ACGTNACGT \t\r\nacgt" + b"xyz*-", np.uint8)
         return rng.choice(pool, size=N_EMIT), ord(">"), False, C.SEQ_TYPE_DNA
+    made = {"many_tiles": fasta_many_tiles, "long_header": fasta_long_header,
+            "long_line": fasta_long_line}
+    if name in made:
+        return made[name](), ord(">"), False, C.SEQ_TYPE_DNA
     raise KeyError(name)
 
 
 EMIT_CASES = ["structured", "rna", "wrapped_masked", "unexpected", "mid_record",
               "single_char_runs", "space_classes", "tile_edges", "sparse_overflow", "fuzz"]
+#: the emit cases, and those the FASTA emit's look-backs and bit masks need
+#: besides (run under host emulation and on the card; not padded to N_EMIT)
+FASTA_EMIT_CASES = EMIT_CASES + ["many_tiles", "long_header", "long_line"]
+#: (prev_byte, starts_in_seq) of a block: after an id byte, after a line
+#: end in a header or in a sequence, inside a sequence line
+START_STATES = [(ord(">"), False), (ord("\n"), False), (ord("\n"), True), (ord("A"), True),
+                (ord("A"), False)]
+
+
+def _seq_lines(rng, n: int, line: int = 60, runs: int = 0, alphabet=b"ACGT") -> bytes:
+    """n bases in lines of `line`, with `runs` lower-case runs of 1 to 3000."""
+    seq = rng.choice(np.frombuffer(alphabet, np.uint8), size=n)
+    for s, ln in zip(rng.integers(0, n, size=runs), rng.integers(1, 3000, size=runs)):
+        seq[s:s + ln] |= 32
+    return b"\n".join(seq[i:i + line].tobytes() for i in range(0, n, line)) + b"\n"
+
+
+def fasta_many_tiles() -> np.ndarray:
+    """30 tiles (past the leading '>'): records whose headers, comments and
+    lower-case runs cross tile edges; a tile of blank and whitespace-only
+    sequence lines (no kept byte); a tile of headers whose ids are all
+    unexpected bytes (it keeps only those); a tile of long comments (past
+    the sparse cap); CR LF line ends and unexpected bases here and there."""
+    rng = np.random.default_rng(41)
+    out = bytearray()
+    i = 0
+
+    def records(until: int):
+        nonlocal i
+        while len(out) < until:
+            com = b" comment\t%d" % i if i % 3 else b""
+            seq = _seq_lines(rng, int(rng.integers(1, 6000)), runs=2,
+                             alphabet=b"ACGTN" + (b"*" if i % 7 == 0 else b""))
+            out.extend(b">r%d%s\n" % (i, com) + (seq.replace(b"\n", b"\r\n") if i % 5 == 0
+                                                  else seq))
+            i += 1
+
+    for k, what in enumerate(["id", "comment", "case", "id", "comment"]):
+        edge = (2 + 2 * k) * TILE
+        records(edge - 3000)
+        if what == "case":                  # a lower-case run across the edge
+            out.extend(b">r%d\n" % i + _seq_lines(rng, edge + 2000 - len(out)).lower())
+            i += 1
+            continue
+        out.extend(_seq_lines(rng, edge - 40 - len(out)))
+        head = b">h%d" % i + b"x" * 60 if what == "id" else b">h%d cc" % i + b"c" * 80
+        out.extend(head + b"\n")
+        i += 1
+    records(12 * TILE)
+    out.extend(b">blank\n" + b"\n  \t \n\n \r\n" * (2 * TILE // 9))    # no kept byte
+    records(15 * TILE)
+    unex = np.frombuffer(b"\x01\x02\x7f\xff\x1f", np.uint8)
+    while len(out) < 17 * TILE:             # kept bytes: unexpected id bytes only
+        out.extend(b">" + rng.choice(unex, size=int(rng.integers(1, 200))).tobytes() + b"\n")
+    records(20 * TILE)
+    while len(out) < 22 * TILE:             # past the sparse cap
+        out.extend(b">c%d %s\nA\n" % (i, b"long comment " * 30))
+        i += 1
+    records(30 * TILE)
+    return np.frombuffer(bytes(out), np.uint8)[1:30 * TILE + 1].copy()
+
+
+def fasta_long_header() -> np.ndarray:
+    """A header longer than two tiles: an id of 150,000 bytes (unexpected
+    bytes but one in 50, so its tiles stay under the sparse cap) and a
+    comment of 100,000 bytes, then records."""
+    rng = np.random.default_rng(42)
+    ident = np.full(150_000, 0x01, np.uint8)
+    ident[::50] = ord("x")
+    com = rng.choice(np.frombuffer(b"abc \tXYZ\x01", np.uint8), size=100_000)
+    out = bytearray(b">" + ident.tobytes() + b" " + com.tobytes() + b"\n")
+    out += _seq_lines(rng, 30_000, runs=3)
+    for i in range(20):
+        out += b">r%d c\n" % i + _seq_lines(rng, int(rng.integers(1, 5000)), runs=1)
+    return pad_lf(np.frombuffer(bytes(out), np.uint8)[1:], 7 * TILE)
+
+
+def fasta_long_line() -> np.ndarray:
+    """One sequence line of 250,000 bases with lower-case runs (the longest
+    line spans four tiles), then records of 70-column lines."""
+    rng = np.random.default_rng(43)
+    out = bytearray(b">one line\n" + _seq_lines(rng, 250_000, line=250_000, runs=20))
+    for i in range(15):
+        out += b">r%d\n" % i + _seq_lines(rng, int(rng.integers(1, 9000)), line=70, runs=1)
+    return pad_lf(np.frombuffer(bytes(out), np.uint8)[1:], 6 * TILE)
+
+
+def fasta_start_states() -> np.ndarray:
+    """Two tiles of short records whose first byte is '>' (a marker only
+    after a line end), for START_STATES."""
+    rng = np.random.default_rng(44)
+    rows = [b">s%d x\t%d\n" % (i, i) + _seq_lines(rng, int(rng.integers(1, 400)), runs=1)
+            for i in range(700)]
+    return pad_lf(np.frombuffer(b"".join(rows), np.uint8)[:2 * TILE], 2 * TILE)
+
+
+def fasta_big_block(tiles: int, flip_case: bool, seed: int = 27) -> np.ndarray:
+    """A FASTA block (past the leading '>') of at least ``tiles`` 64 KiB
+    tiles of one-line records of 1 to 600 bases, comments on one header in
+    three (near the sparse cap in most tiles); with ``flip_case``, each
+    record in lower case with probability 1/2, so that case changes sit at
+    many tile starts."""
+    rng = np.random.default_rng(seed)
+    n_rec = tiles * TILE // 300 + 1
+    lens = rng.integers(1, 601, n_rec)
+    pool = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=int(lens.sum()))
+    if flip_case:
+        pool |= np.repeat((rng.random(n_rec) < 0.5).astype(np.uint8) * 32, lens)
+    seq = pool.tobytes()
+    rows, o = [], 0
+    for i, ln in enumerate(lens.tolist()):
+        com = b" x:%d" % i if i % 3 == 0 else b""
+        rows.append(b">r%d%s\n%s\n" % (i, com, seq[o:o + ln]))
+        o += ln
+    body = np.frombuffer(b"".join(rows), np.uint8)[1:]
+    assert body.size >= tiles * TILE
+    return body
 
 
 def case_change_behind_tile_start() -> np.ndarray:
