@@ -184,6 +184,75 @@ def compactions(xp, sm, pos) -> tuple:
              "naf_tpu/ops/compact.py:175", "sequence stream u8"))
 
 
+def scan_inputs(xp, sm, pos) -> tuple:
+    """(keep, code) of phase 2's scans: the sequence keep mask (bool), as
+    stats_block's add scan takes it, and the run-start code (i32) that
+    emit_block's max scan takes."""
+    import torch
+
+    keep, val = sm["stream_keep"], sm["stream_val"]
+    return keep, torch.where(keep, pos * 2 + (keep & (val >= 96)).to(torch.int32), -(1 << 30))
+
+
+def render_inputs(kern: dict) -> tuple:
+    """(sv, out_len, packed, chars, tog) of phase 2's pack, unpack and mask
+    parity, from a FASTA emit's output: its sequence stream, the packed
+    length, the stream packed to 4 bits, unpacked again, and the case
+    toggles of its soft mask."""
+    import torch
+
+    from naf_tpu_torch.ops import pack as PK
+    from naf_tpu_torch.ops import unpack as UP
+
+    sv, cnt = kern["sv"], int(kern["cnt"])
+    out_len = sv.numel() // 2 + 1
+    packed = PK.pack_4bit_kernel(sv, out_len=out_len)[: (cnt + 1) // 2].clone()
+    chars = UP.unpack_4bit_kernel(packed)
+    lower = sv[:cnt] >= 96
+    bounds = torch.nonzero(lower[1:] != lower[:-1]).flatten() + 1
+    if bool(lower[0]):
+        bounds = torch.cat([bounds.new_zeros(1), bounds])
+    tog = torch.zeros_like(chars)
+    tog.index_add_(0, bounds, torch.ones_like(bounds, dtype=torch.uint8))
+    return sv, out_len, packed, chars, tog
+
+
+def two_pass_device_ms(data: bytes, o, blob: bytes, fastq: bool, dev, reps: int = 3) -> dict:
+    """Device-resident ms of a two-pass input, CUDA events: stats_block +
+    emit_block on its uploaded block, and the first batch of the ragged
+    render of its archive."""
+    import numpy as np
+    import torch
+
+    from naf_tpu_torch.format import constants as C
+    from naf_tpu_torch.parallel import decode as PD
+    from naf_tpu_torch.parallel.block import (emit_block, make_blocks, make_blocks_fastq,
+                                              stats_block)
+    from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder
+
+    body = np.frombuffer(data, np.uint8)[1:]
+    blocks = make_blocks_fastq(body, 1)[0] if fastq else make_blocks(body, 1)
+    xb = torch.from_numpy(blocks.data[0].copy()).to(dev)
+    prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
+
+    def passes():
+        stats, masks = stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
+        emit_block(xb, masks, stats, seq_type=o.seq_type, fastq=fastq,
+                   pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
+
+    passes_ms = cuda_time(passes, reps)
+    del xb
+    d = Decoder(io.BytesIO(blob), DecodeOptions())
+    plan, raw = d._plan(PD.MODE_FASTQ, False) if fastq else d._fasta_plan(d.masking)
+    batches, render = PD.ragged_session(plan, raw, d._load_qual() if fastq else None, device=dev)
+    batch_ms = cuda_time(lambda: render(batches[0]), reps)
+    out = {"stats_emit_device_resident_ms": passes_ms, "ragged_batches": len(batches),
+           "ragged_batch_bytes": batches[0].p1 - batches[0].p0, "ragged_batch_ms": batch_ms}
+    del batches, render
+    torch.cuda.empty_cache()
+    return out
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference of two integer tensors (or dicts of them)."""
     if isinstance(a, dict):
@@ -369,8 +438,8 @@ def main() -> int:
     from naf_tpu_torch.ops import scan_fused as SF
     from naf_tpu_torch.ops import unpack as UP
     from naf_tpu_torch.parallel import decode as PD
-    from naf_tpu_torch.parallel.block import (emit_block, fused_block, fused_block_fastq,
-                                              make_blocks, make_blocks_fastq, stats_block)
+    from naf_tpu_torch.parallel.block import (fused_block, fused_block_fastq, make_blocks,
+                                              make_blocks_fastq)
     from naf_tpu_torch.parallel.pipeline import encode_device
     from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
     from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
@@ -481,8 +550,7 @@ def main() -> int:
     prev = int(blk.prev[0])
     shape = f"{name} block u8[{x.numel()}]"
     kern = EF.emit_fasta_kernel(x, prev)
-    sv = kern["sv"]
-    cnt = int(kern["cnt"])
+    sv, out_len, seq_packed, chars, tog = render_inputs(kern)
     check("emit_fasta", lambda: EF.emit_fasta_kernel(x, prev), lambda: EF.emit_fasta_plain(x, prev),
           "naf_tpu_torch/csrc/emit_fasta.cu", "naf_tpu/ops/emit_fused.py:242", shape, [x],
           kout=kern, counts=("cnt",), split=True)
@@ -490,43 +558,33 @@ def main() -> int:
     check("classify_fasta", lambda: SF.classify_fasta_kernel(x, prev),
           lambda: SF.classify_fasta_plain(x, prev), "naf_tpu_torch/csrc/classify.cu",
           "naf_tpu/ops/scan_fused.py:138", shape, [x])
-    out_len = sv.numel() // 2 + 1
     check("pack_4bit", lambda: PK.pack_4bit_kernel(sv, out_len=out_len),
           lambda: PK.pack_4bit_plain(sv, out_len=out_len), "naf_tpu_torch/csrc/pack.cu",
           "naf_tpu/ops/pack.py:78", f"sv u8[{sv.numel()}]", [sv])
-    seq_packed = PK.pack_4bit_kernel(sv, out_len=out_len)[: (cnt + 1) // 2].clone()
     check("unpack_4bit", lambda: UP.unpack_4bit_kernel(seq_packed),
           lambda: UP.unpack_4bit_plain(seq_packed), "naf_tpu_torch/csrc/unpack.cu",
           "naf_tpu/ops/unpack.py:59", f"packed u8[{seq_packed.numel()}]", [seq_packed])
-    chars = UP.unpack_4bit_kernel(seq_packed)
-    lower = sv[:cnt] >= 96
-    bounds = torch.nonzero(lower[1:] != lower[:-1]).flatten() + 1
-    if bool(lower[0]):
-        bounds = torch.cat([bounds.new_zeros(1), bounds])
-    tog = torch.zeros_like(chars)
-    tog.index_add_(0, bounds, torch.ones_like(bounds, dtype=torch.uint8))
     check("apply_mask_parity", lambda: EF.apply_mask_parity_kernel(chars, tog),
           lambda: EF.apply_mask_parity_plain(chars, tog), "naf_tpu_torch/csrc/mask_parity.cu",
           "naf_tpu/ops/emit_fused.py:757", f"chars u8[{chars.numel()}]", [chars, tog])
-    del x, sv, seq_packed, chars, tog, lower, bounds
+    del x, sv, seq_packed, chars, tog
 
     # scans and compactions: the protein input's two-pass block, its masks
     # from the standalone classify, as stats_block and emit_block pass them
     name, data = two_pass_inputs[0][:2]
     xp, sm, pos = protein_masks(data, dev)
-    n = xp.numel()
-    keep, val = sm["stream_keep"], sm["stream_val"]
-    enc = torch.where(keep, pos * 2 + (keep & (val >= 96)).to(torch.int32), -(1 << 30))
-    shape = f"{name} block [{n}]"
+    keep, enc = scan_inputs(xp, sm, pos)
+    shape = f"{name} block [{xp.numel()}]"
     check("cumsum_i32", lambda: SF.scan_i32_kernel(keep, "add"),
           lambda: SF.cumsum_i32_plain(keep), "naf_tpu_torch/csrc/scan.cu",
           "naf_tpu/ops/scan_fused.py:283", f"{shape} stream_keep bool -> i32", [keep],
-          library=lambda: torch.cumsum(keep, 0, dtype=torch.int32), library_name="torch.cumsum")
+          library=lambda: torch.cumsum(keep, 0, dtype=torch.int32), library_name="torch.cumsum",
+          split=True)
     check("maxscan_i32", lambda: SF.scan_i32_kernel(enc, "max"),
           lambda: SF.maxscan_i32_plain(enc), "naf_tpu_torch/csrc/scan.cu",
           "naf_tpu/ops/scan_fused.py:283", f"{shape} run-start code i32 -> i32", [enc],
           library=lambda: torch.cummax(enc, 0),
-          library_name="torch.cummax (values and indices, no floor)")
+          library_name="torch.cummax (values and indices, no floor)", split=True)
     split = {}
     for key, kname, vals, kp, dense, repl, what in compactions(xp, sm, pos):
         check(kname, lambda: CP.compact_kernel(vals, kp, dense=dense),
@@ -538,7 +596,7 @@ def main() -> int:
         split[key] = launch_split(lambda: CP.compact_kernel(vals, kp, dense=dense), 10)
     emit({"phase": "compact_launches", "card": card, "shape": shape,
           "device_ms_per_call": split})
-    del xp, sm, keep, val, pos, enc
+    del xp, sm, keep, pos, enc
     torch.cuda.empty_cache()
 
     # ---- 3. encode, 4. decode: each path, counted -----------------------
@@ -737,34 +795,14 @@ def main() -> int:
         mb = len(data) / 1e6
         e2e_enc = wall_time(lambda: encode_device(data, o, device=dev), 2)
         e2e_dec = wall_time(lambda: decode(blob, fastq), 2)
-        body = np.frombuffer(data, np.uint8)[1:]
-        blocks = make_blocks_fastq(body, 1)[0] if fastq else make_blocks(body, 1)
-        xb = torch.from_numpy(blocks.data[0].copy()).to(dev)
-        prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
-
-        def passes():
-            stats, masks = stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
-            emit_block(xb, masks, stats, seq_type=o.seq_type, fastq=fastq,
-                       pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
-
-        passes_ms = cuda_time(passes, 3)
-        d = Decoder(io.BytesIO(blob), DecodeOptions())
-        plan, raw = d._plan(PD.MODE_FASTQ, False) if fastq else d._fasta_plan(d.masking)
-        batches, render = PD.ragged_session(plan, raw, d._load_qual() if fastq else None,
-                                            device=dev)
-        batch_ms = cuda_time(lambda: render(batches[0]), 3)
-        batch_bytes = batches[0].p1 - batches[0].p0
+        dr = two_pass_device_ms(data, o, blob, fastq, dev)
         emit({"phase": "rates", "input": name, "card": card,
               "encode_e2e_MBps": mb / e2e_enc, "decode_e2e_MBps": mb / e2e_dec,
               "host_encode_MBps": mb / host_enc_s[name],
               "host_decode_MBps": mb / host_dec_s[name] if name in host_dec_s else None,
-              "stats_emit_device_resident_ms": passes_ms,
-              "stats_emit_device_resident_MBps": mb / (passes_ms / 1e3),
-              "ragged_batches": len(batches), "ragged_batch_bytes": batch_bytes,
-              "ragged_batch_ms": batch_ms,
-              "ragged_batch_MBps": batch_bytes / 1e6 / (batch_ms / 1e3)})
-        del xb, batches, render
-        torch.cuda.empty_cache()
+              **dr,
+              "stats_emit_device_resident_MBps": mb / (dr["stats_emit_device_resident_ms"] / 1e3),
+              "ragged_batch_MBps": dr["ragged_batch_bytes"] / 1e6 / (dr["ragged_batch_ms"] / 1e3)})
 
     for i in range(2):
         rates(*fasta_inputs[i], fasta_archives[i], fastq=False)

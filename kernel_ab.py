@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Time the FASTQ and FASTA emit kernels, the FASTA classify and the
-compactions of several checkouts of the port on one CUDA card, in the
+"""Time the port's kernels in several checkouts on one CUDA card, in the
 order given and then in reverse (A B B A).
 
-    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--fastq-only]
+    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans]
 
 Each DIR is the root of a checkout (the directory that holds
 ``naf_tpu_torch/``), for example an older commit unpacked with
@@ -11,18 +10,27 @@ Each DIR is the root of a checkout (the directory that holds
 build their kernels first, side by side; nvcc's resource log of each goes
 to standard error.  Then each timing runs in a process of its own with its
 checkout first on ``sys.path``.  The inputs are chip_smoke.py's phase-2
-shapes, made by this checkout's chip_smoke.py: the FASTQ block (bench.py's
-gen_fastq(500_000, read_len=150) as make_blocks_fastq cuts it), the FASTA
-block (bench.py's gen_fasta_single(128) as one block) and the three
-compaction calls on the swissprot_like(160) block and its masks.  Each
-time is the CUDA-event mean over --reps calls after a warm-up
-(``classify_fastq_ms``: the standalone FASTQ classify on the FASTQ block);
-``fastq_passes_ms``, ``passes_ms`` and ``<call>_launches_ms`` give the
-device time of each launch inside one FASTQ emit, FASTA emit or compaction
-call (torch.profiler, mean over --reps calls; the wrapper's zeroing of its
-scratch as "scratch memset", any other torch op as "torch ops").  One JSON
-line per timing, then the card's name and power limit as nvidia-smi gives
-them.
+shapes, made by this checkout's chip_smoke.py: the FASTQ emit and classify
+on the FASTQ block (bench.py's gen_fastq(500_000, read_len=150) as
+make_blocks_fastq cuts it); the FASTA emit and classify on the FASTA block
+(bench.py's gen_fasta_single(128) as one block), and pack, unpack and mask
+parity on that emit's sequence stream; the add and max scans and the three
+compactions on the swissprot_like(160) block and its masks.  Each time is
+the CUDA-event mean over --reps calls after a warm-up.
+``fastq_passes_ms``, ``passes_ms``, ``scan_launches_ms`` and
+``<call>_launches_ms`` give the device time of each launch inside one FASTQ
+emit, FASTA emit, scan or compaction call (torch.profiler, mean over --reps
+calls; the wrapper's zeroing of its scratch as "scratch memset" or as
+torch's fill kernel, any other torch op as "torch ops" or by its name).
+``two_pass_ms`` gives the device-resident two-pass encode (stats_block +
+emit_block) and one ragged render batch of swissprot_like(160),
+illumina_reads_fasta(750_000) and sra_fastq(400_000), whose archives each
+checkout's host encode() writes (chip_smoke.py's two_pass_device_ms).
+--only fastq times the FASTQ emit and classify alone; --only scans the two
+scans alone, beside a plain copy of the same bytes (``bool_to_i32_ms``,
+``i32_clone_ms``: torch's conversion and clone, what moving them costs
+without a scan).  One JSON line per timing, then the card's name and power
+limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 from collections import defaultdict
@@ -39,7 +48,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
+def child(root: str, what: str, reps: int, only: str | None) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -58,10 +67,14 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
     CS = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(CS)
+    from naf_tpu_torch.format import constants as C
     from naf_tpu_torch.ops import compact as CP
     from naf_tpu_torch.ops import emit_fused as EF
+    from naf_tpu_torch.ops import pack as PK
     from naf_tpu_torch.ops import scan_fused as SF
+    from naf_tpu_torch.ops import unpack as UP
     from naf_tpu_torch.parallel.block import make_blocks, make_blocks_fastq
+    from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
     from torch.profiler import ProfilerActivity, profile
 
     def passes_ms(fn) -> dict:
@@ -78,11 +91,6 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
                 passes[name] += e.device_time_total / 1e3 / reps
         return dict(sorted(passes.items()))
 
-    data = bench.gen_fasta_single(128)
-    blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
-    x = torch.from_numpy(blk.data[0].copy()).to("cuda")
-    prev = int(blk.prev[0])
-
     def cuda_time(fn) -> float:
         fn()
         torch.cuda.synchronize()
@@ -93,6 +101,22 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def scans(keep, code) -> dict:
+        row = {"scan_launches_ms": {}}
+        for key, inp, op in (("cumsum_i32", keep, "add"), ("maxscan_i32", code, "max")):
+            call = lambda: SF.scan_i32_kernel(inp, op)  # noqa: E731
+            row[f"{key}_ms"] = cuda_time(call)
+            row["scan_launches_ms"][key] = CS.launch_split(call, reps)
+        return row
+
+    if only == "scans":
+        xp, sm, pos = CS.protein_masks(CS.swissprot_like(160), "cuda")
+        keep, code = CS.scan_inputs(xp, sm, pos)
+        print(json.dumps({"root": root, **scans(keep, code),
+                          "bool_to_i32_ms": cuda_time(lambda: keep.to(torch.int32)),
+                          "i32_clone_ms": cuda_time(lambda: code.clone())}), flush=True)
+        return
 
     fq = bench.gen_fastq(500_000, read_len=150)
     qblocks, _ = make_blocks_fastq(np.frombuffer(fq, np.uint8)[1:], 1)
@@ -105,19 +129,42 @@ def child(root: str, what: str, reps: int, fastq_only: bool) -> None:
     fastq_row["fastq_passes_ms"] = passes_ms(emit_q)
     del xq, qblocks, fq
     torch.cuda.empty_cache()
-    if fastq_only:
+    if only == "fastq":
         print(json.dumps({"root": root, **fastq_row}), flush=True)
         return
 
+    data = bench.gen_fasta_single(128)
+    blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
+    x = torch.from_numpy(blk.data[0].copy()).to("cuda")
+    prev = int(blk.prev[0])
     emit = lambda: EF.emit_fasta_kernel(x, prev)  # noqa: E731
     row = {"root": root, **fastq_row, "block": x.numel(), "emit_fasta_ms": cuda_time(emit),
            "classify_fasta_ms": cuda_time(lambda: SF.classify_fasta_kernel(x, prev))}
     row["passes_ms"] = passes_ms(emit)
-    xp, sm, pos = CS.protein_masks(CS.swissprot_like(160), "cuda")
+    sv, out_len, packed, chars, tog = CS.render_inputs(emit())
+    row["pack_4bit_ms"] = cuda_time(lambda: PK.pack_4bit_kernel(sv, out_len=out_len))
+    row["unpack_4bit_ms"] = cuda_time(lambda: UP.unpack_4bit_kernel(packed))
+    row["apply_mask_parity_ms"] = cuda_time(lambda: EF.apply_mask_parity_kernel(chars, tog))
+    del x, sv, packed, chars, tog
+    torch.cuda.empty_cache()
+    protein = CS.swissprot_like(160)
+    xp, sm, pos = CS.protein_masks(protein, "cuda")
+    row.update(scans(*CS.scan_inputs(xp, sm, pos)))
     for key, _, vals, kp, dense, *_ in CS.compactions(xp, sm, pos):
         call = lambda: CP.compact_kernel(vals, kp, dense=dense)  # noqa: E731
         row[f"{key}_ms"] = cuda_time(call)
         row[f"{key}_launches_ms"] = CS.launch_split(call, reps)
+    del xp, sm, pos
+    torch.cuda.empty_cache()
+    row["two_pass_ms"] = {}
+    for name, data, seq_type, fastq in (
+            ("swissprot_like(160)", protein, C.SEQ_TYPE_PROTEIN, False),
+            ("illumina_reads_fasta(750000)", CS.illumina_reads_fasta(750_000), C.SEQ_TYPE_DNA,
+             False),
+            ("sra_fastq(400000)", CS.sra_fastq(400_000), C.SEQ_TYPE_DNA, True)):
+        o = EncodeOptions(level=1, threads=os.cpu_count() or 0, seq_type=seq_type)
+        row["two_pass_ms"][name] = CS.two_pass_device_ms(data, o, encode(data, o)[0], fastq,
+                                                         "cuda", reps)
     print(json.dumps(row), flush=True)
 
 
@@ -125,11 +172,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--fastq-only", action="store_true")
+    ap.add_argument("--only", choices=("fastq", "scans"))
     ap.add_argument("--child", choices=("build", "time"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0], args.child, args.reps, args.fastq_only)
+        child(args.roots[0], args.child, args.reps, args.only)
         return 0
 
     import torch
@@ -140,7 +187,7 @@ def main() -> int:
 
     def run(root: str, what: str) -> str:
         r = subprocess.run([sys.executable, __file__, root, "--reps", str(args.reps),
-                            "--child", what] + ["--fastq-only"] * args.fastq_only,
+                            "--child", what] + (["--only", args.only] if args.only else []),
                            capture_output=True, text=True, timeout=900)
         if r.returncode:
             raise RuntimeError(f"{what} of {root} failed:\n{r.stderr[-4000:]}")

@@ -14,12 +14,12 @@
 //
 // - compact_kernel: one pass over the keep flags.  A block takes its tile
 //   id from an atomic ticket, so every earlier tile has started, and finds
-//   its output offset by decoupled look-back (Merrill and Garland,
-//   "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016): it
-//   publishes its kept count, then its inclusive prefix, in a 64-bit status
-//   word per tile (state and value in one store), and warp 0 walks the
-//   words before it, 128 a round (4 a lane), summing counts back to the
-//   nearest published prefix.  No launch counts the tiles first and no
+//   its output offset by the decoupled look-back of scan.cuh, with the
+//   add op (its counts are unsigned adds, the same bits): it publishes its
+//   kept count, then its inclusive prefix, in a 64-bit status word per
+//   tile (state and value in one store), and warp 0 walks the words before
+//   it, 128 a round (4 a lane), summing counts back to the nearest
+//   published prefix.  No launch counts the tiles first and no
 //   block scans the tile counts alone.  A tile is 32,768 elements: 256
 //   threads of eight 16-flag chunks, each chunk one 16-byte load,
 //   warp-striped so that a warp's loads are contiguous, all eight issued
@@ -42,7 +42,7 @@
 // each tile is a chain of dependent round trips (ticket, flags, look-back,
 // values), and the flags in flight per SM, bounded by registers, cover
 // about 1 TB/s of it whatever the tile size or occupancy tried.
-#include "common.cuh"
+#include "scan.cuh"
 
 namespace naf {
 
@@ -52,62 +52,8 @@ constexpr int CT_CHUNKS = 8;                              // 16-flag chunks a th
 constexpr int CT_TILE = CT_THREADS * CT_CHUNKS * 16;      // 32768 elements
 constexpr int WARP_SPAN = 32 * CT_CHUNKS * 16;            // elements of one warp
 constexpr int STAGE_BYTES = 32768;                        // a u8 tile, 8192 i32
-constexpr int LOOK_BACK = 4;                              // status words a lane reads
 constexpr int FILL_THREADS = 256;
 constexpr int FILL_BLOCKS = 1024;                         // most blocks of the fill
-constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
-// status word of a tile: state in the high half, value in the low half
-constexpr unsigned long long ST_AGGREGATE = 1ull << 32;   // the tile's kept count
-constexpr unsigned long long ST_PREFIX = 2ull << 32;      // count of this and all earlier tiles
-
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* s) {
-  return *reinterpret_cast<const volatile unsigned long long*>(s);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(s) = v;
-}
-
-// The 16 elements x[start:start+16] as words (4 for u8, 16 for i32), with
-// 16-byte loads where the run is whole and aligned; elements at and past
-// n read as 0.
-template <typename T>
-__device__ __forceinline__ void load16(const T* x, long long n, long long start,
-                                       uint32_t (&r)[4 * sizeof(T)]) {
-  const T* p = x + start;
-  if (start + 16 <= n && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int i = 0; i < static_cast<int>(sizeof(T)); ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      r[4 * i] = v.x;
-      r[4 * i + 1] = v.y;
-      r[4 * i + 2] = v.z;
-      r[4 * i + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4 * static_cast<int>(sizeof(T)); ++i) r[i] = 0;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const uint32_t v = start + e < n ? static_cast<uint32_t>(p[e]) : 0u;
-      if constexpr (sizeof(T) == 1) {
-        r[e >> 2] |= v << (8 * (e & 3));
-      } else {
-        r[e] = v;
-      }
-    }
-  }
-}
-
-// Element i of a run that load16 read.
-template <typename T>
-__device__ __forceinline__ T elem(const uint32_t (&r)[4 * sizeof(T)], int i) {
-  if constexpr (sizeof(T) == 1) {
-    return static_cast<T>(r[i >> 2] >> (8 * (i & 3)));
-  } else {
-    return static_cast<T>(r[i]);
-  }
-}
 
 // Bit b set where byte b of the 16 flags in w is nonzero.  Per word: the
 // high bit of each nonzero byte, shifted to bits 0, 8, 16, 24, and gathered
@@ -120,60 +66,6 @@ __device__ __forceinline__ uint32_t kept_mask(const uint32_t (&w)[4]) {
     m |= (((hi * 0x00204081u) >> 21) & 0xFu) << (4 * i);
   }
   return m;
-}
-
-__device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(FULL_WARP, v, d);
-    if (lane >= d) v += o;
-  }
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL_WARP, v, d);
-  return v;
-}
-
-// The kept count of the tiles before tile t > 0, by the 32 lanes of one
-// warp: each round reads the status words of the 32 * LOOK_BACK tiles below
-// `top` (lane l the LOOK_BACK words from top - LOOK_BACK l down), waits until
-// each has published, and sums the counts from the nearest tile back to the
-// nearest inclusive prefix; with no prefix among them, it moves down.
-__device__ __forceinline__ unsigned look_back(const unsigned long long* status, int t, int lane) {
-  unsigned excl = 0;
-  for (int top = t - 1;; top -= 32 * LOOK_BACK) {
-    const int j0 = top - lane * LOOK_BACK;
-    unsigned long long s[LOOK_BACK];
-    bool waiting = false;
-#pragma unroll
-    for (int i = 0; i < LOOK_BACK; ++i) {
-      s[i] = j0 - i >= 0 ? load_status(status + j0 - i) : ST_PREFIX;
-      waiting |= (s[i] >> 32) == 0;
-    }
-    while (__any_sync(FULL_WARP, waiting)) {
-      waiting = false;
-#pragma unroll
-      for (int i = 0; i < LOOK_BACK; ++i) {
-        if ((s[i] >> 32) == 0) s[i] = load_status(status + j0 - i);
-        waiting |= (s[i] >> 32) == 0;
-      }
-    }
-    int first = LOOK_BACK;  // this lane's nearest prefix
-#pragma unroll
-    for (int i = LOOK_BACK - 1; i >= 0; --i)
-      if ((s[i] >> 32) == 2) first = i;
-    const unsigned pre = __ballot_sync(FULL_WARP, first < LOOK_BACK);
-    const int stop = pre ? __ffs(pre) - 1 : 32;  // the lane that holds the nearest one
-    unsigned v = 0;
-#pragma unroll
-    for (int i = 0; i < LOOK_BACK; ++i)
-      if (lane < stop || (lane == stop && i <= first)) v += static_cast<unsigned>(s[i]);
-    excl += warp_sum(v);
-    if (pre) return excl;
-  }
 }
 
 template <typename T>
@@ -206,7 +98,7 @@ __global__ void __launch_bounds__(CT_THREADS)
   for (int k = 0; k < CT_CHUNKS; ++k) {
     const uint32_t mk = kept_mask(w[k]);
     const int c = __popc(mk);
-    const int incl = warp_inclusive_sum(c, lane);
+    const int incl = warp_inclusive_scan<AddOp>(c, lane);
     mo[k] = mk | static_cast<uint32_t>(run + incl - c) << 16;
     run += __shfl_sync(FULL_WARP, incl, 31);
   }
@@ -223,7 +115,7 @@ __global__ void __launch_bounds__(CT_THREADS)
     unsigned base = 0;
     if (t > 0) {
       if (lane == 0) store_status(status + t, ST_AGGREGATE | static_cast<unsigned>(agg));
-      base = look_back(status, t, lane);
+      base = static_cast<unsigned>(look_back<AddOp>(status, t, lane));
     }
     if (lane == 0) {
       const unsigned incl = base + static_cast<unsigned>(agg);

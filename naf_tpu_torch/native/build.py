@@ -46,7 +46,7 @@ SIGNATURES = {
     "naf_emit_fastq_scratch": [_I],
     "naf_emit_fastq": [_P, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _P],
-    "naf_scan_i32": [_P, _I, _L, _I, _P, _P, _P, _I, _P],
+    "naf_scan_i32": [_P, _I, _L, _I, _P, _P, _I, _P],
     "naf_compact": [_P, _I, _P, _L, _P, _P, _I, _P],
 }
 

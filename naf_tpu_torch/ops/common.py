@@ -10,9 +10,10 @@ TILE = 1 << 16
 #: bytes per tile of the FASTQ kernels (csrc/classify_fastq.cuh Q_TILE; the
 #: TPU FASTQ emit's _TILE_Q, so its per-tile sparse cap means the same)
 Q_TILE = 1 << 15
-#: elements per tile of the scan kernel (csrc/scan.cuh SCAN_TILE); nothing
-#: outside the kernels depends on it
-SCAN_TILE = 1 << 13
+#: elements per tile of the one-pass scan kernel (csrc/scan.cuh SCAN_TILE):
+#: the wrapper sizes its look-back status words by it; nothing else outside
+#: the kernels depends on it
+SCAN_TILE = 6 << 12
 #: elements per tile of the compaction kernel (csrc/compact.cu CT_TILE)
 COMPACT_TILE = 1 << 15
 

@@ -298,10 +298,10 @@ def scan_i32_kernel(x: torch.Tensor, op: str, *, lib=None) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=x.device)
     if n:
         g = n_tiles(n, SCAN_TILE)
-        scratch = torch.empty(2 * g + 1, dtype=torch.int32, device=x.device)
+        # a ticket, a pad word and a u64 status word per tile, zero on entry
+        scratch = torch.zeros(2 + 2 * g, dtype=torch.int32, device=x.device)
         build.call(lib, "naf_scan_i32", x.data_ptr(), x.element_size(), n, code,
-                   scratch.data_ptr(), scratch[g:].data_ptr(), out.data_ptr(), g,
-                   build.stream_of(x))
+                   scratch.data_ptr(), out.data_ptr(), g, build.stream_of(x))
         LAUNCHES[counter] += 1
     return out
 

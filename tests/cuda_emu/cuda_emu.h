@@ -29,7 +29,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct uint4 {
+struct alignas(16) uint4 {  // 16-byte aligned, as CUDA's
   uint32_t x, y, z, w;
 };
 struct uint2 {
@@ -48,7 +48,7 @@ inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) alignas(n)
 
@@ -143,6 +143,7 @@ inline unsigned warp_size() {
 #define gridDim naf_emu::grid_dim
 
 inline void __syncthreads() { naf_emu::block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { naf_emu::warp_sync(); }
 
 template <typename T>
 T __shfl_sync(unsigned, T v, int src) {

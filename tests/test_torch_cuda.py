@@ -33,12 +33,12 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
-                         FASTQ_EMIT_CASES, START_STATES, case_change_behind_tile_start,
-                         classify_case, compact_case, emit_case, fasta_big_block,
-                         fasta_start_states, fastq_big_block, fastq_case,
+                         FASTQ_EMIT_CASES, SCAN_CARD_CASES, SCAN_CASES, START_STATES,
+                         case_change_behind_tile_start, classify_case, compact_case, emit_case,
+                         fasta_big_block, fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads,
-                         fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_input,
-                         sra_fastq, typed_fasta)
+                         fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_case,
+                         scan_input, sra_fastq, typed_fasta)
 
 pytestmark = pytest.mark.cuda
 
@@ -231,6 +231,23 @@ def test_scan_kernel_on_card(card, n):
             t = _on(x, card, k)
             assert torch.equal(SF.scan_i32_kernel(t, "add"), SF.cumsum_i32_plain(t.cpu()).to(card))
             assert torch.equal(SF.scan_i32_kernel(t, "max"), SF.maxscan_i32_plain(t.cpu()).to(card))
+
+
+@pytest.mark.parametrize("op", ["add", "max"])
+@pytest.mark.parametrize("case", [*SCAN_CASES, *SCAN_CARD_CASES])
+def test_scan_kernel_cases_on_card(card, case, op):
+    """Each call three times: the long cases make the look-back meet tiles
+    that have not published yet, in another order each call."""
+    plain = SF.cumsum_i32_plain if op == "add" else SF.maxscan_i32_plain
+    for x in scan_case(case):
+        want = plain(torch.from_numpy(x)).to(card)
+        for k in range(4):                          # aligned, and 1-3 elements past
+            t = _on(x, card, k)
+            for _ in range(3):
+                assert torch.equal(SF.scan_i32_kernel(t, op), want)
+            del t
+        del want
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 7 * SCAN_TILE - 5, 3000 * SCAN_TILE + 9,

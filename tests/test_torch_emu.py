@@ -31,9 +31,9 @@ from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
 from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, FASTA_EMIT_CASES, FASTQ_EMIT_CASES,
-                         START_STATES, case_change_behind_tile_start, classify_case, compact_case,
-                         emit_case, fasta_start_states, fastq_case,
-                         fastq_case_change_behind_tile_start, fastq_reads, scan_input)
+                         SCAN_CASES, START_STATES, case_change_behind_tile_start, classify_case,
+                         compact_case, emit_case, fasta_start_states, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_reads, scan_case, scan_input)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -202,6 +202,16 @@ def test_scan_kernel_matches_plain(emu, n):
             t = _offset(x, k)
             assert torch.equal(SF.scan_i32_kernel(t, "add", lib=emu), SF.cumsum_i32_plain(t))
             assert torch.equal(SF.scan_i32_kernel(t, "max", lib=emu), SF.maxscan_i32_plain(t))
+
+
+@pytest.mark.parametrize("op", ["add", "max"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_kernel_cases(emu, case, op):
+    plain = SF.cumsum_i32_plain if op == "add" else SF.maxscan_i32_plain
+    for x in scan_case(case):
+        for k in range(4):                          # aligned, and 1-3 elements past
+            t = _offset(x, k)
+            assert torch.equal(SF.scan_i32_kernel(t, op, lib=emu), plain(t))
 
 
 @pytest.mark.parametrize("n", [1, 130, SCAN_TILE + 1, 3 * SCAN_TILE - 5, *COMPACT_CASES])

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from naf_tpu_torch.format import constants as C
-from naf_tpu_torch.ops.common import COMPACT_TILE, Q_TILE, TILE
+from naf_tpu_torch.ops.common import COMPACT_TILE, Q_TILE, SCAN_TILE, TILE
 
 #: one padded length for every classify case
 N_CLASSIFY = 2 * TILE + 64
@@ -470,6 +470,47 @@ def scan_input(n: int, kind: str, seed: int = 0) -> np.ndarray:
     x = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64)
     x[::7] = rng.integers(-(1 << 30) - 3, -(1 << 30) + 3, x[::7].size)
     return x.astype(np.int32)
+
+
+#: named scan cases of scan_case, each a few tiles of the scan kernel long
+SCAN_CASES = ["tile_edges", "max_floor", "first_only", "wraps", "ragged_16"]
+#: longer ones for the card: tens of thousands of tiles, so the look-back
+#: meets tiles that have not published yet, and a u8 sum past 2^31
+SCAN_CARD_CASES = ["many_tiles", "u8_wraps"]
+
+
+def scan_case(name: str) -> list:
+    """The inputs of a named scan case, one array per element type it covers."""
+    t = SCAN_TILE
+    rng = np.random.default_rng(len(name))
+    if name == "tile_edges":        # the running max rises at each tile's first and last element
+        n = 4 * t + 5
+        edges = np.array(sorted({k * t for k in range(1, 5)} | {k * t - 1 for k in range(1, 5)}))
+        x = rng.integers(-1000, 1000, n).astype(np.int32)
+        x[edges] = 1000 + 7 * np.arange(edges.size)
+        b = rng.integers(0, 8, n, dtype=np.uint8)
+        b[edges] = 10 + 20 * np.arange(edges.size)
+        return [x, b]
+    if name == "max_floor":         # every value below -2^30: every max is -2^30
+        return [rng.integers(-(1 << 31), -(1 << 30), 3 * t + 7).astype(np.int32)]
+    if name == "first_only":        # the maximum at element 0: its carry crosses every tile
+        n = 5 * t + 3
+        x = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+        x[0] = (1 << 31) - 1
+        b = rng.integers(0, 255, n, dtype=np.uint8)
+        b[0] = 255
+        return [x, b, np.arange(n) == 0]
+    if name == "wraps":             # the i32 sum passes 2^31 near the end of each tile
+        x = np.full(3 * t + 11, (1 << 31) // t + 1, np.int64)
+        x[1::2] += rng.integers(-3, 4, x[1::2].size)
+        return [x.astype(np.int32)]
+    if name == "ragged_16":         # a length that is not a multiple of 16
+        return [scan_input(2 * t + 13, kind) for kind in ("bool", "u8", "i32")]
+    if name == "many_tiles":
+        return [scan_input(20_000 * t + 9, kind) for kind in ("u8", "i32")]
+    if name == "u8_wraps":          # 255s past 2^31 of sum
+        return [np.full((1 << 31) // 255 + 3 * t + 5, 255, np.uint8)]
+    raise KeyError(name)
 
 
 def compact_input(n: int, p_keep, kind: str):
