@@ -15,8 +15,11 @@ Phases, each printing JSON lines:
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
      to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
      its contract writes past the count), the device time of each launch
-     within one call of each emit (its row's ``launch_split``), and
-     one line with the same for each compaction (torch.profiler);
+     within one call of each emit, of the FASTA classify and of each scan
+     (its row's ``launch_split``), and one line with the same for each
+     compaction (torch.profiler).  The FASTA classify's row nests a
+     ``protein`` entry: the same kernel on the protein input's two-pass
+     block, the shape its main path gives it;
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -155,21 +158,30 @@ def launch_split(fn, reps: int) -> dict:
     return dict(sorted(split.items()))
 
 
+def fasta_block(data: bytes, dev) -> tuple:
+    """(block, byte before it) of a FASTA input cut as one block past its
+    first '>', on dev: what the encodes' make_blocks gives."""
+    import numpy as np
+    import torch
+
+    from naf_tpu_torch.parallel.block import make_blocks
+
+    blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
+    return torch.from_numpy(blk.data[0].copy()).to(dev), int(blk.prev[0])
+
+
 def protein_masks(data: bytes, dev):
     """(block, masks, positions) of phase 2's scans and compactions: the
     protein input's two-pass block on the card, its masks from the
     standalone classify as stats_block and emit_block pass them, and
     i32 positions."""
-    import numpy as np
     import torch
 
     from naf_tpu_torch.format import constants as C
     from naf_tpu_torch.ops import scan_fused as SF
-    from naf_tpu_torch.parallel.block import make_blocks
 
-    blk = make_blocks(np.frombuffer(data, np.uint8)[1:], 1)
-    xp = torch.from_numpy(blk.data[0].copy()).to(dev)
-    sm = SF.scan_fasta_fused(xp, int(blk.prev[0]), C.SEQ_TYPE_PROTEIN, False)
+    xp, prev = fasta_block(data, dev)
+    sm = SF.scan_fasta_fused(xp, prev, C.SEQ_TYPE_PROTEIN, False)
     return xp, sm, torch.arange(xp.numel(), dtype=torch.int32, device=dev)
 
 
@@ -544,10 +556,7 @@ def main() -> int:
 
     # FASTA: the block of the one-record input
     name, data = fasta_inputs[1]
-    body = np.frombuffer(data, np.uint8)[data.index(b">") + 1:]
-    blk = make_blocks(body, 1)
-    x = torch.from_numpy(blk.data[0].copy()).to(dev)
-    prev = int(blk.prev[0])
+    x, prev = fasta_block(data, dev)
     shape = f"{name} block u8[{x.numel()}]"
     kern = EF.emit_fasta_kernel(x, prev)
     sv, out_len, seq_packed, chars, tog = render_inputs(kern)
@@ -557,7 +566,7 @@ def main() -> int:
     del kern
     check("classify_fasta", lambda: SF.classify_fasta_kernel(x, prev),
           lambda: SF.classify_fasta_plain(x, prev), "naf_tpu_torch/csrc/classify.cu",
-          "naf_tpu/ops/scan_fused.py:138", shape, [x])
+          "naf_tpu/ops/scan_fused.py:138", shape, [x], split=True)
     check("pack_4bit", lambda: PK.pack_4bit_kernel(sv, out_len=out_len),
           lambda: PK.pack_4bit_plain(sv, out_len=out_len), "naf_tpu_torch/csrc/pack.cu",
           "naf_tpu/ops/pack.py:78", f"sv u8[{sv.numel()}]", [sv])
@@ -572,9 +581,17 @@ def main() -> int:
     # scans and compactions: the protein input's two-pass block, its masks
     # from the standalone classify, as stats_block and emit_block pass them
     name, data = two_pass_inputs[0][:2]
+    xp, prev_p = fasta_block(data, dev)
+    shape = f"{name} block [{xp.numel()}]"
+    # the standalone classify on the block its two-pass path gives it
+    check("classify_fasta",
+          lambda: SF.classify_fasta_kernel(xp, prev_p, seq_type=C.SEQ_TYPE_PROTEIN),
+          lambda: SF.classify_fasta_plain(xp, prev_p, seq_type=C.SEQ_TYPE_PROTEIN),
+          "naf_tpu_torch/csrc/classify.cu", "naf_tpu/ops/scan_fused.py:138",
+          f"{shape} protein", [xp], row_key="classify_fasta:protein", split=True)
+    del xp
     xp, sm, pos = protein_masks(data, dev)
     keep, enc = scan_inputs(xp, sm, pos)
-    shape = f"{name} block [{xp.numel()}]"
     check("cumsum_i32", lambda: SF.scan_i32_kernel(keep, "add"),
           lambda: SF.cumsum_i32_plain(keep), "naf_tpu_torch/csrc/scan.cu",
           "naf_tpu/ops/scan_fused.py:283", f"{shape} stream_keep bool -> i32", [keep],
@@ -825,6 +842,10 @@ def main() -> int:
         row = dict(kernel_rows[k], launches=total[k])
         if k in fused:
             row.update(fused_into=fused[k], fused_launches=total[fused[k]])
+        if k == "classify_fasta":
+            p = kernel_rows["classify_fasta:protein"]
+            row["protein"] = {f: p[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "library_ms", "launch_split")}
         if k == "compact":
             i32 = kernel_rows["compact:i32"]
             row["i32"] = {f: i32[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -2,7 +2,7 @@
 """Time the port's kernels in several checkouts on one CUDA card, in the
 order given and then in reverse (A B B A).
 
-    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans]
+    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans|classify]
 
 Each DIR is the root of a checkout (the directory that holds
 ``naf_tpu_torch/``), for example an older commit unpacked with
@@ -29,8 +29,13 @@ checkout's host encode() writes (chip_smoke.py's two_pass_device_ms).
 --only fastq times the FASTQ emit and classify alone; --only scans the two
 scans alone, beside a plain copy of the same bytes (``bool_to_i32_ms``,
 ``i32_clone_ms``: torch's conversion and clone, what moving them costs
-without a scan).  One JSON line per timing, then the card's name and power
-limit as nvidia-smi gives them.
+without a scan); --only classify the FASTA classify alone on the FASTA
+block and on the swissprot_like(160) block (as protein), each with its
+launch split, beside a copy that reads each byte once and writes it twice
+(``copy_1to2_ms``: torch's contiguous copy of the block broadcast to
+[n, 2], what moving the bytes costs without a classify).  One JSON line
+per timing, then the card's name and power limit as nvidia-smi gives
+them.
 """
 
 from __future__ import annotations
@@ -110,6 +115,22 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
             row["scan_launches_ms"][key] = CS.launch_split(call, reps)
         return row
 
+    if only == "classify":
+        row = {"root": root}
+        for key, data, seq_type in (
+                ("fasta", bench.gen_fasta_single(128), C.SEQ_TYPE_DNA),
+                ("protein", CS.swissprot_like(160), C.SEQ_TYPE_PROTEIN)):
+            x, prev = CS.fasta_block(data, "cuda")
+            call = lambda: SF.classify_fasta_kernel(x, prev, seq_type=seq_type)  # noqa: E731
+            row[key] = {"block": x.numel(), "classify_fasta_ms": cuda_time(call),
+                        "launches_ms": CS.launch_split(call, reps),
+                        "copy_1to2_ms": cuda_time(
+                            lambda: x.unsqueeze(1).expand(-1, 2).contiguous())}
+            del x
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        return
+
     if only == "scans":
         xp, sm, pos = CS.protein_masks(CS.swissprot_like(160), "cuda")
         keep, code = CS.scan_inputs(xp, sm, pos)
@@ -133,10 +154,7 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
         print(json.dumps({"root": root, **fastq_row}), flush=True)
         return
 
-    data = bench.gen_fasta_single(128)
-    blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
-    x = torch.from_numpy(blk.data[0].copy()).to("cuda")
-    prev = int(blk.prev[0])
+    x, prev = CS.fasta_block(bench.gen_fasta_single(128), "cuda")
     emit = lambda: EF.emit_fasta_kernel(x, prev)  # noqa: E731
     row = {"root": root, **fastq_row, "block": x.numel(), "emit_fasta_ms": cuda_time(emit),
            "classify_fasta_ms": cuda_time(lambda: SF.classify_fasta_kernel(x, prev))}
@@ -172,7 +190,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("fastq", "scans"))
+    ap.add_argument("--only", choices=("fastq", "scans", "classify"))
     ap.add_argument("--child", choices=("build", "time"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

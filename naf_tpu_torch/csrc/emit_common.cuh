@@ -1,6 +1,7 @@
 // Device pieces that the FASTA and FASTQ emits (emit_fasta.cu,
-// emit_fastq.cu) share: 128-bit masks of a thread's bytes, the decoupled
-// look-back (Merrill and Garland, 2016) with its status words and the
+// emit_fastq.cu) share, the first two also with the FASTA classify
+// (classify.cuh, classify.cu): 128-bit masks of a thread's bytes, the
+// decoupled look-back (Merrill and Garland, 2016) with its status words and the
 // pending-count aggregate of the per-tile sparse cap, warp-level line
 // summaries, the copy of a staged tile to its output, and the fill launch's
 // zero fill and fold of the tile records into the block scalars.

@@ -20,8 +20,8 @@
 //
 // - emit_fasta_kernel, one pass over the block.  A block takes its 64 KiB
 //   tile by atomic ticket; each of its 512 threads loads its 128 bytes
-//   (eight 16-byte loads) and classifies them once, bit-parallel: 128-bit
-//   masks from SWAR compares (__vcmpeq4) and one class-table lookup a
+//   (eight 16-byte loads) and classifies them once, bit-parallel, as the
+//   standalone classify does (classify.cuh): 128-bit masks from SWAR compares (__vcmpeq4) and one class-table lookup a
 //   byte (the three unexpected-byte masks only where the thread has such a
 //   byte).  A marker is '>' after a line end (the byte before a thread is
 //   read from memory, so no carry is needed for it); the parser state
@@ -72,56 +72,6 @@ constexpr int FE_WARPS = THREADS / 32;
 constexpr int FE_STAGE = TILE + 16;  // the kept stream bytes of a tile, at sv's alignment
 using FAgg = CaseAgg<2>;              // stream and sequence counts
 using FLayout = EmitLayout<2, 3>;     // unexpected id, comment and sequence bytes
-
-// The masks a thread's classify starts from.
-struct FastaMasks {
-  Bits eol, gt, sp_tab, low, un_text, un_com, un_seq;
-};
-
-__device__ __forceinline__ void build_masks(const uint32_t (&w)[WORDS], const Tables& t,
-                                            FastaMasks& m) {
-  uint32_t cw[WORDS], unex = 0;
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const uint32_t v = w[k];
-    cw[k] = t.cls[v & 0xFFu] | t.cls[(v >> 8) & 0xFFu] << 8 | t.cls[(v >> 16) & 0xFFu] << 16 |
-            uint32_t(t.cls[v >> 24]) << 24;
-    unex |= cw[k];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    m.eol.q[i] = m.gt.q[i] = m.sp_tab.q[i] = m.low.q[i] = m.un_text.q[i] = m.un_com.q[i] =
-        m.un_seq.q[i] = 0;
-  // words k and k + 1 give bits 4k .. 4k + 7
-#pragma unroll
-  for (int k = 0; k < WORDS; k += 2) {
-    const uint32_t v0 = w[k], v1 = w[k + 1], c0 = cw[k], c1 = cw[k + 1];
-    const int i = k >> 3, s = 4 * (k & 7);
-    m.gt.q[i] |= gather8(__vcmpeq4(v0, 0x3E3E3E3Eu), __vcmpeq4(v1, 0x3E3E3E3Eu)) << s;
-    m.sp_tab.q[i] |= gather8(__vcmpeq4(v0, 0x20202020u) | __vcmpeq4(v0, 0x09090909u),
-                             __vcmpeq4(v1, 0x20202020u) | __vcmpeq4(v1, 0x09090909u)) << s;
-    m.low.q[i] |= gather8(__vcmpgeu4(v0, 0x60606060u), __vcmpgeu4(v1, 0x60606060u)) << s;
-    m.eol.q[i] |= gather8(c0 << 4, c1 << 4) << s;  // CLS_EOL, bit 3
-  }
-  // the unexpected classes, where some byte of the thread has one
-  if (unex & ((CLS_UNEX_SEQ | CLS_UNEX_TEXT | CLS_UNEX_COM) * 0x01010101u)) {
-#pragma unroll
-    for (int k = 0; k < WORDS; k += 2) {
-      const uint32_t c0 = cw[k], c1 = cw[k + 1];
-      const int i = k >> 3, s = 4 * (k & 7);
-      m.un_seq.q[i] |= gather8(c0 << 7, c1 << 7) << s;   // CLS_UNEX_SEQ, bit 0
-      m.un_text.q[i] |= gather8(c0 << 6, c1 << 6) << s;  // CLS_UNEX_TEXT, bit 1
-      m.un_com.q[i] |= gather8(c0 << 5, c1 << 5) << s;   // CLS_UNEX_COM, bit 2
-    }
-  }
-}
-
-// The composed parser map of a run of bytes; the first look-back's value.
-struct MapOp {
-  __device__ static uint32_t op(uint32_t earlier, uint32_t later) {
-    return static_cast<uint32_t>(compose(static_cast<int>(later), static_cast<int>(earlier)));
-  }
-};
 
 // Packed counts of a run of bytes inside a warp (at most 4,096 bytes, so
 // each field fits 16 bits): a stream | seq << 16, c the sparse entries and
@@ -194,63 +144,15 @@ __global__ void __launch_bounds__(THREADS) emit_fasta_kernel(
   FastaMasks m;
   build_masks(w, tb, m);
 
-  // 1. the parser state entering the thread: a marker resets it to ID, a
-  // line end to SEQ, and a space or tab turns ID into COMMENT
-  const Bits marker = m.gt & later(m.eol, pe_in);
-  const Bits reset = marker | m.eol;
-  const Bits space = m.sp_tab & ~m.eol;
-  uint32_t map = any(space) ? 1u : 0u;
-  if (any(reset)) {
-    const int r = highest(reset);
-    map = bit(m.eol, r) ? 4u : (popc(space) > below(space, r + 1) ? 3u : 2u);
-  }
-  uint32_t inc1 = map;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t o = __shfl_up_sync(FULL, inc1, d);
-    if (lane >= d) inc1 = MapOp::op(o, inc1);
-  }
-  uint32_t ex1 = __shfl_up_sync(FULL, inc1, 1);
-  if (lane == 0) ex1 = 0;
-  if (lane == 31) s_w1[warp] = inc1;
-  __syncthreads();
-  // the warps before this one and the whole tile: every warp scans the
-  // warp totals, lane i warp i
-  uint32_t wm = lane < FE_WARPS ? s_w1[lane] : 0u;
-#pragma unroll
-  for (int d = 1; d < FE_WARPS; d <<= 1) {
-    const uint32_t o = __shfl_up_sync(FULL, wm, d);
-    if (lane >= d) wm = MapOp::op(o, wm);
-  }
-  const uint32_t tile1 = __shfl_sync(FULL, wm, FE_WARPS - 1);
-  uint32_t pre1 = __shfl_sync(FULL, wm, (warp + 31) & 31);
-  if (warp == 0) pre1 = 0;
-  if (warp == 0) {
-    uint32_t e = 0;
-    if (t > 0) {
-      if (lane == 0) mst.publish(t, LB_AGG, tile1);
-      e = look_back(mst, t, lane, sp_cap);
-    }
-    if (lane == 0) {
-      mst.publish(t, LB_PREFIX, MapOp::op(e, tile1));
-      s_e1 = e;
-    }
-  }
-  __syncthreads();
-  const int s0 = apply_map(static_cast<int>(MapOp::op(MapOp::op(s_e1, pre1), ex1)), st0);
+  // 1. the parser state entering the thread (classify.cuh)
+  const FastaEvents ev = fasta_events(m, pe_in);
+  const int s0 = entry_state<FE_WARPS>(ev.map, mst, t, st0, s_w1, &s_e1);
 
-  // 2. the classify, bit-parallel (classify.cuh:classify_byte), from the
-  // state before each byte
-  const uint32_t c_seq = s0 == ST_SEQ ? 1u : 0u, c_com = s0 == ST_COM ? 1u : 0u;
-  const Bits in_seq = later(latch(m.eol, marker, c_seq), c_seq);
-  const Bits in_com_st = later(latch(space & ~in_seq, reset, c_com), c_com);
-  const Bits text = ~marker & ~in_seq;  // an ID or COMMENT byte
-  const Bits sp = m.eol | m.sp_tab;
-  const Bits in_id = text & ~in_com_st & ~sp;
-  const Bits in_com = text & in_com_st & ~m.eol;
-  const Bits id_unex = in_id & m.un_text, id_keep = in_id & ~m.un_text;
-  const Bits com_unex = in_com & m.un_com;
-  const Bits seq_keep = in_seq & ~marker & ~sp, seq_unex = seq_keep & m.un_seq;
+  // 2. the classify, bit-parallel (classify.cuh), from the state before
+  // each byte
+  const FastaClasses cl = fasta_classes(m, ev.marker, s0);
+  const Bits marker = cl.marker, in_com = cl.in_com, id_unex = cl.id_unex, id_keep = cl.id_keep;
+  const Bits com_unex = cl.com_unex, seq_keep = cl.seq_keep, seq_unex = cl.seq_unex;
   const Bits keep = seq_keep | id_unex;  // the stream
   const Bits lower = (m.low & ~id_unex & ~seq_unex) | when(tb.repl_name >= 96, id_unex) |
                      when(tb.repl_seq >= 96, seq_unex);

@@ -33,8 +33,7 @@ _P, _I, _L = ct.c_void_p, ct.c_int, ct.c_longlong
 #: argument types of each C entry (see csrc/*.cu); the last is the stream, but for
 #: the emits' scratch sizes, which launch nothing
 SIGNATURES = {
-    "naf_fasta_tile_maps": [_P, _L, _I, _P, _P, _I, _P],
-    "naf_classify_fasta": [_P, _L, _I, _P, _P, _I, _I, _P, _P, _I, _P],
+    "naf_classify_fasta": [_P, _L, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P],
     "naf_emit_fasta_scratch": [_I],
     "naf_emit_fasta": [_P, _L, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "naf_pack_4bit": [_P, _L, _L, _P, _P, _L, _P],

@@ -14,6 +14,9 @@ Q_TILE = 1 << 15
 #: the wrapper sizes its look-back status words by it; nothing else outside
 #: the kernels depends on it
 SCAN_TILE = 6 << 12
+#: bytes per tile of the standalone FASTA classify (csrc/classify.cu
+#: CL_TILE): the wrapper sizes its look-back status words by it
+CLASSIFY_TILE = 1 << 15
 #: elements per tile of the compaction kernel (csrc/compact.cu CT_TILE)
 COMPACT_TILE = 1 << 15
 

@@ -23,7 +23,7 @@ import torch
 from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
-from .common import Q_TILE, SCAN_TILE, check_1d, n_tiles
+from .common import CLASSIFY_TILE, Q_TILE, SCAN_TILE, check_1d, n_tiles
 from .tables import device_tables
 from .tables_np import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT,
                         IS_EOL)
@@ -39,7 +39,8 @@ def start_state(prev_byte: int, starts_in_seq: bool) -> tuple[int, int]:
 
 def entry_states(maps: torch.Tensor, st0: int) -> torch.Tensor:
     """i32[g]: parser state entering each tile, from the tiles' composed
-    maps (the scan between the kernel passes; O(tiles) torch ops).
+    maps (the FASTQ classify's scan between its kernel passes; O(tiles)
+    torch ops).
 
     A constant map (marker, EOL) resets the state; after it, or from st0 if
     none came, any space map turns ID into COMMENT.
@@ -110,32 +111,24 @@ def classify_fasta_plain(block: torch.Tensor, prev_byte: int, starts_in_seq: boo
     return flags.to(torch.uint8), m["sval"].to(torch.uint8)
 
 
-def tile_maps(block: torch.Tensor, pe0: int, cls: torch.Tensor, lib) -> torch.Tensor:
-    """Kernel pass A: i32[tiles] composed parser map of each 64 KiB tile
-    (the standalone classify's first pass, and the emit's)."""
-    n = block.numel()
-    g = n_tiles(n)
-    maps = torch.empty(g, dtype=torch.int32, device=block.device)
-    build.call(lib, "naf_fasta_tile_maps", block.data_ptr(), n, pe0, cls.data_ptr(),
-               maps.data_ptr(), g, build.stream_of(block))
-    return maps
-
-
 def classify_fasta_kernel(block: torch.Tensor, prev_byte: int, starts_in_seq: bool = False,
                           *, seq_type: int = C.SEQ_TYPE_DNA, lib=None):
     """Launch the classify kernel on ``block``'s device (``lib``: the kernel
-    library; the CUDA build unless a test passes the host-emulation one)."""
+    library; the CUDA build unless a test passes the host-emulation one):
+    one pass over the block."""
     check_1d(block, torch.uint8, "block")
     lib = build.kernel_lib(block, lib)
     tabs = device_tables(seq_type, block.device)
     pe0, st0 = start_state(prev_byte, starts_in_seq)
     n = block.numel()
-    st_in = entry_states(tile_maps(block, pe0, tabs["cls"], lib), st0)
+    g = n_tiles(n, CLASSIFY_TILE)
+    # a ticket and a look-back status word per tile, zero on entry
+    scratch = torch.zeros(1 + g, dtype=torch.int32, device=block.device)
     flags = torch.empty_like(block)
     sval = torch.empty_like(block)
-    build.call(lib, "naf_classify_fasta", block.data_ptr(), n, pe0, st_in.data_ptr(),
-               tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"],
-               flags.data_ptr(), sval.data_ptr(), st_in.numel(), build.stream_of(block))
+    build.call(lib, "naf_classify_fasta", block.data_ptr(), n, pe0, st0,
+               tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], scratch.data_ptr(),
+               flags.data_ptr(), sval.data_ptr(), g, build.stream_of(block))
     LAUNCHES["classify_fasta"] += 1
     return flags, sval
 

@@ -68,6 +68,14 @@ inline unsigned __vcmpgeu4(unsigned a, unsigned b) {
   for (int i = 0; i < 32; i += 8) r |= ((a >> i & 0xFFu) >= (b >> i & 0xFFu) ? 0xFFu : 0u) << i;
   return r;
 }
+// Byte n of the result is byte (s >> 4n) & 7 of y:x (x the low four).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = static_cast<uint64_t>(y) << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<unsigned>(v >> (8 * (s >> (4 * i) & 7)) & 0xFFu) << (8 * i);
+  return r;
+}
 // Blocks run one after another, so a fence between a payload and the flag
 // that publishes it orders nothing that another block could see early.
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }

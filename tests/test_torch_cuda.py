@@ -33,7 +33,7 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
-                         FASTQ_EMIT_CASES, SCAN_CARD_CASES, SCAN_CASES, START_STATES,
+                         FASTQ_EMIT_CASES, SCAN_CARD_CASES, SCAN_CASES, SEQ_TYPES, START_STATES,
                          case_change_behind_tile_start, classify_case, compact_case, emit_case,
                          fasta_big_block, fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads,
@@ -66,7 +66,7 @@ def _assert_dicts_equal(got: dict, want: dict) -> None:
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("seq_type", SEQ_TYPES)
 @pytest.mark.parametrize("case", CLASSIFY_CASES)
 def test_classify_kernel_on_card(card, case, seq_type):
     body, prev, sis = classify_case(case)
@@ -74,6 +74,26 @@ def test_classify_kernel_on_card(card, case, seq_type):
         x = _on(body[:n], card)
         flags, sval = SF.classify_fasta_kernel(x, prev, sis, seq_type=seq_type)
         f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis, seq_type=seq_type)
+        assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+
+
+@pytest.mark.parametrize("prev,sis", START_STATES)
+def test_classify_kernel_start_states_on_card(card, prev, sis):
+    x = _on(fasta_start_states()[:2 * TILE - 5], card, 5)
+    flags, sval = SF.classify_fasta_kernel(x, prev, sis)
+    f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis)
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+
+
+@pytest.mark.parametrize("flip_case", [False, True], ids=["upper", "flipped_case"])
+def test_classify_fasta_many_tiles_on_card(card, flip_case):
+    """Thousands of tiles (140 MB) of short records, where the look-back
+    meets tiles that have not published yet.  Three calls, each byte-equal
+    to the plain version."""
+    x = _on(fasta_big_block(2048, flip_case), card)
+    f_ref, v_ref = SF.classify_fasta_plain(x, ord(">"))
+    for _ in range(3):
+        flags, sval = SF.classify_fasta_kernel(x, ord(">"))
         assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
 
 

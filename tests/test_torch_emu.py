@@ -31,7 +31,8 @@ from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
 from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, FASTA_EMIT_CASES, FASTQ_EMIT_CASES,
-                         SCAN_CASES, START_STATES, case_change_behind_tile_start, classify_case,
+                         SCAN_CASES, SEQ_TYPES, START_STATES, case_change_behind_tile_start,
+                         classify_case,
                          compact_case, emit_case, fasta_start_states, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_reads, scan_case, scan_input)
 
@@ -72,7 +73,7 @@ def _assert_dicts_equal(got: dict, want: dict) -> None:
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("seq_type", SEQ_TYPES)
 @pytest.mark.parametrize("case", CLASSIFY_CASES)
 def test_classify_kernel_matches_plain(emu, case, seq_type):
     body, prev, sis = classify_case(case)
@@ -81,6 +82,16 @@ def test_classify_kernel_matches_plain(emu, case, seq_type):
         flags, sval = SF.classify_fasta_kernel(x, prev, sis, seq_type=seq_type, lib=emu)
         f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis, seq_type=seq_type)
         assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+
+
+@pytest.mark.parametrize("prev,sis", START_STATES)
+def test_classify_kernel_start_states(emu, prev, sis):
+    """A block whose first byte is '>', 5 bytes past an aligned pointer and
+    of a length that is not a multiple of 16."""
+    x = _offset(fasta_start_states()[:2 * TILE - 5], 5)
+    flags, sval = SF.classify_fasta_kernel(x, prev, sis, lib=emu)
+    f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis)
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
 
 
 @pytest.mark.parametrize("name", FASTA_EMIT_CASES)

@@ -26,7 +26,7 @@ from naf_tpu_torch.ops.pack import pack_4bit
 from naf_tpu_torch.ops.scan_fused import classify_fasta
 from naf_tpu_torch.ops.tables import device_tables
 from naf_tpu_torch.ops.unpack import unpack_4bit
-from torch_cases import CLASSIFY_CASES, classify_case
+from torch_cases import CLASSIFY_CASES, SEQ_TYPES, classify_case
 
 CPU = torch.device("cpu")
 
@@ -106,7 +106,7 @@ def test_mask_parity_matches_pallas(n):
     assert np.array_equal(apply_mask_parity(_t(chars), _t(tog)).numpy(), want)
 
 
-@pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])
+@pytest.mark.parametrize("seq_type", SEQ_TYPES)
 @pytest.mark.parametrize("case", CLASSIFY_CASES)
 def test_classify_matches_pallas(case, seq_type):
     body, prev, sis = classify_case(case)

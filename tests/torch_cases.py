@@ -1,10 +1,11 @@
 """Seeded byte inputs shared by the naf_tpu_torch kernel tests (numpy and
 the port only, so the tests on the card need neither jax nor naf_tpu).
 
-Classify cases are LF-padded to N_CLASSIFY bytes, emit cases to N_EMIT and
-FASTQ cases to N_FASTQ, so the JAX kernels they are held against compile
-once per length.  LF padding is inert: it only closes the open line (in
-FASTQ, it adds empty lines that keep nothing).
+Classify cases are LF-padded to N_CLASSIFY bytes (but the three long ones
+they share with the FASTA emit), emit cases to N_EMIT and FASTQ cases to
+N_FASTQ, so the JAX kernels they are held against compile once per
+length.  LF padding is inert: it only closes the open line (in FASTQ, it
+adds empty lines that keep nothing).
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ def pad_lf(body, n: int) -> np.ndarray:
 
 def classify_case(name: str):
     """(body, prev_byte, starts_in_seq) of one classify case."""
+    made = {"many_tiles": fasta_many_tiles, "long_header": fasta_long_header,
+            "long_line": fasta_long_line}
+    if name in made:
+        return made[name](), ord(">"), False
     rng = np.random.default_rng(14)
     if name == "fuzz":
         pool = np.frombuffer(b">ACGTNacgtn \t\r\n\x0b\x0c" + b"xyz*-@!", np.uint8)
@@ -54,7 +59,12 @@ def classify_case(name: str):
     raise KeyError(name)
 
 
-CLASSIFY_CASES = ["fuzz", "all_bytes", "structured", "mid_record", "tile_edge_header"]
+#: the cases padded to N_CLASSIFY, and the FASTA emit's long cases (tens of
+#: tiles, a header and a line across tiles; their own lengths)
+CLASSIFY_CASES = ["fuzz", "all_bytes", "structured", "mid_record", "tile_edge_header",
+                  "many_tiles", "long_header", "long_line"]
+#: every sequence type a FASTA block can be classified as
+SEQ_TYPES = [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA, C.SEQ_TYPE_PROTEIN, C.SEQ_TYPE_TEXT]
 
 
 def _records(rng, n_rec, max_len, alphabet=b"ACGTNn", runs=50):
