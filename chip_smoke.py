@@ -15,11 +15,12 @@ Phases, each printing JSON lines:
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
      to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
      its contract writes past the count), the device time of each launch
-     within one call of each emit, of the FASTA classify and of each scan
+     within one call of each emit, of each classify and of each scan
      (its row's ``launch_split``), and one line with the same for each
      compaction (torch.profiler).  The FASTA classify's row nests a
      ``protein`` entry: the same kernel on the protein input's two-pass
-     block, the shape its main path gives it;
+     block, the shape its main path gives it; the FASTQ classify's row an
+     ``sra`` entry, the same on the SRA FASTQ input's two-pass block;
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -168,6 +169,18 @@ def fasta_block(data: bytes, dev) -> tuple:
 
     blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
     return torch.from_numpy(blk.data[0].copy()).to(dev), int(blk.prev[0])
+
+
+def fastq_block(data: bytes, dev) -> tuple:
+    """(block, byte before it) of a FASTQ input cut as one block past its
+    leading '@', on dev: what the encodes' make_blocks_fastq gives."""
+    import numpy as np
+    import torch
+
+    from naf_tpu_torch.parallel.block import make_blocks_fastq
+
+    blocks, _ = make_blocks_fastq(np.frombuffer(data, np.uint8)[1:], 1)
+    return torch.from_numpy(blocks.data[0].copy()).to(dev), int(blocks.prev[0])
 
 
 def protein_masks(data: bytes, dev):
@@ -541,9 +554,7 @@ def main() -> int:
 
     # FASTQ: the full block of the 500,000-read input
     name, data = fastq_inputs[1]
-    blocks, _ = make_blocks_fastq(np.frombuffer(data, np.uint8)[1:], 1)
-    xq = torch.from_numpy(blocks.data[0].copy()).to(dev)
-    prev_q = int(blocks.prev[0])
+    xq, prev_q = fastq_block(data, dev)
     shape = f"{name} block u8[{xq.numel()}]"
     check("emit_fastq", lambda: EF.emit_fastq_kernel(xq, prev_q),
           lambda: EF.emit_fastq_plain(xq, prev_q), "naf_tpu_torch/csrc/emit_fastq.cu",
@@ -551,8 +562,17 @@ def main() -> int:
           split=True)
     check("classify_fastq", lambda: SF.classify_fastq_kernel(xq, prev_q),
           lambda: SF.classify_fastq_plain(xq, prev_q),
-          "naf_tpu_torch/csrc/classify_fastq.cu", "naf_tpu/ops/scan_fused.py:364", shape, [xq])
+          "naf_tpu_torch/csrc/classify_fastq.cu", "naf_tpu/ops/scan_fused.py:364", shape, [xq],
+          split=True)
     del xq
+    # the standalone classify on the block the SRA input's two-pass path gives it
+    name, data = two_pass_inputs[2][:2]
+    xs, prev_s = fastq_block(data, dev)
+    check("classify_fastq", lambda: SF.classify_fastq_kernel(xs, prev_s),
+          lambda: SF.classify_fastq_plain(xs, prev_s),
+          "naf_tpu_torch/csrc/classify_fastq.cu", "naf_tpu/ops/scan_fused.py:364",
+          f"{name} block u8[{xs.numel()}]", [xs], row_key="classify_fastq:sra", split=True)
+    del xs
 
     # FASTA: the block of the one-record input
     name, data = fasta_inputs[1]
@@ -842,10 +862,11 @@ def main() -> int:
         row = dict(kernel_rows[k], launches=total[k])
         if k in fused:
             row.update(fused_into=fused[k], fused_launches=total[fused[k]])
-        if k == "classify_fasta":
-            p = kernel_rows["classify_fasta:protein"]
-            row["protein"] = {f: p[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "library_ms", "launch_split")}
+        for nested, key in (("protein", "classify_fasta"), ("sra", "classify_fastq")):
+            if k == key:
+                p = kernel_rows[f"{key}:{nested}"]
+                row[nested] = {f: p[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "library_ms", "launch_split")}
         if k == "compact":
             i32 = kernel_rows["compact:i32"]
             row["i32"] = {f: i32[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",

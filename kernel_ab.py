@@ -30,7 +30,9 @@ checkout's host encode() writes (chip_smoke.py's two_pass_device_ms).
 scans alone, beside a plain copy of the same bytes (``bool_to_i32_ms``,
 ``i32_clone_ms``: torch's conversion and clone, what moving them costs
 without a scan); --only classify the FASTA classify alone on the FASTA
-block and on the swissprot_like(160) block (as protein), each with its
+block and on the swissprot_like(160) block (as protein), and the FASTQ
+classify alone on the FASTQ block and on the sra_fastq(400_000) block as
+its two-pass path cuts it (keys ``fastq`` and ``sra``), each with its
 launch split, beside a copy that reads each byte once and writes it twice
 (``copy_1to2_ms``: torch's contiguous copy of the block broadcast to
 [n, 2], what moving the bytes costs without a classify).  One JSON line
@@ -123,6 +125,16 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
             x, prev = CS.fasta_block(data, "cuda")
             call = lambda: SF.classify_fasta_kernel(x, prev, seq_type=seq_type)  # noqa: E731
             row[key] = {"block": x.numel(), "classify_fasta_ms": cuda_time(call),
+                        "launches_ms": CS.launch_split(call, reps),
+                        "copy_1to2_ms": cuda_time(
+                            lambda: x.unsqueeze(1).expand(-1, 2).contiguous())}
+            del x
+            torch.cuda.empty_cache()
+        for key, data in (("fastq", bench.gen_fastq(500_000, read_len=150)),
+                          ("sra", CS.sra_fastq(400_000))):
+            x, prev = CS.fastq_block(data, "cuda")
+            call = lambda: SF.classify_fastq_kernel(x, prev)  # noqa: E731
+            row[key] = {"block": x.numel(), "classify_fastq_ms": cuda_time(call),
                         "launches_ms": CS.launch_split(call, reps),
                         "copy_1to2_ms": cuda_time(
                             lambda: x.unsqueeze(1).expand(-1, 2).contiguous())}

@@ -2,7 +2,8 @@
 // padding, the 128-bit masks of a thread's bytes, and the parser state and
 // classes of each byte from them.  The standalone classify (classify.cu)
 // and the FASTA emit (emit_fasta.cu) both build on these; the FASTQ
-// kernels (classify_fastq.cuh) share the monoid and the tables.
+// kernels (classify_fastq.cuh) share the monoid, the tables and the
+// look-back's warp scans (entry_value).
 //
 // Replaces the classify of naf_tpu/ops/scan_fused.py:_make_fasta_kernel.
 // The TPU kernel runs a Hillis-Steele compose over a 5-element transition
@@ -74,7 +75,7 @@ __device__ __forceinline__ void load_tables(Tables* t, const uint8_t* cls, int r
 }
 
 __device__ __forceinline__ void load_tables(QTables* t, const uint8_t* cls, int repl_seq,
-                                            int repl_name, int repl_qual = 0) {
+                                            int repl_name, int repl_qual) {
   if (threadIdx.x == 0) t->repl_qual = static_cast<uint32_t>(repl_qual);
   load_tables(static_cast<Tables*>(t), cls, repl_seq, repl_name);
 }
@@ -148,21 +149,22 @@ __device__ __forceinline__ FastaEvents fasta_events(const FastaMasks& m, uint32_
   return e;
 }
 
-// The parser state entering this thread of a tile of NW warps, from the
-// thread's composed map: a warp scan, then every warp scans the warp
-// totals (lane i warp i), and warp 0 publishes the tile's map in mst and
-// takes the maps before it by look-back.  st0: the state entering the
-// block.  s_w (NW words) and s_e are shared; every thread of the block
-// must call this.
-template <int NW>
-__device__ __forceinline__ int entry_state(uint32_t map, const WordStatus<MapOp>& mst, int t,
-                                           int st0, uint32_t* s_w, uint32_t* s_e) {
+// The value entering this thread of a tile of NW warps, under a
+// look-back op (MapOp here, LaneMapOp for FASTQ), from the thread's own
+// value v: a warp scan, then every warp scans the warp totals (lane i warp
+// i), and warp 0 publishes the tile's total in st and takes the totals
+// before it by look-back.  The value before the block is the op's
+// identity, 0.  s_w (NW words) and s_e are shared; every thread of the
+// block must call this.
+template <int NW, typename Op>
+__device__ __forceinline__ uint32_t entry_value(uint32_t v, const WordStatus<Op>& st, int t,
+                                                uint32_t* s_w, uint32_t* s_e) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t inc = map;
+  uint32_t inc = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const uint32_t o = __shfl_up_sync(FULL, inc, d);
-    if (lane >= d) inc = MapOp::op(o, inc);
+    if (lane >= d) inc = Op::op(o, inc);
   }
   uint32_t ex = __shfl_up_sync(FULL, inc, 1);
   if (lane == 0) ex = 0;
@@ -172,7 +174,7 @@ __device__ __forceinline__ int entry_state(uint32_t map, const WordStatus<MapOp>
 #pragma unroll
   for (int d = 1; d < NW; d <<= 1) {
     const uint32_t o = __shfl_up_sync(FULL, wm, d);
-    if (lane >= d) wm = MapOp::op(o, wm);
+    if (lane >= d) wm = Op::op(o, wm);
   }
   const uint32_t tile = __shfl_sync(FULL, wm, NW - 1);
   uint32_t pre = __shfl_sync(FULL, wm, (warp + 31) & 31);
@@ -180,16 +182,24 @@ __device__ __forceinline__ int entry_state(uint32_t map, const WordStatus<MapOp>
   if (warp == 0) {
     uint32_t e = 0;
     if (t > 0) {
-      if (lane == 0) mst.publish(t, LB_AGG, tile);
-      e = look_back(mst, t, lane, 0);
+      if (lane == 0) st.publish(t, LB_AGG, tile);
+      e = look_back(st, t, lane, 0);
     }
     if (lane == 0) {
-      mst.publish(t, LB_PREFIX, MapOp::op(e, tile));
+      st.publish(t, LB_PREFIX, Op::op(e, tile));
       *s_e = e;
     }
   }
   __syncthreads();
-  return apply_map(static_cast<int>(MapOp::op(MapOp::op(*s_e, pre), ex)), st0);
+  return Op::op(Op::op(*s_e, pre), ex);
+}
+
+// The parser state entering this thread, from its composed map and the
+// state st0 entering the block.
+template <int NW>
+__device__ __forceinline__ int entry_state(uint32_t map, const WordStatus<MapOp>& mst, int t,
+                                           int st0, uint32_t* s_w, uint32_t* s_e) {
+  return apply_map(static_cast<int>(entry_value<NW>(map, mst, t, s_w, s_e)), st0);
 }
 
 // The classes of a thread's bytes (classify_fasta_plain's masks but

@@ -1,21 +1,28 @@
-// Per-byte FASTQ classify: the device functions of the standalone FASTQ
-// classify, and the tile geometry and tables that the FASTQ emit shares
-// with it (emit_fastq.cu computes the same classes bit-parallel).
+// The FASTQ classify as bit masks: the tile geometry of the FASTQ emit,
+// the 128-bit masks of a thread's bytes, the lane-and-header look-back
+// value, and the classes of each byte from them.  The standalone classify
+// (classify_fastq.cu) and the FASTQ emit (emit_fastq.cu) both build on
+// these.
 //
-// Replaces naf_tpu/ops/scan_fused.py:_make_fastq_kernel (classify_fastq_fused).
-// The TPU kernel carries three scalars across its in-order grid: the header
-// sub-state, whether the previous byte was LF, and the line index mod 4 (the
-// lane).  A CUDA grid has no order, so:
-//   - the byte before a thread is read from memory (no prev-is-LF carry);
-//   - the lane is an LF-count scan: per-thread counts, a block scan, and a
-//     scan over the tiles' counts between launches;
-//   - the header sub-state is the FASTA classify's 5-element monoid
-//     (classify.cuh) with EOL as const ID and a non-EOL space as the space
-//     map: per-thread composed maps, a block scan, and a scan over the tile
-//     maps between launches (ops/scan_fused.py:entry_states).
+// Replaces the classify of naf_tpu/ops/scan_fused.py:_make_fastq_kernel
+// (classify_fastq_fused).  The TPU kernel carries three scalars across its
+// in-order grid: the header sub-state, whether the previous byte was LF,
+// and the line index mod 4 (the lane).  A CUDA grid has no order, so:
+//   - the byte before a thread is read from memory or taken from the lane
+//     before (no prev-is-LF carry);
+//   - the lane and the header sub-state are one 5-bit value a run of
+//     bytes (LaneMapOp): the LF count mod 4, and the composed header map
+//     of the FASTA classify's monoid (classify.cuh) with EOL as const ID
+//     and a non-EOL space as the space map.  Warp scans, the warp totals
+//     and a decoupled look-back on one status word a tile give the value
+//     entering each thread;
+//   - from there, prefix parities of the LF mask give each byte's lane
+//     (line index bit 0, then bit 1 from the LFs at odd indices), and a
+//     set/reset latch the header's ID/COMMENT split.
 // The input is the regular 4-line grid that parallel/block.py:
 // make_blocks_fastq accepts, cut at a record start; bytes past the end read
-// as LF, which keeps nothing.
+// as LF, which keeps nothing.  A quality line's first byte is kept
+// whatever it is (the reference's rule).
 //
 // Flag bits (as the TPU kernel): bit0 rec_start, bit1 seq_unex, bit2
 // seq_keep, bit3 is_lf, bit4 id_keep|qual_keep, bit5 id_unex|qual_unex|
@@ -29,122 +36,104 @@ namespace naf {
 constexpr int Q_TILE = 32768;                   // the TPU FASTQ emit's _TILE_Q
 constexpr int Q_THREADS = Q_TILE / PER_THREAD;  // 256
 
-// What a FASTQ walk knows before a byte: the byte before it is LF, the
-// line index mod 4, and the header sub-state.
-struct QState {
-  bool pe;
-  int lane;
-  int s;
+// The masks a thread's FASTQ classify starts from.
+struct FastqMasks {
+  Bits lf, eol, sp_tab, at, low, un_text, un_com, un_seq, un_qual;
 };
 
-// One byte's classes, decoded (the emit reads these, not the flag byte).
-struct QByte {
-  bool rec_start, is_lf, id_keep, id_unex, in_com, com_unex, seq_keep, seq_unex, qual_line,
-      qual_keep, qual_unex;
-  uint32_t sval;
-  __device__ __forceinline__ uint32_t flags() const {
-    return uint32_t(rec_start) | uint32_t(seq_unex) << 1 | uint32_t(seq_keep) << 2 |
-           uint32_t(is_lf) << 3 | uint32_t(id_keep || qual_keep) << 4 |
-           uint32_t(id_unex || qual_unex || com_unex) << 5 | uint32_t(in_com) << 6 |
-           uint32_t(qual_line) << 7;
-  }
-};
-
-// Header sub-state map of one byte: EOL starts the next header at ID; a
-// non-EOL space turns ID into COMMENT.
-__device__ __forceinline__ int fastq_byte_map(uint32_t b, uint32_t c) {
-  if (c & CLS_EOL) return 2;
-  return (b == 0x09 || b == 0x20) ? 1 : 0;
-}
-
-__device__ __forceinline__ QByte classify_fastq_byte(uint32_t b, const QState& q,
-                                                     const QTables& t) {
-  const uint32_t c = t.cls[b];
-  const bool eolc = (c & CLS_EOL) != 0;
-  const bool sp = eolc || b == 0x09 || b == 0x20;
-  QByte r;
-  r.is_lf = b == 0x0A;
-  r.rec_start = b == '@' && q.pe && q.lane == 0;
-  const bool in_hdr = q.lane == 0 && !r.rec_start && !eolc;
-  const bool in_id = in_hdr && q.s == ST_ID && !sp;
-  r.in_com = in_hdr && q.s == ST_COM;
-  r.id_unex = in_id && (c & CLS_UNEX_TEXT);
-  r.id_keep = in_id && !(c & CLS_UNEX_TEXT);
-  r.com_unex = r.in_com && (c & CLS_UNEX_COM);
-  r.seq_keep = q.lane == 1 && !sp;
-  r.seq_unex = r.seq_keep && (c & CLS_UNEX_SEQ);
-  r.qual_line = q.lane == 3 && !r.is_lf;
-  // a quality line's first byte is kept whatever it is (the reference's rule)
-  const bool qual_rest = r.qual_line && !q.pe && !sp;
-  r.qual_unex = qual_rest && (c & CLS_UNEX_QUAL);
-  r.qual_keep = qual_rest || (r.qual_line && q.pe);
-  r.sval = r.id_unex ? t.repl_name
-                     : (r.seq_unex ? t.repl_seq : (r.qual_unex ? t.repl_qual : b));
-  return r;
-}
-
-__device__ __forceinline__ void advance(QState& q, uint32_t b, const QTables& t) {
-  q.s = apply_map(fastq_byte_map(b, t.cls[b]), q.s);
-  q.pe = b == 0x0A;
-  q.lane = (q.lane + q.pe) & 3;
-}
-
-// A chunk's (or tile's) composed header map and LF count.
-struct MapLf {
-  int map, lf;
-};
-
-struct MapLfOp {
-  __device__ MapLf operator()(const MapLf& earlier, const MapLf& later) const {
-    return MapLf{compose(later.map, earlier.map), earlier.lf + later.lf};
-  }
-};
-
-__device__ __forceinline__ MapLf chunk_map_lf(const uint32_t (&w)[WORDS], const QTables& t) {
-  MapLf r{0, 0};
+__device__ __forceinline__ void build_masks(const uint32_t (&w)[WORDS], const QTables& t,
+                                            FastqMasks& m) {
+  uint32_t cw[WORDS], unex = 0;
 #pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const uint32_t b = byte_of(w, k);
-    r.map = compose(fastq_byte_map(b, t.cls[b]), r.map);
-    r.lf += b == 0x0A;
+  for (int k = 0; k < WORDS; ++k) {
+    const uint32_t v = w[k];
+    cw[k] = t.cls[v & 0xFFu] | t.cls[(v >> 8) & 0xFFu] << 8 | t.cls[(v >> 16) & 0xFFu] << 16 |
+            uint32_t(t.cls[v >> 24]) << 24;
+    unex |= cw[k];
   }
-  return r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    m.lf.q[i] = m.eol.q[i] = m.sp_tab.q[i] = m.at.q[i] = m.low.q[i] = m.un_text.q[i] =
+        m.un_com.q[i] = m.un_seq.q[i] = m.un_qual.q[i] = 0;
+  // words k and k + 1 give bits 4k .. 4k + 7
+#pragma unroll
+  for (int k = 0; k < WORDS; k += 2) {
+    const uint32_t v0 = w[k], v1 = w[k + 1], c0 = cw[k], c1 = cw[k + 1];
+    const int i = k >> 3, s = 4 * (k & 7);
+    m.lf.q[i] |= gather8(__vcmpeq4(v0, 0x0A0A0A0Au), __vcmpeq4(v1, 0x0A0A0A0Au)) << s;
+    m.at.q[i] |= gather8(__vcmpeq4(v0, 0x40404040u), __vcmpeq4(v1, 0x40404040u)) << s;
+    m.sp_tab.q[i] |= gather8(__vcmpeq4(v0, 0x20202020u) | __vcmpeq4(v0, 0x09090909u),
+                             __vcmpeq4(v1, 0x20202020u) | __vcmpeq4(v1, 0x09090909u)) << s;
+    m.low.q[i] |= gather8(__vcmpgeu4(v0, 0x60606060u), __vcmpgeu4(v1, 0x60606060u)) << s;
+    m.eol.q[i] |= gather8(c0 << 4, c1 << 4) << s;  // CLS_EOL, bit 3
+  }
+  // the unexpected classes, where some byte of the thread has one
+  if (unex & ~(CLS_EOL * 0x01010101u)) {
+#pragma unroll
+    for (int k = 0; k < WORDS; k += 2) {
+      const uint32_t c0 = cw[k], c1 = cw[k + 1];
+      const int i = k >> 3, s = 4 * (k & 7);
+      m.un_seq.q[i] |= gather8(c0 << 7, c1 << 7) << s;   // CLS_UNEX_SEQ, bit 0
+      m.un_text.q[i] |= gather8(c0 << 6, c1 << 6) << s;  // CLS_UNEX_TEXT, bit 1
+      m.un_com.q[i] |= gather8(c0 << 5, c1 << 5) << s;   // CLS_UNEX_COM, bit 2
+      m.un_qual.q[i] |= gather8(c0 << 3, c1 << 3) << s;  // CLS_UNEX_QUAL, bit 4
+    }
+  }
 }
 
-// The thread's bytes and the state before its first byte.  lane_tile and
-// st_tile are the lane and the header sub-state entering the tile; pe0
-// whether the byte before the block is an EOL.  Every thread of the block
-// must call this.
-struct QChunk {
-  uint32_t w[WORDS];
-  QState q;
-  long long start;
+// Line index mod 4 (bits 0-1) and composed header map (bits 2-4) of a run
+// of bytes; the look-back's value.
+struct LaneMapOp {
+  __device__ static uint32_t op(uint32_t earlier, uint32_t later) {
+    return ((earlier + later) & 3u) |
+           static_cast<uint32_t>(compose(static_cast<int>(later >> 2),
+                                         static_cast<int>(earlier >> 2))) << 2;
+  }
 };
 
-__device__ __forceinline__ void load_fastq_chunk(QChunk& ch, const uint8_t* x, long long n,
-                                                 int pe0, int lane_tile, int st_tile,
-                                                 const QTables& t, MapLf* buf) {
-  ch.start = static_cast<long long>(blockIdx.x) * Q_TILE +
-             static_cast<long long>(threadIdx.x) * PER_THREAD;
-  load_chunk(x, n, ch.start, ch.w, PAD);
-  ch.q.pe = ch.start == 0 ? pe0 != 0 : byte_or(x, n, ch.start - 1, PAD) == 0x0A;
-  MapLf total;
-  const MapLf before = block_exclusive_scan<Q_THREADS>(chunk_map_lf(ch.w, t), MapLf{0, 0}, buf,
-                                                       MapLfOp(), &total);
-  ch.q.lane = (lane_tile + before.lf) & 3;
-  ch.q.s = apply_map(before.map, st_tile);
+// The LaneMapOp value of a thread's bytes.
+__device__ __forceinline__ uint32_t lane_map(const FastqMasks& m) {
+  uint32_t map = any(m.sp_tab) ? 1u : 0u;
+  if (any(m.eol)) {
+    const int e = highest(m.eol);
+    map = popc(m.sp_tab) > below(m.sp_tab, e + 1) ? 3u : 2u;
+  }
+  return (static_cast<uint32_t>(popc(m.lf)) & 3u) | map << 2;
 }
 
-// Walk the thread's bytes in order, calling f(k, QByte) for each byte k.
-template <typename F>
-__device__ __forceinline__ void classify_fastq_chunk(const QChunk& ch, const QTables& t, F f) {
-  QState q = ch.q;
-#pragma unroll
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const uint32_t b = byte_of(ch.w, k);
-    f(k, classify_fastq_byte(b, q, t));
-    advance(q, b, t);
-  }
+// The classes of a thread's bytes (classify_fastq_masks' masks but is_lf,
+// which is m.lf), from the LaneMapOp value `in` of the bytes before it
+// (lane and header map from ID at the block start) and whether the byte
+// before it is LF (pe_in).
+struct FastqClasses {
+  Bits rec, id_keep, id_unex, in_com, com_unex, seq_keep, seq_unex, qline, qual_keep, qual_unex;
+};
+
+__device__ __forceinline__ FastqClasses fastq_classes(const FastqMasks& m, uint32_t pe_in,
+                                                      uint32_t in) {
+  const uint32_t lane0 = in & 3u;
+  const uint32_t com0 = apply_map(static_cast<int>(in >> 2), ST_ID) == ST_COM ? 1u : 0u;
+  const Bits b0 = parity_before(m.lf, lane0 & 1u);
+  const Bits b1 = parity_before(m.lf & b0, lane0 >> 1);
+  const Bits l0 = ~(b0 | b1), l1 = b0 & ~b1, l3 = b0 & b1;
+  const Bits pe = later(m.lf, pe_in);
+  const Bits com = later(latch(m.sp_tab, m.eol, com0), com0);
+  const Bits sp = m.eol | m.sp_tab;
+  FastqClasses c;
+  c.rec = m.at & pe & l0;
+  const Bits hdr = l0 & ~c.rec & ~m.eol;
+  const Bits id = hdr & ~com & ~sp;
+  c.in_com = hdr & com;
+  c.id_unex = id & m.un_text;
+  c.id_keep = id & ~m.un_text;
+  c.com_unex = c.in_com & m.un_com;
+  c.seq_keep = l1 & ~sp;
+  c.seq_unex = c.seq_keep & m.un_seq;
+  c.qline = l3 & ~m.lf;
+  const Bits qrest = c.qline & ~pe & ~sp;
+  c.qual_unex = qrest & m.un_qual;
+  c.qual_keep = qrest | (c.qline & pe);
+  return c;
 }
 
 }  // namespace naf

@@ -5,13 +5,12 @@
 // Every kernel here works on tiles of 128 contiguous bytes per thread, one
 // thread block per tile: 64 KiB tiles of 512 threads (the FASTA emit, and
 // the per-byte kernels), or 32 KiB tiles of 256 threads (FASTQ, and the
-// FASTA classify).  A thread
-// keeps its 128 bytes in 32 registers, so a kernel that walks them several
-// times reads device memory once.  The FASTQ classify and the mask parity
-// carry across threads through block_exclusive_scan and across tiles by
-// scans between launches over [tiles]-sized arrays; the emits, the FASTA
-// classify, the scans and the compaction carry by warp scans and decoupled
-// look-back in one pass (emit_common.cuh, scan.cuh).
+// standalone classifies).  A thread keeps its 128 bytes in 32 registers,
+// so a kernel that walks them several times reads device memory once.  The
+// mask parity carries across threads through block_exclusive_scan and
+// across tiles by a scan between launches over a [tiles]-sized array; the
+// emits, the classifies, the scans and the compaction carry by warp scans
+// and decoupled look-back in one pass (emit_common.cuh, scan.cuh).
 //
 // Built with NAF_CPU_EMU defined, the same sources compile as plain C++
 // against tests/cuda_emu/cuda_emu.h, which runs each block's threads as host

@@ -64,9 +64,13 @@
 // block an SM (80 registers, 96 bytes spilled) or one (241 registers) is
 // slower, and the look-backs cost no measurable time.  The sparse channel
 // keeps the TPU kernel's 32 KiB tiles and cap of sp_cap entries a tile,
-// so sp_ok means the same.  The bit masks, the look-backs, the staging
-// copy and the fill launch's helpers live in emit_common.cuh, shared with
-// the FASTA emit.
+// so sp_ok means the same.  The FASTQ masks, the lane-and-header value
+// and the classes live in classify_fastq.cuh, shared with the standalone
+// FASTQ classify; the mask operations, the look-backs, the staging copy
+// and the fill launch's helpers in emit_common.cuh, shared with the FASTA
+// emit.  Section 1 keeps its own scan of the warp totals: with the
+// classify's entry_value (classify.cuh) in its place the pass ran as fast
+// but at 127 registers, not 128.
 #include "classify_fastq.cuh"
 #include "emit_common.cuh"
 
@@ -77,64 +81,9 @@ constexpr int QE_STAGE = Q_TILE + 96;   // dense stage: three streams, each 16-b
 using QAgg = CaseAgg<4>;                 // stream, seq, quality and id counts
 using QLayout = EmitLayout<4, 4>;        // unexpected id, comment, sequence and quality bytes
 
-// The masks a thread's classify starts from.
-struct RawMasks {
-  Bits lf, eol, sp_tab, at, low, un_text, un_com, un_seq, un_qual;
-};
-
-__device__ __forceinline__ void build_masks(const uint32_t (&w)[WORDS], const QTables& t,
-                                            RawMasks& m) {
-  uint32_t cw[WORDS], unex = 0;
-#pragma unroll
-  for (int k = 0; k < WORDS; ++k) {
-    const uint32_t v = w[k];
-    cw[k] = t.cls[v & 0xFFu] | t.cls[(v >> 8) & 0xFFu] << 8 | t.cls[(v >> 16) & 0xFFu] << 16 |
-            uint32_t(t.cls[v >> 24]) << 24;
-    unex |= cw[k];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    m.lf.q[i] = m.eol.q[i] = m.sp_tab.q[i] = m.at.q[i] = m.low.q[i] = m.un_text.q[i] =
-        m.un_com.q[i] = m.un_seq.q[i] = m.un_qual.q[i] = 0;
-  // words k and k + 1 give bits 4k .. 4k + 7
-#pragma unroll
-  for (int k = 0; k < WORDS; k += 2) {
-    const uint32_t v0 = w[k], v1 = w[k + 1], c0 = cw[k], c1 = cw[k + 1];
-    const int i = k >> 3, s = 4 * (k & 7);
-    m.lf.q[i] |= gather8(__vcmpeq4(v0, 0x0A0A0A0Au), __vcmpeq4(v1, 0x0A0A0A0Au)) << s;
-    m.at.q[i] |= gather8(__vcmpeq4(v0, 0x40404040u), __vcmpeq4(v1, 0x40404040u)) << s;
-    m.sp_tab.q[i] |= gather8(__vcmpeq4(v0, 0x20202020u) | __vcmpeq4(v0, 0x09090909u),
-                             __vcmpeq4(v1, 0x20202020u) | __vcmpeq4(v1, 0x09090909u)) << s;
-    m.low.q[i] |= gather8(__vcmpgeu4(v0, 0x60606060u), __vcmpgeu4(v1, 0x60606060u)) << s;
-    m.eol.q[i] |= gather8(c0 << 4, c1 << 4) << s;  // CLS_EOL, bit 3
-  }
-  // the unexpected classes, where some byte of the thread has one
-  if (unex & ~(CLS_EOL * 0x01010101u)) {
-#pragma unroll
-    for (int k = 0; k < WORDS; k += 2) {
-      const uint32_t c0 = cw[k], c1 = cw[k + 1];
-      const int i = k >> 3, s = 4 * (k & 7);
-      m.un_seq.q[i] |= gather8(c0 << 7, c1 << 7) << s;   // CLS_UNEX_SEQ, bit 0
-      m.un_text.q[i] |= gather8(c0 << 6, c1 << 6) << s;  // CLS_UNEX_TEXT, bit 1
-      m.un_com.q[i] |= gather8(c0 << 5, c1 << 5) << s;   // CLS_UNEX_COM, bit 2
-      m.un_qual.q[i] |= gather8(c0 << 3, c1 << 3) << s;  // CLS_UNEX_QUAL, bit 4
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // carries
 // ---------------------------------------------------------------------------
-
-// Line index mod 4 (bits 0-1) and composed header map (bits 2-4) of a run
-// of bytes; the first look-back's value.
-struct LaneMapOp {
-  __device__ static uint32_t op(uint32_t earlier, uint32_t later) {
-    return ((earlier + later) & 3u) |
-           static_cast<uint32_t>(compose(static_cast<int>(later >> 2),
-                                         static_cast<int>(earlier >> 2))) << 2;
-  }
-};
 
 // Packed counts of a run of bytes inside a tile, each field below 2^16:
 // a stream | seq << 16, b quality | id << 16, c the sparse entries | has
@@ -185,16 +134,11 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   load_chunk(x, n, start, w, PAD);
   const uint32_t pe_in =
       start == 0 ? (pe0 != 0) : (byte_or(x, n, start - 1, PAD) == 0x0Au ? 1u : 0u);
-  RawMasks m;
+  FastqMasks m;
   build_masks(w, tb, m);
 
   // 1. line index mod 4 and header map entering the thread
-  uint32_t map = any(m.sp_tab) ? 1u : 0u;
-  if (any(m.eol)) {
-    const int e = highest(m.eol);
-    map = popc(m.sp_tab) > below(m.sp_tab, e + 1) ? 3u : 2u;
-  }
-  uint32_t inc1 = (static_cast<uint32_t>(popc(m.lf)) & 3u) | map << 2;
+  uint32_t inc1 = lane_map(m);
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const uint32_t o = __shfl_up_sync(FULL, inc1, d);
@@ -223,27 +167,12 @@ __global__ void __launch_bounds__(Q_THREADS) emit_fastq_kernel(
   }
   __syncthreads();
   const uint32_t in1 = LaneMapOp::op(LaneMapOp::op(s_e1, pre1), ex1);
-  const uint32_t lane0 = in1 & 3u;
-  const uint32_t com0 = apply_map(static_cast<int>(in1 >> 2), ST_ID) == ST_COM ? 1u : 0u;
 
-  // 2. the classify, bit-parallel (classify_fastq.cuh:classify_fastq_byte)
-  const Bits b0 = parity_before(m.lf, lane0 & 1u);
-  const Bits b1 = parity_before(m.lf & b0, lane0 >> 1);
-  const Bits l0 = ~(b0 | b1), l1 = b0 & ~b1, l3 = b0 & b1;
-  const Bits pe = later(m.lf, pe_in);
-  const Bits com = later(latch(m.sp_tab, m.eol, com0), com0);
-  const Bits sp = m.eol | m.sp_tab;
-  const Bits rec = m.at & pe & l0;
-  const Bits hdr = l0 & ~rec & ~m.eol;
-  const Bits id = hdr & ~com & ~sp;
-  const Bits in_com = hdr & com;
-  const Bits id_unex = id & m.un_text, id_keep = id & ~m.un_text;
-  const Bits com_unex = in_com & m.un_com;
-  const Bits seq_keep = l1 & ~sp, seq_unex = seq_keep & m.un_seq;
-  const Bits qline = l3 & ~m.lf;
-  const Bits qrest = qline & ~pe & ~sp;
-  const Bits qual_unex = qrest & m.un_qual;
-  const Bits qual_keep = qrest | (qline & pe);
+  // 2. the classify, bit-parallel (classify_fastq.cuh)
+  const FastqClasses cl = fastq_classes(m, pe_in, in1);
+  const Bits rec = cl.rec, in_com = cl.in_com, id_unex = cl.id_unex, id_keep = cl.id_keep;
+  const Bits com_unex = cl.com_unex, seq_keep = cl.seq_keep, seq_unex = cl.seq_unex;
+  const Bits qual_keep = cl.qual_keep, qual_unex = cl.qual_unex;
   const Bits keep = seq_keep | id_unex;  // the stream
   const Bits lower = (m.low & ~id_unex & ~seq_unex) | when(tb.repl_name >= 96, id_unex) |
                      when(tb.repl_seq >= 96, seq_unex);

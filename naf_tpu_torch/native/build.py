@@ -40,8 +40,7 @@ SIGNATURES = {
     "naf_unpack_4bit": [_P, _L, _P, _P, _P],
     "naf_mask_parity_tiles": [_P, _L, _P, _I, _P],
     "naf_mask_parity_apply": [_P, _P, _L, _P, _P, _I, _P],
-    "naf_fastq_tile_maps": [_P, _L, _P, _P, _P, _I, _P],
-    "naf_classify_fastq": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+    "naf_classify_fastq": [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "naf_emit_fastq_scratch": [_I],
     "naf_emit_fastq": [_P, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _P],

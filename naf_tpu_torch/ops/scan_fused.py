@@ -23,38 +23,17 @@ import torch
 from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
-from .common import CLASSIFY_TILE, Q_TILE, SCAN_TILE, check_1d, n_tiles
+from .common import CLASSIFY_TILE, SCAN_TILE, check_1d, n_tiles
 from .tables import device_tables
 from .tables_np import (CLS_EOL, CLS_UNEX_COM, CLS_UNEX_QUAL, CLS_UNEX_SEQ, CLS_UNEX_TEXT,
                         IS_EOL)
 
 ST_ID, ST_COM, ST_SEQ = 0, 1, 2
-M_IDENT, M_SPACE, M_CID, M_CCOM, M_CSEQ = range(5)
 
 
 def start_state(prev_byte: int, starts_in_seq: bool) -> tuple[int, int]:
     """(prev-is-EOL, parser state) before a block's first byte."""
     return int(bool(IS_EOL[int(prev_byte)])), ST_SEQ if starts_in_seq else ST_ID
-
-
-def entry_states(maps: torch.Tensor, st0: int) -> torch.Tensor:
-    """i32[g]: parser state entering each tile, from the tiles' composed
-    maps (the FASTQ classify's scan between its kernel passes; O(tiles)
-    torch ops).
-
-    A constant map (marker, EOL) resets the state; after it, or from st0 if
-    none came, any space map turns ID into COMMENT.
-    """
-    m = maps.long()
-    g = m.numel()
-    idx = torch.arange(g, device=m.device)
-    last_c = torch.cummax(torch.where(m >= M_CID, idx, -1), 0).values
-    prev_c = torch.cat([last_c.new_full((1,), -1), last_c[:-1]])
-    base = torch.where(prev_c >= 0, m[prev_c.clamp(min=0)] - 2, st0)
-    sp = (m == M_SPACE).long()
-    csp = torch.cumsum(sp, 0)
-    spaces = (csp - sp) - torch.where(prev_c >= 0, csp[prev_c.clamp(min=0)], 0)
-    return torch.where((base == ST_ID) & (spaces > 0), ST_COM, base).int()
 
 
 def classify_masks(x: torch.Tensor, pe0: int, st0: int, seq_type: int) -> dict:
@@ -210,35 +189,23 @@ def classify_fastq_plain(block: torch.Tensor, prev_byte: int, *,
     return _fastq_flags(m), m["sval"].to(torch.uint8)
 
 
-def fastq_tile_entry(block: torch.Tensor, cls: torch.Tensor, lib) -> torch.Tensor:
-    """Kernel pass A and the scan after it: i32[tiles, 2], the line index
-    mod 4 and the header sub-state entering each 32 KiB tile (the
-    standalone classify's first pass, and the emit's)."""
-    n = block.numel()
-    g = n_tiles(n, Q_TILE)
-    maps = torch.empty(g, dtype=torch.int32, device=block.device)
-    lfs = torch.empty(g, dtype=torch.int32, device=block.device)
-    build.call(lib, "naf_fastq_tile_maps", block.data_ptr(), n, cls.data_ptr(),
-               maps.data_ptr(), lfs.data_ptr(), g, build.stream_of(block))
-    lane = (torch.cumsum(lfs.long(), 0) - lfs.long()) & 3
-    return torch.stack([lane.int(), entry_states(maps, ST_ID)], 1).contiguous()
-
-
 def classify_fastq_kernel(block: torch.Tensor, prev_byte: int, *,
                           seq_type: int = C.SEQ_TYPE_DNA, lib=None):
     """Launch the FASTQ classify kernel on ``block``'s device (``lib`` as in
-    ``classify_fasta_kernel``)."""
+    ``classify_fasta_kernel``): one pass over the block."""
     check_1d(block, torch.uint8, "block")
     lib = build.kernel_lib(block, lib)
     tabs = device_tables(seq_type, block.device)
     n = block.numel()
-    tile_in = fastq_tile_entry(block, tabs["cls"], lib)
+    g = n_tiles(n, CLASSIFY_TILE)
+    # a ticket and a look-back status word per tile, zero on entry
+    scratch = torch.zeros(1 + g, dtype=torch.int32, device=block.device)
     flags = torch.empty_like(block)
     sval = torch.empty_like(block)
     build.call(lib, "naf_classify_fastq", block.data_ptr(), n,
-               start_state(prev_byte, False)[0], tile_in.data_ptr(), tabs["cls"].data_ptr(),
-               tabs["repl_seq"], tabs["repl_name"], tabs["repl_qual"], flags.data_ptr(),
-               sval.data_ptr(), tile_in.shape[0], build.stream_of(block))
+               start_state(prev_byte, False)[0], tabs["cls"].data_ptr(), tabs["repl_seq"],
+               tabs["repl_name"], tabs["repl_qual"], scratch.data_ptr(), flags.data_ptr(),
+               sval.data_ptr(), g, build.stream_of(block))
     LAUNCHES["classify_fastq"] += 1
     return flags, sval
 

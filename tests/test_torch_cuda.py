@@ -187,6 +187,18 @@ def test_fastq_kernels_on_card(card, name, seq_type):
                         EF.emit_fastq_plain(x, ord("@"), seq_type=seq_type))
 
 
+@pytest.mark.parametrize("flip_case", [False, True], ids=["upper", "flipped_case"])
+def test_classify_fastq_many_tiles_on_card(card, flip_case):
+    """2,136 tiles (70 MB) of ragged reads, where the look-back meets tiles
+    that have not published yet.  Three calls, each byte-equal to the plain
+    version."""
+    x = _on(fastq_big_block(2048, flip_case), card)
+    f_ref, v_ref = SF.classify_fastq_plain(x, ord("@"))
+    for _ in range(3):
+        flags, sval = SF.classify_fastq_kernel(x, ord("@"))
+        assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+
+
 @pytest.mark.parametrize("where", ["header", "quality"])
 def test_emit_fastq_case_change_at_tile_first_kept_byte_on_card(card, where):
     x = _on(fastq_case_change_behind_tile_start(where), card)

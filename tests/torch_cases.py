@@ -336,6 +336,10 @@ def fastq_case(name: str) -> np.ndarray:
         return fastq_line_edges()
     if name == "unexpected_lanes":
         return fastq_unexpected_lanes()
+    if name == "long_header":
+        return fastq_long_header()
+    if name == "warp_edges":
+        return fastq_warp_edges()
     if name == "ragged_16":              # reads to a length not a multiple of 16
         body = fastq_reads(np.random.default_rng(25), 900, alphabet=b"ACGTacgt")
         return body[: 3 * Q_TILE + 16 * 37 + 9]
@@ -402,6 +406,67 @@ def fastq_unexpected_lanes() -> np.ndarray:
     return pad_lf(np.frombuffer(b"".join(rows), np.uint8)[1:], N_FASTQ)
 
 
+def fastq_long_header() -> np.ndarray:
+    """A header line longer than two 32 KiB tiles, its first space in the
+    first tile and unexpected comment bytes in the tiles after (a tile that
+    holds neither a space nor a line end gets COMMENT only from the tiles
+    before it), then a sequence and a quality line of the header's length,
+    the quality line starting with a space."""
+    rng = np.random.default_rng(27)
+    out = bytearray()
+    for i in range(30):
+        out += _fastq_record(rng, i, int(rng.integers(5, 40)), int(rng.integers(50, 150)))
+    ln = 2 * Q_TILE + 3000
+    head = bytearray(rng.choice(np.frombuffer(b"abcxyz:0123456789", np.uint8), size=ln).tobytes())
+    head[:8] = b"longread"
+    head[Q_TILE // 2] = ord(" ")
+    pos = rng.integers(Q_TILE, ln, size=40)
+    head[Q_TILE - len(out) + 9] = 0x7F              # the second tile's first bytes
+    for k, p in enumerate(pos.tolist()):
+        head[p] = b"\x01\x7f\xff"[k % 3]
+    seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=ln).tobytes()
+    qual = b" " + rng.integers(35, 74, size=ln - 1, dtype=np.uint8).tobytes()
+    out += b"@%s\n%s\n+\n%s\n" % (bytes(head), seq, qual)
+    for i in range(30, 60):
+        out += _fastq_record(rng, i, int(rng.integers(5, 40)), int(rng.integers(50, 150)))
+    return pad_lf(np.frombuffer(bytes(out), np.uint8)[1:], N_FASTQ)
+
+
+def fastq_warp_edges() -> np.ndarray:
+    """A header, a sequence line, a '+' line, a quality line (its first
+    byte a space) and a record's '@' each starting exactly at a 4,096-byte
+    warp-run boundary inside a 32 KiB tile, where the byte before a run is
+    read from memory; and a quality line whose second byte, a space, sits
+    at such a boundary."""
+    rng = np.random.default_rng(28)
+    out = bytearray()                               # body position p is out[p + 1]
+    i = 0
+    # (boundary, line, offset of the line in its record); records of a
+    # 20-byte header and 100 bases
+    edges = [(Q_TILE + 4096, "header", 1), (Q_TILE + 5 * 4096, "sequence", 22),
+             (2 * Q_TILE + 3 * 4096, "plus", 123), (3 * Q_TILE + 7 * 4096, "quality", 125),
+             (4 * Q_TILE + 2 * 4096, "at", 0), (5 * Q_TILE + 6 * 4096, "quality_rest", 126)]
+    for edge, line, off in edges:
+        o = edge + 1 - off                          # where the record's '@' goes in out
+        while o - len(out) > 700:
+            out += _fastq_record(rng, i, int(rng.integers(5, 40)), int(rng.integers(50, 150)))
+            i += 1
+        room = o - len(out)                         # one record of exactly this length
+        s = (room - 16) // 2
+        out += _fastq_record(rng, i, room - 6 - 2 * s, s)
+        assert len(out) == o
+        out += _fastq_record(rng, i + 1, 20, 100, qual_first=b"  ")
+        i += 2
+    body = np.frombuffer(bytes(out), np.uint8)[1:]
+    # the byte before each edge and the first bytes from it
+    want = {"header": b"@r", "sequence": b"\n", "plus": b"\n+", "quality": b"\n ", "at": b"\n@",
+            "quality_rest": b"  "}
+    for edge, line, _ in edges:
+        assert edge % Q_TILE and edge % 4096 == 0
+        assert body[edge - 1:edge - 1 + len(want[line])].tobytes() == want[line]
+    return pad_lf(body, N_FASTQ)
+
+
 def fastq_big_block(tiles: int, flip_case: bool, seed: int = 26) -> np.ndarray:
     """A FASTQ block (past the leading '@') of at least ``tiles`` 32 KiB
     tiles of reads of 1 to 400 bases, comments on one header in two; with
@@ -427,7 +492,8 @@ def fastq_big_block(tiles: int, flip_case: bool, seed: int = 26) -> np.ndarray:
 
 #: the FASTQ cases, and those the FASTQ emit's look-back and bit masks need
 #: besides (run under host emulation and on the card)
-FASTQ_EMIT_CASES = FASTQ_CASES + ["many_tiles", "line_edges", "unexpected_lanes", "ragged_16"]
+FASTQ_EMIT_CASES = FASTQ_CASES + ["many_tiles", "line_edges", "unexpected_lanes", "ragged_16",
+                                   "long_header", "warp_edges"]
 
 
 def fastq_case_change_behind_tile_start(where: str) -> np.ndarray:
