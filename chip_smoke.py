@@ -15,12 +15,14 @@ Phases, each printing JSON lines:
      ``bound_padded_ms`` reads every input whole and adds the zero fill up
      to the allocated sizes; a compaction's ``tail_bytes`` is the zero fill
      its contract writes past the count), the device time of each launch
-     within one call of each emit, of each classify and of each scan
-     (its row's ``launch_split``), and one line with the same for each
-     compaction (torch.profiler).  The FASTA classify's row nests a
+     within one call of each emit, each classify, each scan and the mask
+     parity (its row's ``launch_split``), and one line with the same for
+     each compaction (torch.profiler).  The FASTA classify's row nests a
      ``protein`` entry: the same kernel on the protein input's two-pass
      block, the shape its main path gives it; the FASTQ classify's row an
-     ``sra`` entry, the same on the SRA FASTQ input's two-pass block;
+     ``sra`` entry, the same on the SRA FASTQ input's two-pass block; the
+     mask parity's row a ``dense`` entry, the same chars under a toggle
+     every 1-3 bytes;
   3. encode: encode_device on bench.py's gen_fasta(64), gen_fasta_single(128),
      gen_masked_iupac_fasta(32), gen_fastq(250_000), gen_fastq(500_000,
      read_len=150) and a soft-masked FASTQ made here (the fused paths), and
@@ -240,6 +242,20 @@ def render_inputs(kern: dict) -> tuple:
     tog = torch.zeros_like(chars)
     tog.index_add_(0, bounds, torch.ones_like(bounds, dtype=torch.uint8))
     return sv, out_len, packed, chars, tog
+
+
+def dense_toggles(n: int, dev, seed: int = 15):
+    """u8[n] mask toggles on dev: a bound every 1-3 bytes, 1-3 bounds at
+    each (seeded, made on the card)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    at = torch.cumsum(torch.randint(1, 4, (n,), device=dev, generator=g), 0)
+    at = at[at < n]
+    tog = torch.zeros(n, dtype=torch.uint8, device=dev)
+    tog[at] = torch.randint(1, 4, (at.numel(),), device=dev, generator=g, dtype=torch.uint8)
+    return tog
 
 
 def two_pass_device_ms(data: bytes, o, blob: bytes, fastq: bool, dev, reps: int = 3) -> dict:
@@ -595,7 +611,14 @@ def main() -> int:
           "naf_tpu/ops/unpack.py:59", f"packed u8[{seq_packed.numel()}]", [seq_packed])
     check("apply_mask_parity", lambda: EF.apply_mask_parity_kernel(chars, tog),
           lambda: EF.apply_mask_parity_plain(chars, tog), "naf_tpu_torch/csrc/mask_parity.cu",
-          "naf_tpu/ops/emit_fused.py:757", f"chars u8[{chars.numel()}]", [chars, tog])
+          "naf_tpu/ops/emit_fused.py:757", f"chars u8[{chars.numel()}]", [chars, tog],
+          split=True)
+    # the same chars under a bound every 1-3 bytes
+    tog = dense_toggles(chars.numel(), dev)
+    check("apply_mask_parity", lambda: EF.apply_mask_parity_kernel(chars, tog),
+          lambda: EF.apply_mask_parity_plain(chars, tog), "naf_tpu_torch/csrc/mask_parity.cu",
+          "naf_tpu/ops/emit_fused.py:757", f"chars u8[{chars.numel()}] dense toggles",
+          [chars, tog], row_key="apply_mask_parity:dense", split=True)
     del x, sv, seq_packed, chars, tog
 
     # scans and compactions: the protein input's two-pass block, its masks
@@ -862,7 +885,8 @@ def main() -> int:
         row = dict(kernel_rows[k], launches=total[k])
         if k in fused:
             row.update(fused_into=fused[k], fused_launches=total[fused[k]])
-        for nested, key in (("protein", "classify_fasta"), ("sra", "classify_fastq")):
+        for nested, key in (("protein", "classify_fasta"), ("sra", "classify_fastq"),
+                            ("dense", "apply_mask_parity")):
             if k == key:
                 p = kernel_rows[f"{key}:{nested}"]
                 row[nested] = {f: p[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",

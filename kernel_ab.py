@@ -2,7 +2,7 @@
 """Time the port's kernels in several checkouts on one CUDA card, in the
 order given and then in reverse (A B B A).
 
-    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans|classify]
+    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans|classify|mask]
 
 Each DIR is the root of a checkout (the directory that holds
 ``naf_tpu_torch/``), for example an older commit unpacked with
@@ -35,9 +35,15 @@ classify alone on the FASTQ block and on the sra_fastq(400_000) block as
 its two-pass path cuts it (keys ``fastq`` and ``sra``), each with its
 launch split, beside a copy that reads each byte once and writes it twice
 (``copy_1to2_ms``: torch's contiguous copy of the block broadcast to
-[n, 2], what moving the bytes costs without a classify).  One JSON line
-per timing, then the card's name and power limit as nvidia-smi gives
-them.
+[n, 2], what moving the bytes costs without a classify); --only mask the
+mask parity alone on the FASTA block's chars and toggles (key ``fasta``)
+and on the same chars under a toggle every 1-3 bytes (``dense``,
+chip_smoke.py's dense_toggles), each with its launch split and the
+host's time a call when nothing waits for the card (``host_enqueue_ms``),
+beside a pass that reads two bytes and writes one (``copy_2to1_ms``:
+torch's bitwise_xor of chars and toggles, what moving the bytes costs
+without a parity).  One JSON line per timing, then the card's name and
+power limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -109,6 +116,17 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def enqueue_time(fn) -> float:
+        """Host ms per call of reps calls made without waiting for the card."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
     def scans(keep, code) -> dict:
         row = {"scan_launches_ms": {}}
         for key, inp, op in (("cumsum_i32", keep, "add"), ("maxscan_i32", code, "max")):
@@ -140,6 +158,21 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
                             lambda: x.unsqueeze(1).expand(-1, 2).contiguous())}
             del x
             torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        return
+
+    if only == "mask":
+        x, prev = CS.fasta_block(bench.gen_fasta_single(128), "cuda")
+        _, _, _, chars, tog = CS.render_inputs(EF.emit_fasta_kernel(x, prev))
+        del x
+        torch.cuda.empty_cache()
+        row = {"root": root, "chars": chars.numel()}
+        for key, t in (("fasta", tog), ("dense", CS.dense_toggles(chars.numel(), "cuda"))):
+            call = lambda: EF.apply_mask_parity_kernel(chars, t)  # noqa: E731
+            row[key] = {"apply_mask_parity_ms": cuda_time(call),
+                        "host_enqueue_ms": enqueue_time(call),
+                        "launches_ms": CS.launch_split(call, reps),
+                        "copy_2to1_ms": cuda_time(lambda: torch.bitwise_xor(chars, t))}
         print(json.dumps(row), flush=True)
         return
 
@@ -202,7 +235,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("fastq", "scans", "classify"))
+    ap.add_argument("--only", choices=("fastq", "scans", "classify", "mask"))
     ap.add_argument("--child", choices=("build", "time"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -1,6 +1,7 @@
-// The stage of the standalone classifies (classify.cu, classify_fastq.cu):
-// their tile geometry, each warp's 4 KiB shared stage with the loads and
-// stores that go through it, and the flag bytes made from eight bit masks.
+// The stage of the standalone classifies (classify.cu, classify_fastq.cu)
+// and the mask parity (mask_parity.cu): their tile geometry, each warp's
+// 4 KiB shared stage with the loads and stores that go through it, and the
+// flag bytes made from eight bit masks.
 //
 // A block of CL_THREADS threads takes its 32 KiB tile by atomic ticket.
 // Each warp loads its 4,096 bytes into its stage with 16-byte loads of 512
@@ -113,6 +114,26 @@ __device__ __forceinline__ void load_warp(const uint8_t* x, long long n, long lo
 #pragma unroll
     for (int q = 0; q < 8; ++q)
       st[cl_slot(lane, q)] = uint4{w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]};
+  }
+}
+
+// The warp's x[base:base+4096] to its stage only (bytes at and past n read
+// as 0): where the run is whole, 16-byte loads of 512 contiguous bytes each.
+__device__ __forceinline__ void load_stage(const uint8_t* x, long long n, long long base,
+                                           uint4* st, int lane) {
+  if (base + 32 * PER_THREAD <= n && (reinterpret_cast<uintptr_t>(x + base) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + base);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 32 * j + lane;
+      st[cl_slot(i >> 3, i & 7)] = src[i];
+    }
+  } else {
+    uint8_t* sb = reinterpret_cast<uint8_t*>(st);
+    for (int e = lane; e < 32 * PER_THREAD; e += 32) {
+      const int i = e >> 4;
+      sb[16 * cl_slot(i >> 3, i & 7) + (e & 15)] = base + e < n ? x[base + e] : 0;
+    }
   }
 }
 

@@ -38,8 +38,7 @@ SIGNATURES = {
     "naf_emit_fasta": [_P, _L, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "naf_pack_4bit": [_P, _L, _L, _P, _P, _L, _P],
     "naf_unpack_4bit": [_P, _L, _P, _P, _P],
-    "naf_mask_parity_tiles": [_P, _L, _P, _I, _P],
-    "naf_mask_parity_apply": [_P, _P, _L, _P, _P, _I, _P],
+    "naf_mask_parity": [_P, _P, _L, _P, _P, _I, _P],
     "naf_classify_fastq": [_P, _L, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "naf_emit_fastq_scratch": [_I],
     "naf_emit_fastq": [_P, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

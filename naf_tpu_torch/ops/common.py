@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-#: bytes per tile of every tiled kernel (csrc/common.cuh TILE; the TPU
+#: bytes per tile of the FASTA emit (csrc/common.cuh TILE; the TPU
 #: kernels' _TILE, so per-tile caps mean the same on both)
 TILE = 1 << 16
 #: bytes per tile of the FASTQ kernels (csrc/classify_fastq.cuh Q_TILE; the
@@ -14,9 +14,9 @@ Q_TILE = 1 << 15
 #: the wrapper sizes its look-back status words by it; nothing else outside
 #: the kernels depends on it
 SCAN_TILE = 6 << 12
-#: bytes per tile of the standalone FASTA and FASTQ classifies
-#: (csrc/classify_stage.cuh CL_TILE): the wrappers size their look-back
-#: status words by it
+#: bytes per tile of the standalone FASTA and FASTQ classifies and of the
+#: mask parity (csrc/classify_stage.cuh CL_TILE): the wrappers size their
+#: look-back status words by it
 CLASSIFY_TILE = 1 << 15
 #: elements per tile of the compaction kernel (csrc/compact.cu CT_TILE)
 COMPACT_TILE = 1 << 15

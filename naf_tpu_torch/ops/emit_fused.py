@@ -27,7 +27,7 @@ import torch
 from ..device import LAUNCHES
 from ..format import constants as C
 from ..native import build
-from .common import Q_TILE, TILE, check_1d, n_tiles
+from .common import CLASSIFY_TILE, Q_TILE, TILE, check_1d, n_tiles
 from .scan_fused import classify_fastq_masks, classify_masks, start_state
 from .tables import device_tables
 
@@ -284,22 +284,20 @@ def apply_mask_parity_plain(chars: torch.Tensor, tog: torch.Tensor) -> torch.Ten
 
 def apply_mask_parity_kernel(chars: torch.Tensor, tog: torch.Tensor, *, lib=None
                              ) -> torch.Tensor:
-    """Launch the mask-parity kernel (``lib`` as in the classify kernel)."""
+    """Launch the mask-parity kernel (``lib`` as in the classify kernel):
+    one pass over the chars and the toggles."""
     check_1d(chars, torch.uint8, "chars")
     check_1d(tog, torch.uint8, "tog")
     if tog.numel() != chars.numel() or tog.device != chars.device:
         raise ValueError("chars and tog must match in length and device")
     lib = build.kernel_lib(chars, lib)
     n = chars.numel()
-    g = n_tiles(n)
-    stream = build.stream_of(chars)
-    tile_par = torch.empty(g, dtype=torch.int32, device=chars.device)
-    build.call(lib, "naf_mask_parity_tiles", tog.data_ptr(), n, tile_par.data_ptr(), g,
-               stream)
-    tile_in = ((torch.cumsum(tile_par, 0) - tile_par) & 1).int()
+    g = n_tiles(n, CLASSIFY_TILE)
+    # a ticket and a look-back status word per tile, zero on entry
+    scratch = torch.zeros(1 + g, dtype=torch.int32, device=chars.device)
     out = torch.empty_like(chars)
-    build.call(lib, "naf_mask_parity_apply", chars.data_ptr(), tog.data_ptr(), n,
-               tile_in.data_ptr(), out.data_ptr(), g, stream)
+    build.call(lib, "naf_mask_parity", chars.data_ptr(), tog.data_ptr(), n, scratch.data_ptr(),
+               out.data_ptr(), g, build.stream_of(chars))
     LAUNCHES["apply_mask_parity"] += 1
     return out
 

@@ -68,6 +68,12 @@ inline unsigned __vcmpgeu4(unsigned a, unsigned b) {
   for (int i = 0; i < 32; i += 8) r |= ((a >> i & 0xFFu) >= (b >> i & 0xFFu) ? 0xFFu : 0u) << i;
   return r;
 }
+// Per-byte sum of a and b, each byte mod 256 (nothing carries into the next)
+inline unsigned __vadd4(unsigned a, unsigned b) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i += 8) r |= ((a >> i) + (b >> i) & 0xFFu) << i;
+  return r;
+}
 // Byte n of the result is byte (s >> 4n) & 7 of y:x (x the low four).
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const uint64_t v = static_cast<uint64_t>(y) << 32 | x;

@@ -33,11 +33,12 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
-                         FASTQ_EMIT_CASES, SCAN_CARD_CASES, SCAN_CASES, SEQ_TYPES, START_STATES,
-                         case_change_behind_tile_start, classify_case, compact_case, emit_case,
-                         fasta_big_block, fasta_start_states, fastq_big_block, fastq_case,
-                         fastq_case_change_behind_tile_start, fastq_masked_reads,
-                         fastq_reads, ragged_fasta, ragged_fastq, reads_fasta, scan_case,
+                         FASTQ_EMIT_CASES, MASK_PARITY_CASES, SCAN_CARD_CASES, SCAN_CASES,
+                         SEQ_TYPES, START_STATES, case_change_behind_tile_start, classify_case,
+                         compact_case, dense_toggles, emit_case, fasta_big_block,
+                         fasta_start_states, fastq_big_block, fastq_case,
+                         fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads,
+                         mask_parity_input, ragged_fasta, ragged_fastq, reads_fasta, scan_case,
                          scan_input, sra_fastq, typed_fasta)
 
 pytestmark = pytest.mark.cuda
@@ -163,17 +164,27 @@ def test_unpack_kernel_on_card(card, n):
             assert torch.equal(UP.unpack_4bit_kernel(x, rna), UP.unpack_4bit_plain(x, rna))
 
 
-@pytest.mark.parametrize("n", [1, 128, 1000, TILE - 3, TILE + 5, 2 * TILE + 1, 100 * TILE + 9])
-def test_mask_parity_kernel_on_card(card, n):
-    rng = np.random.default_rng(63)
-    chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
-    tog = (rng.random(n) < 0.01).astype(np.uint8)
-    tog[rng.integers(0, n, size=3)] += 2
-    if n > TILE:
-        tog[TILE - 1] = tog[TILE] = 1
+@pytest.mark.parametrize("case", [1, 128, 1000, TILE - 3, TILE + 5, 2 * TILE + 1, 100 * TILE + 9,
+                                  *MASK_PARITY_CASES])
+def test_mask_parity_kernel_on_card(card, case):
+    chars, tog = mask_parity_input(case)
     for k in (0, 7):
         c, t = _on(chars, card, k), _on(tog, card, k)
         assert torch.equal(EF.apply_mask_parity_kernel(c, t), EF.apply_mask_parity_plain(c, t))
+
+
+def test_mask_parity_many_tiles_on_card(card):
+    """64 MiB of every byte value under dense toggles: 2,048 tiles, where
+    the look-back meets tiles that have not published yet and a wrong carry
+    flips everything after it.  Three calls, each byte-equal to the plain
+    version."""
+    n = 64 << 20
+    rng = np.random.default_rng(65)
+    c = _on(rng.integers(0, 256, n, dtype=np.uint8), card)
+    t = _on(dense_toggles(rng, n), card)
+    want = EF.apply_mask_parity_plain(c, t)
+    for _ in range(3):
+        assert torch.equal(EF.apply_mask_parity_kernel(c, t), want)
 
 
 @pytest.mark.parametrize("seq_type", [C.SEQ_TYPE_DNA, C.SEQ_TYPE_RNA])

@@ -31,10 +31,10 @@ from naf_tpu_torch.ops import unpack as UP
 from naf_tpu_torch.ops.common import Q_TILE, SCAN_TILE, TILE
 
 from torch_cases import (CLASSIFY_CASES, COMPACT_CASES, FASTA_EMIT_CASES, FASTQ_EMIT_CASES,
-                         SCAN_CASES, SEQ_TYPES, START_STATES, case_change_behind_tile_start,
-                         classify_case,
-                         compact_case, emit_case, fasta_start_states, fastq_case,
-                         fastq_case_change_behind_tile_start, fastq_reads, scan_case, scan_input)
+                         MASK_PARITY_CASES, SCAN_CASES, SEQ_TYPES, START_STATES,
+                         case_change_behind_tile_start, classify_case, compact_case, emit_case,
+                         fasta_start_states, fastq_case, fastq_case_change_behind_tile_start,
+                         fastq_reads, mask_parity_input, scan_case, scan_input)
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
 
@@ -155,15 +155,11 @@ def test_unpack_kernel_matches_plain(emu, n):
                                UP.unpack_4bit_plain(x, rna))
 
 
-@pytest.mark.parametrize("n", [1, 128, 1000, TILE - 3, TILE + 5, 2 * TILE + 1])
-def test_mask_parity_kernel_matches_plain(emu, n):
-    rng = np.random.default_rng(63)
-    chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
-    tog = (rng.random(n) < 0.01).astype(np.uint8)
-    tog[rng.integers(0, n, size=3)] += 2            # collisions keep the parity
-    if n > TILE:
-        tog[TILE - 1] = tog[TILE] = 1               # a single-char run across the edge
-    for k in (0, 7):
+@pytest.mark.parametrize("case", [1, 128, 1000, TILE - 3, TILE + 5, 2 * TILE + 1,
+                                  *MASK_PARITY_CASES])
+def test_mask_parity_kernel_matches_plain(emu, case):
+    chars, tog = mask_parity_input(case)
+    for k in (0, 7):                               # aligned, and 7 bytes past
         c, t = _offset(chars, k), _offset(tog, k)
         assert torch.equal(EF.apply_mask_parity_kernel(c, t, lib=emu),
                            EF.apply_mask_parity_plain(c, t))

@@ -26,7 +26,7 @@ from naf_tpu_torch.ops.pack import pack_4bit
 from naf_tpu_torch.ops.scan_fused import classify_fasta
 from naf_tpu_torch.ops.tables import device_tables
 from naf_tpu_torch.ops.unpack import unpack_4bit
-from torch_cases import CLASSIFY_CASES, SEQ_TYPES, classify_case
+from torch_cases import CLASSIFY_CASES, SEQ_TYPES, classify_case, mask_parity_case
 
 CPU = torch.device("cpu")
 
@@ -91,16 +91,19 @@ def test_unpack_matches_pallas(rna):
     assert np.array_equal(unpack_4bit(_t(packed), rna).numpy(), want)
 
 
-@pytest.mark.parametrize("n", [_TILE - 3, _TILE + 5])
+@pytest.mark.parametrize("n", [_TILE - 3, _TILE + 5, "all_bytes"])
 def test_mask_parity_matches_pallas(n):
-    rng = np.random.default_rng(13)
-    chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
-    bounds = np.sort(rng.choice(n, size=300, replace=False))
-    tog = np.zeros(n, np.uint8)
-    np.add.at(tog, bounds, 1)
-    tog[n // 2] += 2                # a collision keeps the parity
-    tog[_TILE - 4] = 1              # single-char run across the tile edge
-    tog[_TILE - 3 if n > _TILE else n - 1] += 1
+    if n == "all_bytes":            # every byte value, 224-255 wrapping where masked
+        chars, tog = mask_parity_case(n)
+    else:
+        rng = np.random.default_rng(13)
+        chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+        bounds = np.sort(rng.choice(n, size=300, replace=False))
+        tog = np.zeros(n, np.uint8)
+        np.add.at(tog, bounds, 1)
+        tog[n // 2] += 2            # a collision keeps the parity
+        tog[_TILE - 4] = 1          # single-char run across the tile edge
+        tog[_TILE - 3 if n > _TILE else n - 1] += 1
     want = np.asarray(apply_mask_parity_pallas(jnp.asarray(chars), jnp.asarray(tog),
                                                interpret=True))
     assert np.array_equal(apply_mask_parity(_t(chars), _t(tog)).numpy(), want)

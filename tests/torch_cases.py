@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from naf_tpu_torch.format import constants as C
-from naf_tpu_torch.ops.common import COMPACT_TILE, Q_TILE, SCAN_TILE, TILE
+from naf_tpu_torch.ops.common import CLASSIFY_TILE, COMPACT_TILE, Q_TILE, SCAN_TILE, TILE
 
 #: one padded length for every classify case
 N_CLASSIFY = 2 * TILE + 64
@@ -519,6 +519,69 @@ def fastq_case_change_behind_tile_start(where: str) -> np.ndarray:
         rows.append(b"@r%05d\n%s\n+\n%s\n" % (i, seq.tobytes(), qual.tobytes()))
     body = np.frombuffer(b"".join(rows), np.uint8)[1:]
     return pad_lf(body, N_FASTQ)
+
+
+# ---------------------------------------------------------------------------
+# mask parity
+# ---------------------------------------------------------------------------
+
+#: named cases of mask_parity_case, each one to three 32 KiB tiles of the
+#: kernel (a lane holds 128 bytes, a warp 4,096); all but all_bytes keep
+#: their chars below 224, so only all_bytes shows a carry between bytes
+MASK_PARITY_CASES = ["lane_warp_edges", "tile_span", "dense", "all_twos", "all_bytes"]
+
+
+def dense_toggles(rng, n: int) -> np.ndarray:
+    """u8[n] toggles: a bound every 1-3 bytes, 1-3 bounds at each."""
+    tog = np.zeros(n, np.uint8)
+    at = np.cumsum(rng.integers(1, 4, n))
+    at = at[at < n]
+    tog[at] = rng.integers(1, 4, at.size)
+    return tog
+
+
+def mask_parity_case(name: str) -> tuple:
+    """(chars, tog) u8 of one named mask-parity case."""
+    t = CLASSIFY_TILE
+    rng = np.random.default_rng(len(name) + 70)
+    bases = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    if name == "lane_warp_edges":   # a bound at each lane's last byte and each warp's first:
+        n = 2 * t + 4099            # odd lanes and warps, even tiles
+        tog = np.zeros(n, np.uint8)
+        tog[127::128] = 1
+        tog[::4096] = 1
+        return rng.choice(bases, n), tog
+    if name == "tile_span":         # one masked byte, the last of tile 0; tile 1 in one warp
+        n = t + 4000
+        tog = np.zeros(n, np.uint8)
+        tog[t - 1] = tog[t] = 1
+        return rng.choice(bases, n), tog
+    if name == "dense":             # within one warp
+        return rng.choice(bases, 3000), dense_toggles(rng, 3000)
+    if name == "all_twos":          # two bounds at every byte: nothing changes case
+        n = t + 333
+        return rng.choice(bases, n), np.full(n, 2, np.uint8)
+    if name == "all_bytes":         # every byte value, bytes 100-2999 masked: 224-255 wrap
+        n = 4 * 1024 + 5
+        tog = np.zeros(n, np.uint8)
+        tog[[100, 3000]] = 1
+        return np.tile(np.arange(256, dtype=np.uint8), n // 256 + 1)[:n], tog
+    raise ValueError(name)
+
+
+def mask_parity_input(case) -> tuple:
+    """(chars, tog) of a named case of MASK_PARITY_CASES, or sparse toggles
+    over n bytes."""
+    if isinstance(case, str):
+        return mask_parity_case(case)
+    n = case
+    rng = np.random.default_rng(63)
+    chars = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+    tog = (rng.random(n) < 0.01).astype(np.uint8)
+    tog[rng.integers(0, n, size=3)] += 2            # collisions keep the parity
+    if n > TILE:
+        tog[TILE - 1] = tog[TILE] = 1               # a single-char run across the edge
+    return chars, tog
 
 
 # ---------------------------------------------------------------------------
