@@ -36,11 +36,24 @@ Phases, each printing JSON lines:
      bytes; the ragged archives (all but gen_fasta(16)'s, whose records
      have two shapes) must take the ragged device render, whose peak device
      memory is printed;
-  5. rates: encode and decode MB/s, end to end and device-resident.
-Four paths run with the launch counts set to 0 just before and read just
+  5. rates: encode and decode MB/s, end to end and device-resident;
+  6. the CLI: the port's ``tnaf --device`` and ``untnaf --device`` through
+     their ``main`` in this process, with ``-o`` files, on
+     gen_fasta_single(128) (fused FASTA), gen_fastq(500_000, read_len=150)
+     (fused FASTQ) and swissprot_like(160) (two-pass encode, ragged decode):
+     each archive must equal the host ``tnaf``'s, each decode the input and
+     the host ``untnaf``'s, by the expected routes, each wall time printed
+     beside the in-process ``encode_device`` / ``fasta_device`` time; one
+     ``tnaf --device -c < gen_fasta(64) | untnaf --device -c`` pipe of two
+     processes, whose stderr must be empty, whose output must be the input,
+     and whose encode takes the named host route ``encode_host:stream``;
+     and the peak device memory of ``tnaf --device`` on
+     gen_fasta_single(252), just under the 256 MiB in-memory threshold.
+Five paths run with the launch counts set to 0 just before and read just
 after each: the fused FASTA path and the fused FASTQ path (phases 3-4 on
-their inputs), the two-pass encodes, and the ragged decodes.  Every kernel
-of a path must have launched in it; the kernels line sums the four.  The
+their inputs), the two-pass encodes, the ragged decodes and the CLI (its
+in-process calls and the pipe's two processes).  Every kernel of a path
+must have launched in it; the kernels line sums the five.  The
 classifies launch standalone on the two-pass path and as device code inside
 each fused emit: a classify's row counts its standalone launches and gives
 the emit's as ``fused_launches``.  The last line is the result.  Any
@@ -461,6 +474,191 @@ def max_sparse_per_tile(data: bytes, fastq: bool) -> int:
     return int(np.bincount(starts[idx] // tile, weights=counts).max())
 
 
+def run_cli(tool: str, argv: list) -> float:
+    """Wall seconds of the port's ``tool`` run through its ``main`` in this
+    process; raises when it exits non-zero."""
+    import importlib
+
+    import torch
+
+    main = importlib.import_module(f"naf_tpu_torch.cli.{tool}").main
+    t0 = time.perf_counter()
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"{tool} {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+#: the port's CLI in a process of its own, which writes the run's counts
+#: (``device.ROUTES``, ``device.LAUNCHES``) to argv[1] as JSON when it ends
+_COUNTED_CLI = """import json, sys
+from naf_tpu_torch.cli import {tool}
+try:
+    rc = {tool}.main(sys.argv[2:])
+except SystemExit as e:
+    rc = e.code
+from naf_tpu_torch import device
+json.dump({{"routes": device.ROUTES, "launches": device.LAUNCHES}}, open(sys.argv[1], "w"))
+sys.exit(rc)
+"""
+
+
+def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: tuple,
+              opts) -> dict:
+    """Phase 6 (see the module docstring); returns the CLI path's launch
+    counts, counted from 0, the pipe's processes added in."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.parallel.pipeline import encode_device
+    from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
+    from naf_tpu_torch.pipeline.encoder import encode
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(here, "build"))
+
+    def path(name: str) -> str:
+        return os.path.join(work, name)
+
+    def read(name: str) -> bytes:
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    def routes_of(fn) -> dict:
+        before = dict(D.ROUTES)
+        fn()
+        return {k: v - before.get(k, 0) for k, v in D.ROUTES.items() if v != before.get(k, 0)}
+
+    def took(got: dict, route: str) -> bool:
+        """One call by ``route``; a route ending in ':' names a prefix."""
+        return (list(got.values()) == [1]
+                and (next(iter(got)).startswith(route) if route.endswith(":")
+                     else route in got))
+
+    try:
+        D.reset_counts()
+        rows = []
+        for name, data, flags, _, fastq, enc_route, dec_route in cases:
+            src = path("in.fq" if fastq else "in.fa")
+            with open(src, "wb") as f:
+                f.write(data)
+            row = {"phase": "cli", "input": name, "card": card, "bytes": len(data)}
+            enc_s = []
+            got = routes_of(lambda: enc_s.append(
+                run_cli("tnaf", ["--device", *flags, "-o", path("dev.naf"), src])))
+            if not took(got, enc_route):
+                raise AssertionError(f"{name}: tnaf --device took route {got}")
+            row.update(tnaf_device_s=enc_s[0], encode_routes=got)
+            row["tnaf_host_s"] = run_cli("tnaf", [*flags, "-o", path("host.naf"), src])
+            if read("dev.naf") != read("host.naf"):
+                raise AssertionError(f"{name}: tnaf --device archive != host tnaf archive")
+            dec_s = []
+            got = routes_of(lambda: dec_s.append(
+                run_cli("untnaf", ["--device", "-o", path("dev.out"), path("dev.naf")])))
+            if not took(got, dec_route):
+                raise AssertionError(f"{name}: untnaf --device took route {got}")
+            row.update(untnaf_device_s=dec_s[0], decode_routes=got)
+            row["untnaf_host_s"] = run_cli("untnaf", ["-o", path("host.out"), path("dev.naf")])
+            out = read("dev.out")
+            if out != read("host.out"):
+                raise AssertionError(f"{name}: untnaf --device output != host untnaf output")
+            if out != data:
+                raise AssertionError(f"{name}: untnaf --device output != the input")
+            row.update(archive=os.path.getsize(path("dev.naf")), equal_host=True,
+                       equal_input=True)
+            rows.append(row)
+        launches = dict(D.LAUNCHES)
+
+        # the same work in this process, outside the counted path
+        for row, (name, data, _, o, fastq, _, _) in zip(rows, cases):
+            t0 = time.perf_counter()
+            blob, _ = encode_device(data, o, device=dev)
+            torch.cuda.synchronize()
+            row["encode_device_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            d = Decoder(io.BytesIO(blob))
+            fastq_device(d, device=dev) if fastq else fasta_device(d, device=dev)
+            torch.cuda.synchronize()
+            row["decode_device_s"] = time.perf_counter() - t0
+            emit(row)
+
+        # a pipe of two processes: the encode reads a pipe, so it streams
+        name, data = pipe_input
+        with open(path("pipe.fa"), "wb") as f:
+            f.write(data)
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        with open(path("pipe.fa"), "rb") as fin, open(path("pipe.err1"), "wb") as e1, \
+                open(path("pipe.err2"), "wb") as e2, open(path("pipe.out"), "wb") as fout:
+            enc = subprocess.Popen([sys.executable, "-c", _COUNTED_CLI.format(tool="tnaf"),
+                                    path("enc.json"), "--device", "-c"],
+                                   stdin=fin, stdout=subprocess.PIPE, stderr=e1, env=env,
+                                   cwd=here)
+            dec = subprocess.Popen([sys.executable, "-c", _COUNTED_CLI.format(tool="untnaf"),
+                                    path("dec.json"), "--device", "-c"],
+                                   stdin=enc.stdout, stdout=fout, stderr=e2, env=env, cwd=here)
+            enc.stdout.close()
+            rc = (enc.wait(timeout=600), dec.wait(timeout=600))
+        pipe_s = time.perf_counter() - t0
+        errs = (read("pipe.err1"), read("pipe.err2"))
+        if rc != (0, 0) or errs != (b"", b""):
+            raise AssertionError(f"pipe exited {rc}, stderr {errs[0][-2000:]!r} "
+                                 f"{errs[1][-2000:]!r}")
+        if read("pipe.out") != data:
+            raise AssertionError(f"{name}: the pipe's output != the input")
+        with open(path("enc.json")) as f:
+            enc_counts = json.load(f)
+        with open(path("dec.json")) as f:
+            dec_counts = json.load(f)
+        if enc_counts["routes"] != {"encode_host:stream": 1}:
+            raise AssertionError(f"pipe: tnaf --device took route {enc_counts['routes']}")
+        if dec_counts["routes"] != {"decode_device": 1}:
+            raise AssertionError(f"pipe: untnaf --device took route {dec_counts['routes']}")
+        for k in ("unpack_4bit", "apply_mask_parity"):
+            if dec_counts["launches"][k] <= 0:
+                raise AssertionError(f"pipe: {k} did not launch in untnaf --device")
+        for k, v in enc_counts["launches"].items():
+            launches[k] += v + dec_counts["launches"][k]
+        emit({"phase": "cli_pipe", "input": name, "card": card, "bytes": len(data),
+              "seconds": pipe_s, "stderr_empty": True, "equal_input": True,
+              "routes": [enc_counts["routes"], dec_counts["routes"]],
+              "launches": {k: v + dec_counts["launches"][k]
+                           for k, v in enc_counts["launches"].items()
+                           if v + dec_counts["launches"][k]}})
+
+        # the peak device memory of the in-memory encode just under the threshold
+        name, data = threshold_input
+        if len(data) >= 256 << 20:
+            raise AssertionError(f"{name}: {len(data)} bytes is not under 256 MiB")
+        with open(path("big.fa"), "wb") as f:
+            f.write(data)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        seconds = []
+        routes = routes_of(lambda: seconds.append(
+            run_cli("tnaf", ["--device", "-o", path("big.naf"), path("big.fa")])))
+        peak = torch.cuda.max_memory_allocated()
+        if routes != {"encode_device": 1}:
+            raise AssertionError(f"{name}: tnaf --device took route {routes}")
+        if read("big.naf") != encode(data, opts)[0]:
+            raise AssertionError(f"{name}: tnaf --device archive != host encode() archive")
+        emit({"phase": "cli_peak_memory", "input": name, "card": card, "bytes": len(data),
+              "tnaf_device_s": seconds[0], "peak_device_bytes": peak,
+              "peak_above_start_bytes": peak - base, "equal_host": True, "routes": routes})
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -870,6 +1068,23 @@ def main() -> int:
         rates(*fastq_inputs[i], fastq_archives[i], fastq=True)
     for (name, data, o, _, fastq), blob in zip(two_pass_inputs, two_pass_archives):
         rates_two_pass(name, data, o, blob, fastq)
+
+    # ---- 6. the CLI ------------------------------------------------------
+    t0 = time.perf_counter()
+    big = ("gen_fasta_single(252)", bench.gen_fasta_single(252))
+    emit({"phase": "inputs", "seconds": time.perf_counter() - t0, "bytes": {big[0]: len(big[1])}})
+    # (name, input, tnaf flags, the options they give, FASTQ, encode route, decode route)
+    cli_cases = [(*fasta_inputs[1], [], opts, False, "encode_device", "decode_device"),
+                 (*fastq_inputs[1], [], opts, True, "encode_device", "decode_device"),
+                 (*two_pass_inputs[0][:2], ["--protein"], two_pass_inputs[0][2], False,
+                  "encode_device:two_pass:text_like", "decode_device:ragged:")]
+    path_launches["cli"] = cli_phase(card, dev, cli_cases, fasta_inputs[0], big, opts)
+    del big
+    emit({"phase": "launches", "cli_path": path_launches["cli"]})
+    for k in ("emit_fasta", "emit_fastq", "pack_4bit", "unpack_4bit", "apply_mask_parity",
+              "classify_fasta", "cumsum_i32", "maxscan_i32", "compact", "compact_dense"):
+        if path_launches["cli"][k] <= 0:
+            raise AssertionError(f"{k} was not launched on the cli path")
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
     if bad:

@@ -2,19 +2,28 @@
 engine only)."""
 
 from .zstd_backend import (
+    MAX_CLEVEL,
+    MIN_CLEVEL,
+    WINDOWLOG_MAX,
+    WINDOWLOG_MIN,
     SectionCompressor,
     SectionDecompressor,
+    SpilledPayload,
+    SpillingSectionCompressor,
     check_engine,
     compress_section,
     compress_section_blocked,
     decompress_section,
     decompress_section_blocked,
     iter_decompress,
+    parse_blocked_index,
 )
 
 __all__ = [
-    "SectionCompressor", "SectionDecompressor", "check_engine",
+    "MAX_CLEVEL", "MIN_CLEVEL", "WINDOWLOG_MAX", "WINDOWLOG_MIN",
+    "SectionCompressor", "SectionDecompressor", "SpilledPayload",
+    "SpillingSectionCompressor", "check_engine",
     "compress_section", "compress_section_blocked",
     "decompress_section", "decompress_section_blocked",
-    "iter_decompress",
+    "iter_decompress", "parse_blocked_index",
 ]

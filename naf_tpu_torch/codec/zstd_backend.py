@@ -34,6 +34,9 @@ except ImportError:
 WINDOWLOG_MIN = 10
 WINDOWLOG_MAX = 31
 
+MIN_CLEVEL = -131072
+MAX_CLEVEL = 22
+
 #: the JAX package's entropy engines, which the port does not have
 UNPORTED_ENGINES = ("native", "device")
 
@@ -86,6 +89,7 @@ class SectionCompressor:
 
     def __init__(self, level: int = 1, window_log: int = 0, threads: int = 0):
         self._chunks: list[bytes] = []
+        self._pending = 0           # == sum(len(c) for c in self._chunks)
         self._uncompressed = 0
         self._level = level
         self._window_log = window_log
@@ -108,6 +112,7 @@ class SectionCompressor:
     def _emit(self, out: bytes) -> None:
         if out:
             self._chunks.append(out)
+            self._pending += len(out)
 
     def write(self, data) -> None:
         mv = memoryview(data)
@@ -172,6 +177,7 @@ class SectionCompressor:
             self._emit(self._obj.flush(_compress_lib().COMPRESSOBJ_FLUSH_FINISH))
             frame = b"".join(self._chunks)
             self._chunks = []
+            self._pending = 0
         if len(frame) < 4 or frame[:4] != ZSTD_FRAME_MAGIC:
             raise RuntimeError("compression failed")
         return frame[4:]
@@ -277,3 +283,93 @@ def decompress_section_blocked(payload: bytes, uncompressed_size: int,
     if len(out) != uncompressed_size:
         raise RuntimeError("blocked section decompression size mismatch")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Temp-file spill (parity: ennaf/src/compressor.c:51-61 — compressed section
+# output beyond a RAM threshold goes to a temp file and is streamed back
+# during container assembly)
+# ---------------------------------------------------------------------------
+
+class SpilledPayload:
+    """Magic-stripped section bytes living in a temp file."""
+
+    def __init__(self, path: str, size: int, keep: bool):
+        self.path = path
+        self._size = size
+        self._keep = keep
+
+    def __len__(self) -> int:
+        return self._size
+
+    def copy_into(self, out) -> None:
+        with open(self.path, "rb") as f:
+            f.seek(4)                      # skip the stored frame magic
+            while True:
+                chunk = f.read(1 << 20)
+                if not chunk:
+                    break
+                out.write(chunk)
+        if not self._keep:
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass
+
+
+#: In-RAM budget per compressed section before spilling to the temp dir
+#: (override: NAF_TPU_SPILL_MB, read as the JAX package reads it).
+_SPILL_THRESHOLD = int(os.environ.get("NAF_TPU_SPILL_MB", "256")) << 20
+
+
+class SpillingSectionCompressor(SectionCompressor):
+    """SectionCompressor that spills compressed output beyond a threshold.
+
+    Temp file naming mirrors the reference (`<prefix>.<section>` in the
+    temp dir, `--keep-temp-files` keeps them; files.c:69-103).
+    """
+
+    def __init__(self, level: int = 1, window_log: int = 0, threads: int = 0,
+                 *, temp_dir: str, name: str, section: str,
+                 threshold: int = _SPILL_THRESHOLD, keep: bool = False):
+        super().__init__(level, window_log, threads)
+        self._path = os.path.join(temp_dir, f"{name}.{section}")
+        self._threshold = threshold
+        self._keep = keep
+        self._file = None
+        self._spilled = 0
+
+    def _flush_chunks(self) -> None:
+        for c in self._chunks:
+            self._file.write(c)
+            self._spilled += len(c)
+        self._chunks = []
+        self._pending = 0
+
+    def write(self, data) -> None:
+        super().write(data)
+        if self._file is None:
+            # the file opens with the first compressed bytes past the
+            # threshold, so a section that never spills leaves none behind
+            if not self._pending or self._pending < self._threshold:
+                return
+            self._file = open(self._path, "wb")
+        self._flush_chunks()
+
+    def finish(self):
+        """bytes when everything stayed in RAM, else a SpilledPayload."""
+        if self._raw is not None or self._file is None:  # never spilled
+            return super().finish()
+        assert not self._finished
+        self._finished = True
+        if self._buf:                       # drain MT staging remainder
+            self._emit(self._obj.compress(self._buf))
+            self._buf = bytearray()
+        self._emit(self._obj.flush(_compress_lib().COMPRESSOBJ_FLUSH_FINISH))
+        self._flush_chunks()
+        self._file.close()
+        self._file = None
+        with open(self._path, "rb") as f:
+            if f.read(4) != ZSTD_FRAME_MAGIC:
+                raise RuntimeError("compression failed")
+        return SpilledPayload(self._path, self._spilled - 4, self._keep)

@@ -1,8 +1,9 @@
 """Device selection and the run counters of the port.
 
 Takes the place of ``naf_tpu/parallel/mesh.py`` for one device: the port
-runs on the one device a caller names.  There is no automatic choice: the
-CPU is used only when asked for, and asking for CUDA without a card raises.
+runs on the one device a caller names; the entry points name the current
+card by default.  The CPU is used only when asked for, and asking for CUDA
+without a card raises.
 
 ``LAUNCHES`` counts kernel launches, one entry per hand kernel; a wrapper
 adds one where it launches its kernel and nowhere else.  The fused paths

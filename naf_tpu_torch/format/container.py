@@ -79,9 +79,14 @@ class NafHeader:
 
 @dataclass
 class Section:
-    """One compressed section: zstd frame bytes *minus* the 4-byte magic."""
+    """One compressed section: zstd frame bytes *minus* the 4-byte magic.
+
+    `payload` is bytes, or a spill handle exposing `__len__` and
+    `copy_into(out)` (codec.SpilledPayload) for a section written to a temp
+    file (ennaf/src/compressor.c:51-61, 150-173).
+    """
     uncompressed_size: int
-    payload: bytes
+    payload: object  # bytes | SpilledPayload
 
     @property
     def compressed_size(self) -> int:
@@ -131,7 +136,10 @@ def write_naf(out: BinaryIO, archive: NafArchive) -> None:
             raise NafFormatError(f"flag set for section {key!r} but no payload given")
         out.write(encode_vle(sec.uncompressed_size))
         out.write(encode_vle(sec.compressed_size))
-        out.write(sec.payload)
+        if isinstance(sec.payload, (bytes, bytearray, memoryview)):
+            out.write(sec.payload)
+        else:
+            sec.payload.copy_into(out)   # spilled payload streams from disk
 
 
 class _PartsWriter:

@@ -143,9 +143,18 @@ def _ptr(a: Optional[np.ndarray]):
     return a.ctypes.data_as(ct.c_void_p)
 
 
-# the render modes the port calls (naf_native.cpp has three more)
+# render modes (keep in sync with naf_native.cpp)
 MODE_FASTA = 0
+MODE_SEQUENCES = 1
+MODE_SEQ = 2
+MODE_CHARCOUNT = 3
 MODE_FASTQ = 4
+
+# scan flags (keep in sync with naf_native.cpp)
+F_CONT_SEQ = 1
+F_NO_MASK_FLUSH = 2
+F_PACK_CARRY = 4
+F_ALLOW_PARTIAL = 8
 
 
 class NativeScan:
@@ -154,7 +163,10 @@ class NativeScan:
     __slots__ = ("seq", "packed", "ids_blob", "comments_blob", "qual",
                  "lengths", "mask_units", "longest_line", "n_sequences",
                  "unexpected_id", "unexpected_comment", "unexpected_seq",
-                 "unexpected_qual")
+                 "unexpected_qual",
+                 # streaming carry outputs
+                 "end_state", "mask_tail_on", "mask_tail_run", "consumed",
+                 "end_line_len")
 
 
 class NativeScanError(Exception):
@@ -167,14 +179,22 @@ class NativeScanError(Exception):
 
 def scan(data: bytes, *, fastq: bool, seq_type: int, strict: bool,
          well_formed: bool, do_mask: bool, do_upper: bool,
-         marker_pos: int, threads: int = 0) -> NativeScan:
+         marker_pos: int, threads: int = 0,
+         flags: int = 0, prev_eol: bool = False,
+         mask_on: bool = False, mask_run: int = 0,
+         len_carry: int = 0, line_carry: int = 0,
+         pack_carry: Optional[int] = None,
+         scratch: Optional[dict] = None) -> NativeScan:
     """Run the fused native scanner over ``data[marker_pos+1:]``.
 
     FASTA inputs >= 2 MB scan multithreaded (record-aligned chunks with
     boundary stitching); FASTQ splits speculatively at record starts and
-    verifies, falling back to one thread inside.  Raises NativeScanError on
-    reference-fatal input; the caller maps codes to the reference's die()
-    messages.
+    verifies, falling back to one thread inside.  The carry arguments
+    (``flags``, ``prev_eol``, the mask run, the open record's and line's
+    lengths, the held nibble) resume a scan where the previous piece of a
+    stream ended; a caller-owned ``scratch`` dict keeps the output buffers
+    across pieces.  Raises NativeScanError on reference-fatal input; the
+    caller maps codes to the reference's die() messages.
     """
     lib = _load()
     assert lib is not None
@@ -183,14 +203,23 @@ def scan(data: bytes, *, fastq: bool, seq_type: int, strict: bool,
     buf = np.frombuffer(data, dtype=np.uint8)[marker_pos + 1:]
     n = int(buf.size)
 
+    def _get(key: str, size: int, dtype) -> np.ndarray:
+        if scratch is None:
+            return np.empty(size, dtype)
+        a = scratch.get(key)
+        if a is None or a.size < size:
+            a = np.empty(size, dtype)
+            scratch[key] = a
+        return a
+
     # worst-case output buffers
-    seq = np.empty(n + 2, np.uint8)
-    packed = np.empty(n // 2 + 2, np.uint8)
-    ids = np.empty(n + 2, np.uint8)
-    comments = np.empty(n + 2, np.uint8)
-    qual = np.empty((n + 2) if fastq else 1, np.uint8)
-    lengths = np.empty(n // 2 + 4, np.uint64)
-    mask = np.empty((n + 4) if do_mask else 1, np.uint8)
+    seq = _get("seq", n + 2, np.uint8)
+    packed = _get("packed", n // 2 + 2, np.uint8)
+    ids = _get("ids", n + 2, np.uint8)
+    comments = _get("comments", n + 2, np.uint8)
+    qual = _get("qual", (n + 2) if fastq else 1, np.uint8)
+    lengths = _get("lengths", n // 2 + 4, np.uint64)
+    mask = _get("mask", (n + 4) if do_mask else 1, np.uint8)
 
     r = _NafScan()
     r.seq = seq.ctypes.data
@@ -200,6 +229,15 @@ def scan(data: bytes, *, fastq: bool, seq_type: int, strict: bool,
     r.qual = qual.ctypes.data
     r.lengths = lengths.ctypes.data
     r.mask_units = mask.ctypes.data
+    if pack_carry is not None:
+        flags |= F_PACK_CARRY
+        r.pack_carry_in = pack_carry & 0x0F
+    r.flags = flags
+    r.prev_eol_in = int(prev_eol)
+    r.mask_on_in = int(mask_on)
+    r.mask_run_in = mask_run
+    r.len_carry_in = len_carry
+    r.line_carry_in = line_carry
 
     data_ptr = buf.ctypes.data_as(ct.c_void_p) if n else None
     fn = lib.naf_scan_fastq_mt if fastq else lib.naf_scan_fasta_mt
@@ -223,6 +261,11 @@ def scan(data: bytes, *, fastq: bool, seq_type: int, strict: bool,
     out.unexpected_comment = np.ctypeslib.as_array(r.hist_comment).copy()
     out.unexpected_seq = np.ctypeslib.as_array(r.hist_seq).copy()
     out.unexpected_qual = np.ctypeslib.as_array(r.hist_qual).copy()
+    out.end_state = int(r.end_state)
+    out.mask_tail_on = bool(r.mask_tail_on)
+    out.mask_tail_run = int(r.mask_tail_run)
+    out.consumed = int(r.consumed)
+    out.end_line_len = int(r.end_line_len)
     return out
 
 
@@ -248,9 +291,13 @@ def render(mode: int, *, seq_data: np.ndarray, total_chars: int,
            lengths: Optional[np.ndarray],
            ids_blob: Optional[bytes], comments_blob: Optional[bytes],
            qual: Optional[np.ndarray],
-           name_sep: int, line_len: int) -> bytes:
-    """Fused FASTA or FASTQ decode render on one thread, into a bytes
-    object of the exact output size."""
+           name_sep: int, line_len: int,
+           out_capacity: int = 0, nibble_off: int = 0) -> bytes | np.ndarray:
+    """Fused decode render on one thread: the output bytes, or for
+    MODE_CHARCOUNT the u64[256] counts.  ``nibble_off`` 1 starts at the
+    high nibble of ``seq_data[0]`` (a record batch beginning mid-byte);
+    MODE_SEQ renders into an ``out_capacity`` buffer, every other mode into
+    a bytes object of the exact output size."""
     lib = _load()
     assert lib is not None
     ids_a = np.frombuffer(ids_blob, np.uint8) if ids_blob is not None else None
@@ -261,12 +308,26 @@ def render(mode: int, *, seq_data: np.ndarray, total_chars: int,
 
     qual_len = 0 if qual is None else int(qual.size)
     head = (_ptr(seq_data), ct.c_uint64(total_chars), int(is_packed),
-            int(is_rna), int(do_upper), 0,       # nibble offset: whole sections only
+            int(is_rna), int(do_upper), int(nibble_off),
             _ptr(mask_units), 0 if mask_units is None else mask_units.size,
             _ptr(lengths), n_rec,
             _ptr(ids_a), 0 if ids_a is None else ids_a.size,
             _ptr(com_a), 0 if com_a is None else com_a.size,
             _ptr(qual), qual_len, name_sep, line_len)
+
+    if mode == MODE_CHARCOUNT:
+        counts = np.zeros(256, np.uint64)
+        lib.naf_render(mode, *head, None, counts.ctypes.data_as(ct.c_void_p))
+        return counts
+
+    if mode == MODE_SEQ:
+        # its paired u16 stores may touch one byte past the stream: render
+        # into the caller's slack buffer, not the exact-size bytes
+        out = np.empty(out_capacity, np.uint8)
+        w = lib.naf_render(mode, *head, out.ctypes.data_as(ct.c_void_p), None)
+        if w > out_capacity:
+            raise RuntimeError("native render overflowed its buffer")
+        return out[:w].tobytes()
 
     # the check is a hard error so a divergence cannot corrupt the heap
     exact = lib.naf_render_size(

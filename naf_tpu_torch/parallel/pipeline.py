@@ -54,11 +54,11 @@ def _host_route(reason: str, data: bytes, opts: EncodeOptions):
     return encode(data, opts)
 
 
-def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device
+def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="cuda"
                   ) -> tuple[bytes, EncodeStats]:
-    """FASTA or FASTQ encode with the kernels on ``device`` ('cuda' or,
-    asked for explicitly, 'cpu' for the plain versions); archive bytes equal
-    host ``encode(data, opts)``."""
+    """FASTA or FASTQ encode with the kernels on ``device`` (the current
+    card by default; 'cpu', asked for explicitly, runs the plain versions);
+    archive bytes equal host ``encode(data, opts)``."""
     dev = resolve(device)
     opts = opts or EncodeOptions()
     fmt, marker = P.detect_format(data)

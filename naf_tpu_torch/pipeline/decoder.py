@@ -1,12 +1,16 @@
-"""NAF decoder: container -> sections -> FASTA/FASTQ output, on the host or
-on the device.
+"""NAF decoder: container -> sections -> output, on the host or on the
+device.
 
-``Decoder`` is the port's copy of ``naf_tpu/pipeline/decoder.py``'s, cut
-down to what the port's entry points call: container and section loading,
-``fasta()`` and ``fastq()`` (the native one-thread render, or numpy where
-the native library is off), and the render-plan inputs of the device
-outputs.  The other output modes of the original (ids, names, lengths,
-mask, charcount, 4-bit, ranges, streaming output) are not ported.
+``Decoder`` is the port's copy of ``naf_tpu/pipeline/decoder.py``'s: the
+container and section loads, every output mode ``untnaf`` calls (format,
+part list and sizes, title, number, ids, names, lengths, total length,
+mask, total mask length, 4-bit, ``seq_concat``, ``sequences``,
+``charcount``, ``fasta()``, ``fastq()``, the record ranges) and the
+bounded-memory ``stream_fasta`` / ``stream_fastq``, which render record
+batches while a background thread decompresses ahead (``_Prefetcher``).
+Every render goes through the native one-thread render (the original's
+multithreaded render, F1 in ROADMAP.md, is not copied), or numpy where the
+native library is off.
 
 ``fasta_device`` and ``fastq_device`` render the sequence (and qualities) on
 the device through ``parallel.decode``: the uniform-group render
@@ -17,24 +21,28 @@ send the rest to ``fasta()`` / ``fastq()``: spill quirks (chars beyond the
 sum of the lengths), as the reference does, and a record too large for the
 ragged render's i32 batches (``render_overflow``).
 
-Importing this module, and the host ``fasta()`` and ``fastq()``, load no
-torch: the device half (``device``, ``parallel.decode``) is imported inside
-``_plan`` and the two device entry points.
+Importing this module, and every host output, load no torch: the device
+half (``device``, ``parallel.decode``) is imported inside ``_plan`` and the
+two device entry points.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import BinaryIO, Optional
 
 import numpy as np
 
-from ..codec import decompress_section, decompress_section_blocked
+from ..codec import (SectionDecompressor, decompress_section, decompress_section_blocked,
+                     parse_blocked_index)
 from ..format import constants as C
-from ..format.container import NafReader
+from ..format.container import NafFormatError, NafReader
 from ..native import host as native
 from ..ops.assemble import Column, const_column, ragged_concat, split_blob
-from ..ops.mask import apply_mask_np, expand_mask_np, merge_units
+from ..ops.histogram_np import charcount_np, format_charcount
+from ..ops.mask import apply_mask_np, expand_mask_np, merge_units, runs_to_units
 from ..ops.nibble_np import unpack_4bit_np
 from ..ops.render import body_length, wrap_records_np
 
@@ -71,6 +79,126 @@ def merge_u32_lengths(units: np.ndarray) -> np.ndarray:
         tail_start = ends[-1] if term_idx.size else 0
         out = np.concatenate([out, np.asarray([csum[-1] - tail_start], np.uint64)])
     return out
+
+
+class _ChunkWindow:
+    """Sliding window over a stream of decompressed chunks.
+
+    Chunks append at the tail; ``take(a, b)`` assembles the absolute byte
+    range [a, b) into one contiguous array; ``drop_to(a)`` releases whole
+    chunks that end at or before ``a``.  Retained data is never
+    reallocated or moved.
+    """
+
+    __slots__ = ("_chunks", "end")
+
+    def __init__(self):
+        self._chunks: "deque[tuple[int, bytes]]" = deque()   # (abs_start, data)
+        self.end = 0          # absolute offset one past the last byte appended
+
+    def append(self, data: bytes) -> None:
+        if data:
+            self._chunks.append((self.end, data))
+            self.end += len(data)
+
+    def overlapping(self, a: int, b: int) -> list:
+        """Chunk refs overlapping [a, b) (cheap; for snapshot-under-lock)."""
+        return [(s, d) for s, d in self._chunks
+                if s < b and s + len(d) > a]
+
+    @staticmethod
+    def assemble(chunks: list, a: int, b: int) -> np.ndarray:
+        out = np.empty(b - a, np.uint8)
+        for s, d in chunks:
+            lo, hi = max(a, s), min(b, s + len(d))
+            if lo < hi:
+                out[lo - a:hi - a] = np.frombuffer(d, np.uint8,
+                                                   count=hi - lo, offset=lo - s)
+        return out
+
+    def take(self, a: int, b: int) -> np.ndarray:
+        return self.assemble(self.overlapping(a, b), a, b)
+
+    def drop_to(self, a: int) -> None:
+        ch = self._chunks
+        while ch and ch[0][0] + len(ch[0][1]) <= a:
+            ch.popleft()
+
+
+class _Prefetcher:
+    """Background zstd-decompress of a section: overlaps with rendering.
+
+    A producer thread reads the compressed payload and appends decompressed
+    chunks to a window; the consumer waits for absolute coverage, assembles
+    the batch it needs, then releases what it has written out.  The
+    high-water mark bounds memory.
+    """
+
+    def __init__(self, f: BinaryIO, csize: int, high_water: int):
+        self._win = _ChunkWindow()
+        self._dropped = 0
+        self._lock = threading.Lock()
+        self._can_consume = threading.Condition(self._lock)
+        self._can_produce = threading.Condition(self._lock)
+        self._done = False
+        self._err: Optional[BaseException] = None
+        self._high = max(high_water, 8 << 20)
+
+        def run():
+            d = SectionDecompressor()
+            left = csize
+            try:
+                while left > 0:
+                    chunk = f.read(min(left, 4 << 20))
+                    if not chunk:
+                        raise NafFormatError("incomplete or truncated input")
+                    left -= len(chunk)
+                    out = d.feed(chunk)
+                    with self._lock:
+                        while (self._win.end - self._dropped > self._high
+                               and not self._done):
+                            self._can_produce.wait(0.1)
+                        self._win.append(out)
+                        self._can_consume.notify_all()
+            except BaseException as e:
+                self._err = e
+            finally:
+                with self._lock:
+                    self._done = True
+                    self._can_consume.notify_all()
+
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def wait_until(self, abs_bytes: int) -> None:
+        """Block until the window covers absolute offset `abs_bytes`."""
+        with self._lock:
+            while self._win.end < abs_bytes:
+                if self._err is not None:
+                    raise self._err
+                if self._done:
+                    raise NafFormatError("incomplete or truncated input")
+                self._can_consume.wait()
+            if self._err is not None:
+                raise self._err
+
+    def take(self, a: int, b: int) -> np.ndarray:
+        """Assemble absolute range [a, b); caller must have waited for b."""
+        with self._lock:
+            chunks = self._win.overlapping(a, b)   # refs only; bytes immutable
+        return _ChunkWindow.assemble(chunks, a, b)
+
+    def drop_to(self, abs_bytes: int) -> None:
+        with self._lock:
+            self._win.drop_to(abs_bytes)
+            self._dropped = abs_bytes
+            self._can_produce.notify_all()
+
+    def close(self) -> None:
+        with self._lock:
+            self._done = True
+            self._can_produce.notify_all()
+        self._t.join(timeout=10)
 
 
 class Decoder:
@@ -155,18 +283,56 @@ class Decoder:
             self._qual = np.frombuffer(self._decode_payload(qpayload, qu), np.uint8)
         return self._qual
 
+    # ---- container-level info ------------------------------------------
+
+    def format_name(self) -> bytes:
+        q = " with qualities" if self.h.has_quality else ""
+        return f"{self.h.seq_type_name} sequences{q} in NAF format version {self.h.format_version}\n".encode()
+
+    def part_list(self) -> bytes:
+        names = [
+            ("Title", self.h.has_title), ("IDs", self.h.has_ids),
+            ("Names", self.h.has_comments), ("Lengths", self.h.has_lengths),
+            ("Mask", self.h.has_mask), ("Data", self.h.has_sequence),
+            ("Quality", self.h.has_quality),
+        ]
+        present = [n for n, p in names if p]
+        return (", ".join(present) + "\n").encode()
+
+    def part_sizes(self) -> bytes:
+        self.r.read_counters()
+        out = []
+        if self.h.has_title:
+            title = self.r.load_title()
+            out.append(f"Title: {len(title)}\n")
+        labels = [("ids", "IDs"), ("comments", "Names"), ("lengths", "Lengths"),
+                  ("mask", "Mask"), ("sequence", "Data"), ("quality", "Quality")]
+        for key, label in labels:
+            if getattr(self.h, self.r._FLAG_ATTR[key]):
+                u, c = self.r.section_sizes(key)
+                self.r._skip_ahead(c)
+                # match C's printf %.3f for the u == 0 case (prints inf/-nan)
+                if u:
+                    out.append(f"{label}: {c} / {u} ({c / u * 100:.3f}%)\n")
+                else:
+                    out.append(f"{label}: {c} / {u} ({'inf' if c else '-nan'}%)\n")
+        return "".join(out).encode()
+
     # ---- host render ---------------------------------------------------------
 
-    def _native_render(self, mode: int, masking: bool, *, with_qual: bool = False,
+    def _native_render(self, mode: int, masking: bool, *, with_names: bool,
+                       with_lengths: bool, with_qual: bool = False,
                        resize_lengths: bool = False):
         """Load sections in container order and run the C++ renderer."""
         h = self.h
         n = self.r.n_sequences
         line_len = self.line_length
-        ids_blob = self._load_ids() if h.has_ids else None
-        com_blob = self._load_comments() if h.has_comments else None
+        ids_blob = com_blob = None
+        if with_names:
+            ids_blob = self._load_ids() if h.has_ids else None
+            com_blob = self._load_comments() if h.has_comments else None
         merged = None
-        if h.has_lengths:
+        if with_lengths and h.has_lengths:
             merged = merge_u32_lengths(self._load_length_units())
             if resize_lengths and merged.size != n:
                 merged = (np.resize(merged, n) if merged.size
@@ -181,7 +347,8 @@ class Decoder:
             is_rna=h.seq_type == C.SEQ_TYPE_RNA, do_upper=do_upper,
             mask_units=mask_units, lengths=merged,
             ids_blob=ids_blob, comments_blob=com_blob, qual=qual,
-            name_sep=ord(h.name_separator), line_len=line_len)
+            name_sep=ord(h.name_separator), line_len=line_len,
+            out_capacity=total + 64)
 
     def _load_seq_chars(self, masking: bool, text_toupper: bool | None = None) -> np.ndarray:
         """Decode the sequence section to rendered characters.
@@ -203,6 +370,30 @@ class Decoder:
             chars = apply_mask_np(chars, expand_mask_np(mask_runs, total))
         return chars
 
+    # ---- metadata outputs ---------------------------------------------------
+
+    def title(self) -> bytes:
+        self.r.read_counters()
+        t = self.r.load_title() if self.h.has_title else b""
+        return t + b"\n"
+
+    def number(self) -> bytes:
+        return f"{self.r.n_sequences}\n".encode()
+
+    def ids(self) -> bytes:
+        if not self.h.has_ids:
+            return b""
+        n = self.r.n_sequences
+        col = split_blob(self._load_ids(), n)
+        return ragged_concat([col, const_column(b"\n", n)], n).tobytes()
+
+    def names(self) -> bytes:
+        n = self.r.n_sequences
+        if not (self.h.has_ids or self.h.has_comments):
+            return b""
+        cols = self._name_columns(n)
+        return ragged_concat(cols + [const_column(b"\n", n)], n).tobytes()
+
     def _name_columns(self, n: int) -> list[Column]:
         """Columns rendering id[sep]comment per record (output.c:105-124)."""
         if self.h.has_ids and not self.h.has_comments:
@@ -215,12 +406,199 @@ class Decoder:
         sep = const_column(self.h.name_separator.encode(), n, present=com.length > 0)
         return [idc, sep, com]
 
+    def lengths(self) -> bytes:
+        if not self.h.has_lengths:
+            return b""
+        self.r.skip_through("lengths")
+        merged = merge_u32_lengths(self._load_length_units())
+        return ("".join(f"{v}\n" for v in merged.tolist())).encode()
+
+    def total_length(self) -> bytes:
+        if not self.h.has_lengths:
+            return b""
+        self.r.skip_through("sequence")
+        total, _ = self.r.section_sizes("sequence")
+        return f"{total}\n".encode()
+
+    def mask(self) -> bytes:
+        if not self.h.has_mask:
+            return b""
+        self.r.skip_through("mask")
+        merged = merge_units(self._load_mask_units())
+        return ("".join(f"{v}\n" for v in merged.tolist())).encode()
+
+    def total_mask_length(self) -> bytes:
+        if not self.h.has_mask:
+            return b"0\n"
+        self.r.skip_through("mask")
+        units = self._load_mask_units()
+        return f"{int(units.astype(np.uint64).sum())}\n".encode()
+
+    # ---- record ranges --------------------------------------------------------
+
+    def _range_chars(self, merged: np.ndarray, r0: int, r1: int) -> tuple[int, int, int]:
+        """(csize, c0, c1): the sequence section's compressed size and the
+        char range of records [r0, r1), the file at the section's payload."""
+        total, csize = self.r.section_sizes("sequence")
+        rec_ends = np.cumsum(merged.astype(np.int64))
+        if int(rec_ends[-1]) != total or not self.is_nucleotide:
+            raise DecodeError("range decode requires a regular nucleotide archive")
+        return csize, int(rec_ends[r0 - 1]) if r0 > 0 else 0, int(rec_ends[r1 - 1])
+
+    def _render_batch(self, mode: int, r0: int, r1: int, c0: int, c1: int, meta,
+                      seq_slice: np.ndarray, *, mask_units=None,
+                      qual: Optional[np.ndarray] = None) -> bytes:
+        """The one-thread native render of records [r0, r1), chars [c0, c1)
+        (``seq_slice`` the packed bytes from ``c0 // 2``)."""
+        ids, com, merged, _, nul_ids, nul_com = meta
+        return native.render(
+            mode, seq_data=seq_slice, total_chars=c1 - c0, is_packed=True,
+            is_rna=self.h.seq_type == C.SEQ_TYPE_RNA, do_upper=False,
+            nibble_off=c0 & 1, mask_units=mask_units, lengths=merged[r0:r1],
+            ids_blob=self._blob_slice(ids, nul_ids, r0, r1),
+            comments_blob=self._blob_slice(com, nul_com, r0, r1),
+            qual=qual, name_sep=ord(self.h.name_separator),
+            line_len=0 if mode == native.MODE_FASTQ else self.line_length)
+
+    def fasta_range(self, r0: int, r1: int) -> bytes:
+        """Decode records [r0, r1) only.
+
+        On extended-format archives (flag bit 0x80) this touches only the
+        sequence blocks overlapping the requested char range; plain archives
+        decompress the prefix.
+        """
+        if not self.h.has_sequence:
+            return b""
+        n = self.r.n_sequences
+        r0, r1 = max(0, r0), min(n, r1)
+        if r1 <= r0:
+            return b""
+        meta = self._range_metadata(self.masking)
+        csize, c0, c1 = self._range_chars(meta[2], r0, r1)
+        seq_slice = self._section_byte_slice(csize, c0 // 2, (c1 + 1) // 2)
+        return self._render_batch(native.MODE_FASTA, r0, r1, c0, c1, meta, seq_slice,
+                                  mask_units=self._batch_mask_units(meta[3], c0, c1))
+
+    def _section_byte_slice(self, csize: int, s0: int, s1: int,
+                            drain: bool = False) -> np.ndarray:
+        """Decompressed bytes [s0, s1) of the section at the current file
+        position.  Extended archives touch only the blocks overlapping the
+        range (random access via the block index); plain archives
+        decompress the prefix.  ``drain`` consumes the rest of the
+        section's compressed bytes (pipe-friendly skip to the next
+        section)."""
+        if self.h.extended:
+            payload = self.r.f.read(csize)
+            entries, off = parse_blocked_index(payload)
+            # walk the index; decompress only blocks covering [s0, s1)
+            pieces = []
+            pos = 0
+            for raw_len, comp_len in entries:
+                if pos + raw_len > s0 and pos < s1:
+                    blk = decompress_section(payload[off:off + comp_len], raw_len)
+                    pieces.append(blk[max(s0 - pos, 0):min(s1 - pos, raw_len)])
+                off += comp_len
+                pos += raw_len
+                if pos >= s1:
+                    break
+            return np.frombuffer(b"".join(pieces), np.uint8)
+        d = SectionDecompressor()
+        left = csize
+        out = bytearray()
+        while len(out) < s1 and left > 0:
+            chunk = self.r.f.read(min(left, 4 << 20))
+            if not chunk:
+                raise NafFormatError("incomplete or truncated input")
+            left -= len(chunk)
+            out.extend(d.feed(chunk))
+        if drain:
+            while left > 0:
+                chunk = self.r.f.read(min(left, 4 << 20))
+                if not chunk:
+                    raise NafFormatError("incomplete or truncated input")
+                left -= len(chunk)
+        return np.frombuffer(bytes(out[s0:s1]), np.uint8)
+
+    def fastq_range(self, r0: int, r1: int) -> bytes:
+        """Decode FASTQ records [r0, r1) only: ``fasta_range`` with the
+        quality section sliced over the same char range; the output equals
+        that slice of ``fastq()`` (the mask is never applied, unnaf.c:443)."""
+        if not self.h.has_sequence:
+            return b""
+        if not self.h.has_quality:
+            raise DecodeError("FASTQ output requested, but input has no qualities")
+        n = self.r.n_sequences
+        r0, r1 = max(0, r0), min(n, r1)
+        if r1 <= r0:
+            return b""
+        meta = self._range_metadata(False)
+        csize, c0, c1 = self._range_chars(meta[2], r0, r1)
+        seq_slice = self._section_byte_slice(csize, c0 // 2, (c1 + 1) // 2, drain=True)
+        _, qcsize = self.r.section_sizes("quality")
+        qual_slice = self._section_byte_slice(qcsize, c0, c1)
+        return self._render_batch(native.MODE_FASTQ, r0, r1, c0, c1, meta, seq_slice,
+                                  qual=qual_slice)
+
+    def four_bit(self) -> bytes:
+        if not self.h.has_sequence:
+            return b""
+        total, payload = self.r.load_section("sequence")
+        return self._decode_payload(payload, (total + 1) // 2)
+
+    # ---- sequence outputs -----------------------------------------------------
+
+    def seq_concat(self, masking: Optional[bool] = None) -> bytes:
+        """--seq: the concatenated sequence stream, no separators."""
+        if not self.h.has_sequence:
+            return b""
+        masking = self.masking if masking is None else masking
+        if native.available():
+            return self._native_render(native.MODE_SEQ, masking,
+                                       with_names=False, with_lengths=False)
+        return self._load_seq_chars(masking).tobytes()
+
+    def sequences(self, masking: Optional[bool] = None) -> bytes:
+        """--sequences: one sequence per line, no names."""
+        if not self.h.has_sequence:
+            return b""
+        masking = self.masking if masking is None else masking
+        if native.available():
+            return self._native_render(native.MODE_SEQUENCES, masking,
+                                       with_names=False, with_lengths=True)
+        merged = merge_u32_lengths(self._load_length_units())
+        chars = self._load_seq_chars(masking)
+        if self._total_seq_len == 0:
+            # reference prints nothing when there are no sequence bp
+            # (output-sequences.c:82: loop gated on total_seq_n_bp_remaining)
+            return b""
+        n = merged.size
+        ends = np.cumsum(merged.astype(np.int64))
+        starts = ends - merged.astype(np.int64)
+        col = Column(chars, starts, merged.astype(np.int64))
+        out = ragged_concat([col, const_column(b"\n", n)], n).tobytes()
+        # bytes beyond sum(lengths) spill after the last record, raw
+        # (output-sequences.c:38-43; can occur with quirky archives)
+        if int(ends[-1]) < chars.size:
+            out += chars[int(ends[-1]):].tobytes()
+        return out
+
+    def charcount(self, masking: Optional[bool] = None) -> bytes:
+        if not self.h.has_sequence:
+            return b""
+        masking = self.masking if masking is None else masking
+        if native.available():
+            counts = self._native_render(native.MODE_CHARCOUNT, masking,
+                                         with_names=False, with_lengths=False)
+            return format_charcount(counts).encode()
+        return format_charcount(charcount_np(self._load_seq_chars(masking))).encode()
+
     def fasta(self, masking: Optional[bool] = None) -> bytes:
         if not self.h.has_sequence:
             return b""
         masking = self.masking if masking is None else masking
         if native.available():
-            return self._native_render(native.MODE_FASTA, masking, resize_lengths=True)
+            return self._native_render(native.MODE_FASTA, masking, with_names=True,
+                                       with_lengths=True, resize_lengths=True)
         n = self.r.n_sequences
         line_len = self.line_length
         name_cols = self._name_columns(n)
@@ -278,7 +656,8 @@ class Decoder:
         if not self.h.has_quality:
             raise DecodeError("FASTQ output requested, but input has no qualities")
         if native.available():
-            return self._native_render(native.MODE_FASTQ, False, with_qual=True)
+            return self._native_render(native.MODE_FASTQ, False, with_names=True,
+                                       with_lengths=True, with_qual=True)
         n = self.r.n_sequences
         name_cols = self._name_columns(n)
         merged = merge_u32_lengths(self._load_length_units())
@@ -295,6 +674,140 @@ class Decoder:
                Column(qual, starts, slens), const_column(b"\n", n)]
         )
         return ragged_concat(cols, n).tobytes()
+
+    # ---- streaming (bounded-memory) outputs -------------------------------
+
+    def _range_metadata(self, masking: bool):
+        """``_batch_metadata`` and the NUL positions of the two blobs, by
+        which ``_blob_slice`` cuts out the names of a record range."""
+        ids, com, merged, spans = self._batch_metadata(masking)
+        nuls = [None if b is None else np.flatnonzero(b == 0) for b in (ids, com)]
+        return ids, com, merged, spans, *nuls
+
+    @staticmethod
+    def _batch_mask_units(spans, c0: int, c1: int) -> Optional[np.ndarray]:
+        """Alternating RLE units for chars [c0, c1) from global masked spans."""
+        if spans is None:
+            return None
+        starts, ends = spans
+        lo = np.searchsorted(ends, c0, side="right")
+        hi = np.searchsorted(starts, c1, side="left")
+        s = np.clip(starts[lo:hi], c0, c1)
+        e = np.clip(ends[lo:hi], c0, c1)
+        keep = e > s
+        s, e = s[keep], e[keep]
+        if s.size == 0:
+            return np.zeros(0, np.uint8)
+        # runs: [gap, masked, gap, masked, ..., trailing-gap] — the trailing
+        # unmasked run matters: exhausted units extend the LAST run's state
+        gaps = np.concatenate([[s[0] - c0], s[1:] - e[:-1]])
+        tail = c1 - int(e[-1])
+        runs = np.empty(2 * s.size + (1 if tail > 0 else 0), np.int64)
+        runs[0:2 * s.size:2] = gaps
+        runs[1:2 * s.size:2] = e - s
+        if tail > 0:
+            runs[-1] = tail
+        return runs_to_units(runs)
+
+    @staticmethod
+    def _blob_slice(blob, nuls, r0: int, r1: int):
+        if blob is None:
+            return None
+        a = 0 if r0 == 0 else int(nuls[r0 - 1]) + 1
+        b = int(nuls[r1 - 1]) + 1
+        return blob[a:b].tobytes()
+
+    @staticmethod
+    def _batches(rec_ends: np.ndarray, batch_chars: int):
+        """(r0, r1, c0, c1) of each record batch: whole records, at least
+        one, about ``batch_chars`` chars."""
+        n, total = rec_ends.size, int(rec_ends[-1]) if rec_ends.size else 0
+        r0 = 0
+        while r0 < n:
+            c0 = int(rec_ends[r0 - 1]) if r0 > 0 else 0
+            target = min(c0 + batch_chars, total)
+            r1 = min(max(int(np.searchsorted(rec_ends, target, side="right")), r0 + 1), n)
+            yield r0, r1, c0, int(rec_ends[r1 - 1])
+            r0 = r1
+
+    def stream_fasta(self, outf: BinaryIO, masking: Optional[bool] = None,
+                     batch_chars: int = 32 << 20) -> None:
+        """Decode to FASTA in record batches with bounded memory.
+
+        Peak RAM is O(batch + largest record + compressed tail) instead of
+        the whole-archive O(3x output) of ``fasta()``.
+        """
+        if not self.h.has_sequence or not native.available() or self.h.extended:
+            outf.write(self.fasta(masking))
+            return
+        masking = self.masking if masking is None else masking
+        meta = self._range_metadata(masking)
+        total, csize = self.r.section_sizes("sequence")
+        rec_ends = np.cumsum(meta[2].astype(np.int64))
+        if (int(rec_ends[-1]) if rec_ends.size else 0) != total or not self.is_nucleotide:
+            # spill-quirk archives & text: whole-buffer path (exact semantics)
+            self._total_seq_len = total
+            expect = (total + 1) // 2 if self.is_nucleotide else total
+            self._seq_raw = np.frombuffer(
+                self._decode_payload(self.r.f.read(csize), expect), np.uint8)
+            outf.write(self.fasta(masking))
+            return
+        pf = _Prefetcher(self.r.f, csize, high_water=4 * (batch_chars // 2))
+        try:
+            for r0, r1, c0, c1 in self._batches(rec_ends, batch_chars):
+                pf.wait_until((c1 + 1) // 2)
+                outf.write(self._render_batch(
+                    native.MODE_FASTA, r0, r1, c0, c1, meta, pf.take(c0 // 2, (c1 + 1) // 2),
+                    mask_units=self._batch_mask_units(meta[3], c0, c1)))
+                # drop consumed bytes (keep the byte shared with the next batch)
+                pf.drop_to(c1 // 2)
+        finally:
+            pf.close()
+
+    def stream_fastq(self, outf: BinaryIO, batch_chars: int = 32 << 20) -> None:
+        """Decode to FASTQ in record batches (seq section preloaded
+        compressed, quality streamed from the file — input.c:295-341)."""
+        if (not self.h.has_sequence or not native.available()
+                or self.r.n_sequences == 0 or self.h.extended):
+            outf.write(self.fastq())
+            return
+        if not self.h.has_quality:
+            raise DecodeError("FASTQ output requested, but input has no qualities")
+        meta = self._range_metadata(False)
+        total, csize = self.r.section_sizes("sequence")
+        rec_ends = np.cumsum(meta[2].astype(np.int64))
+        if int(rec_ends[-1]) != total or not self.is_nucleotide:
+            self._seq_raw = np.frombuffer(
+                self._decode_payload(self.r.f.read(csize), (total + 1) // 2
+                                     if self.is_nucleotide else total), np.uint8)
+            self._total_seq_len = total
+            outf.write(self.fastq())
+            return
+        seq_payload = self.r.f.read(csize)   # compressed seq stays in RAM
+        qtotal, qcsize = self.r.section_sizes("quality")
+        ds, dq = SectionDecompressor(), SectionDecompressor()
+        swin, qwin = _ChunkWindow(), _ChunkWindow()
+        s_off = 0          # compressed seq consumed
+        q_left = qcsize
+        for r0, r1, c0, c1 in self._batches(rec_ends, batch_chars):
+            need_bytes = (c1 + 1) // 2
+            while swin.end < need_bytes and s_off < len(seq_payload):
+                take = seq_payload[s_off:s_off + (4 << 20)]
+                s_off += len(take)
+                swin.append(ds.feed(take))
+            while qwin.end < c1 and q_left > 0:
+                chunk = self.r.f.read(min(q_left, 4 << 20))
+                if not chunk:
+                    raise NafFormatError("incomplete or truncated input")
+                q_left -= len(chunk)
+                qwin.append(dq.feed(chunk))
+            if swin.end < need_bytes or qwin.end < c1:
+                raise NafFormatError("incomplete or truncated input")
+            outf.write(self._render_batch(native.MODE_FASTQ, r0, r1, c0, c1, meta,
+                                          swin.take(c0 // 2, need_bytes),
+                                          qual=qwin.take(c0, c1)))
+            swin.drop_to(c1 // 2)
+            qwin.drop_to(c1)
 
     # ---- render-plan inputs of the device outputs ---------------------------
 
@@ -373,9 +886,9 @@ def _render(plan, raw, qual, dev, host) -> bytes:
     return out
 
 
-def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) -> bytes:
-    """FASTA output of an open archive, rendered on ``device``; the same
-    bytes as ``decoder.fasta(masking)``."""
+def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device="cuda") -> bytes:
+    """FASTA output of an open archive, rendered on ``device`` (the current
+    card by default); the same bytes as ``decoder.fasta(masking)``."""
     from ..device import count_route, resolve
 
     dev = resolve(device)
@@ -391,9 +904,9 @@ def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device) ->
     return _render(plan, raw, None, dev, lambda: decoder.fasta(masking))
 
 
-def fastq_device(decoder: Decoder, *, device) -> bytes:
-    """FASTQ output of an open archive, rendered on ``device``; the same
-    bytes as ``decoder.fastq()``.  The mask is never applied (unnaf.c:443)."""
+def fastq_device(decoder: Decoder, *, device="cuda") -> bytes:
+    """FASTQ output of an open archive, rendered on ``device`` (the current
+    card by default); the same bytes as ``decoder.fastq()``.  The mask is never applied (unnaf.c:443)."""
     from ..device import count_route, resolve
     from ..parallel.decode import MODE_FASTQ
 

@@ -40,6 +40,9 @@ class EncodeOptions:
     extended: bool = False                 # tnaf extended format (blocked SEQ)
     block_bytes: int = 4 << 20             # extended: block size (packed bytes)
     engine: str = "zstd"                   # "zstd" (library); no other is ported
+    temp_dir: Optional[str] = None         # spill compressed sections here
+    temp_name: str = "tnaf"                # temp file prefix (--name)
+    keep_temp_files: bool = False
 
 
 @dataclass

@@ -4,10 +4,13 @@ Each copy must give what its original gives: the format constants, VLE
 numbers and container; the zstd section codec (one-shot, streaming,
 blocked); the parser and host encode() archives on the inputs of
 torch_cases.py, test_parallel.py and fused_pipeline_cases.py; the
-Decoder's fasta() and fastq(), on the native render and on the numpy path;
-build_plan; and the numpy helpers under ops.  The C++ host runtime is
-built by the port into its build tree, and its copy does not drop the tail
-of a long render (F1 in ROADMAP.md).  Everything is bytes: tolerance 0.
+Decoder's fasta() and fastq(), on the native render and on the numpy path,
+its other output modes, its record ranges and its streaming decode;
+build_plan; the numpy helpers under ops (the histograms too); the native
+scan's carry arguments; and the stream encoder, spill included.  The C++
+host runtime is built by the port into its build tree, and its copy does
+not drop the tail of a long render (F1 in ROADMAP.md), so what reaches F1's
+sizes is held against the input.  Everything is bytes: tolerance 0.
 """
 
 from __future__ import annotations
@@ -21,17 +24,20 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import naf_tpu.native as RNATIVE
 from naf_tpu import codec as RCODEC
 from naf_tpu.format import constants as RC
 from naf_tpu.format import container as RCONT
 from naf_tpu.format import vle as RVLE
 from naf_tpu.ops import assemble as RASM
+from naf_tpu.ops import histogram as RHIST
 from naf_tpu.ops import mask as RMASK
 from naf_tpu.ops import render as RRENDER
 from naf_tpu.parallel import decode as RDV
 from naf_tpu.pipeline import decoder as RDEC
 from naf_tpu.pipeline import encoder as RENC
 from naf_tpu.pipeline import parser as RP
+from naf_tpu.pipeline import stream as RSTREAM
 from naf_tpu_torch import codec as PCODEC
 from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.format import container as PCONT
@@ -39,6 +45,7 @@ from naf_tpu_torch.format import vle as PVLE
 from naf_tpu_torch.native import build as kbuild
 from naf_tpu_torch.native import host as native
 from naf_tpu_torch.ops import assemble as PASM
+from naf_tpu_torch.ops import histogram_np as PHIST
 from naf_tpu_torch.ops import mask as PMASK
 from naf_tpu_torch.ops import render as PRENDER
 from naf_tpu_torch.ops.pack import pack_4bit_np
@@ -47,10 +54,12 @@ from naf_tpu_torch.parallel import decode as PDV
 from naf_tpu_torch.pipeline import decoder as PDEC
 from naf_tpu_torch.pipeline import encoder as PENC
 from naf_tpu_torch.pipeline import parser as PP
+from naf_tpu_torch.pipeline import stream as PSTREAM
 
 from fused_pipeline_cases import _gen, _gen_fq
 from test_parallel import _fasta, _fastq, _typed_fasta
-from torch_cases import EMIT_CASES, emit_case, fastq_case
+from torch_cases import (EMIT_CASES, emit_case, fastq_case, mixed_fasta, mixed_fastq,
+                         protein_fasta, text_fasta)
 
 
 REPO = Path(__file__).resolve().parent.parent
@@ -264,22 +273,41 @@ print(decoder.Decoder(io.BytesIO(blob)).fastq().hex())
 
 @pytest.mark.parametrize("native_off", [False, True], ids=["native", "numpy"])
 def test_host_stack_loads_no_torch(native_off):
-    """The package, the host encoder and decoder import, and a host FASTA and
-    FASTQ round trip (encode(), then Decoder.fasta() and fastq()) run, with
-    torch absent from sys.modules; on the native runtime and on numpy."""
+    """The package, the host encoder, stream encoder and decoder import, and
+    a host FASTA and FASTQ round trip (encode(), then Decoder.fasta() and
+    fastq(); encode_stream, stream_fasta and stream_fastq and the other
+    output modes where the native runtime is on) run, with torch absent
+    from sys.modules; on the native runtime and on numpy."""
     code = r"""
 import io, sys
 import naf_tpu_torch
-from naf_tpu_torch import codec, format
+from naf_tpu_torch import codec, format, version
 from naf_tpu_torch.native import host
-from naf_tpu_torch.pipeline import decoder, encoder, parser
+from naf_tpu_torch.ops import histogram_np
+from naf_tpu_torch.pipeline import decoder, encoder, parser, stream
 fa = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
 fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
 out = []
 for data in (fa, fq):
     blob = encoder.encode(data, encoder.EncodeOptions())[0]
     d = decoder.Decoder(io.BytesIO(blob))
-    out += [blob.hex(), (d.fastq() if data[:1] == b"@" else d.fasta()).hex()]
+    whole = d.fastq() if data[:1] == b"@" else d.fasta()
+    out += [blob.hex(), whole.hex()]
+    for mode in ("names", "lengths", "mask", "sequences", "charcount", "four_bit"):
+        d = decoder.Decoder(io.BytesIO(blob))
+        d.r.read_counters()
+        d.r.skip_section("title")
+        getattr(d, mode)()
+    if host.available():
+        s = io.BytesIO()
+        stream.encode_stream(io.BytesIO(data), s, encoder.EncodeOptions())
+        assert s.getvalue() == blob
+        d = decoder.Decoder(io.BytesIO(blob))
+        d.r.read_counters()
+        d.r.skip_section("title")
+        s = io.BytesIO()
+        d.stream_fastq(s) if data[:1] == b"@" else d.stream_fasta(s)
+        assert s.getvalue() == whole
 assert "torch" not in sys.modules, sorted(m for m in sys.modules if m.startswith("torch"))
 print(" ".join(out))
 """
@@ -382,3 +410,319 @@ def test_numpy_helpers_match():
     cols = [PASM.const_column(b">", 30), a, PASM.const_column(b"\n", 30)]
     rcols = [RASM.const_column(b">", 30), b, RASM.const_column(b"\n", 30)]
     assert np.array_equal(PASM.ragged_concat(cols, 30), RASM.ragged_concat(rcols, 30))
+
+
+def test_histogram_helpers_match():
+    rng = np.random.default_rng(45)
+    data = rng.integers(0, 256, size=20_000, dtype=np.uint8)
+    counts = PHIST.charcount_np(data)
+    assert np.array_equal(counts, RHIST.charcount_np(data))
+    assert PHIST.format_charcount(counts) == RHIST.format_charcount(counts)
+    for bins in (np.zeros(257, np.uint64), np.bincount(data, minlength=257).astype(np.uint64)):
+        bins[256] = 3 if bins.any() else 0
+        for kind in ("id", "DNA", "quality"):
+            assert (PHIST.format_unexpected_report(bins, kind)
+                    == RHIST.format_unexpected_report(bins, kind))
+
+
+# ---------------------------------------------------------------------------
+# the native scan's carries
+# ---------------------------------------------------------------------------
+
+_SCAN_FIELDS = ("seq", "packed", "ids_blob", "comments_blob", "qual", "lengths", "mask_units",
+                "longest_line", "n_sequences", "unexpected_id", "unexpected_comment",
+                "unexpected_seq", "unexpected_qual", "end_state", "mask_tail_on",
+                "mask_tail_run", "consumed", "end_line_len")
+
+
+def _scan_pieces():
+    """(piece, scan keywords) of a scan that resumes a stream."""
+    rng = np.random.default_rng(46)
+    seq = rng.choice(np.frombuffer(b"ACGTNacgtnRY", np.uint8), size=3_000_001).tobytes()
+    cont = b"\n".join(seq[j:j + 61] for j in range(0, len(seq), 61)) + b"\n>next rec\nAC\n"
+    fq = mixed_fastq(seed=9)
+    cut = fq[:len(fq) - 37][1:]            # a partial last record, past the first '@'
+    base = dict(seq_type=C.SEQ_TYPE_DNA, strict=False, well_formed=False, do_upper=False,
+                marker_pos=-1)
+    return {
+        "fasta_cont": (cont, dict(base, fastq=False, do_mask=True,
+                                  flags=native.F_CONT_SEQ | native.F_NO_MASK_FLUSH,
+                                  prev_eol=True, mask_on=True, mask_run=40, len_carry=123,
+                                  line_carry=17, pack_carry=5)),
+        "fasta_cont_mid_line": (cont[5:], dict(base, fastq=False, do_mask=True,
+                                               flags=native.F_CONT_SEQ, prev_eol=False,
+                                               len_carry=9, line_carry=9, pack_carry=None)),
+        "fasta_records": (mixed_fasta(seed=10)[1:], dict(base, fastq=False, do_mask=True,
+                                                        flags=native.F_NO_MASK_FLUSH,
+                                                        mask_on=False, mask_run=7)),
+        "fastq_partial": (cut, dict(base, fastq=True, do_mask=True,
+                                    flags=native.F_ALLOW_PARTIAL | native.F_NO_MASK_FLUSH,
+                                    pack_carry=3)),
+        "fastq_whole": (fq[1:], dict(base, fastq=True, do_mask=False, flags=0)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_scan_pieces()))
+def test_scan_carries_match(name):
+    piece, kw = _scan_pieces()[name]
+    assert (native.F_CONT_SEQ, native.F_NO_MASK_FLUSH, native.F_PACK_CARRY,
+            native.F_ALLOW_PARTIAL) == (RNATIVE.F_CONT_SEQ, RNATIVE.F_NO_MASK_FLUSH,
+                                        RNATIVE.F_PACK_CARRY, RNATIVE.F_ALLOW_PARTIAL)
+    scratch = {}
+    for _ in range(2):                  # the second scan reuses the scratch buffers
+        got = native.scan(piece, scratch=scratch, **kw)
+        want = RNATIVE.scan(piece, **kw)
+        for f in _SCAN_FIELDS:
+            a, b = getattr(got, f), getattr(want, f)
+            assert (np.array_equal(a, b) if isinstance(b, np.ndarray) else a == b), f
+
+
+# ---------------------------------------------------------------------------
+# the Decoder's output modes and streaming decode
+# ---------------------------------------------------------------------------
+
+def _mode_archives():
+    E = PENC.EncodeOptions
+    return {
+        "fasta": (mixed_fasta(), E()),
+        "fasta_title_lines": (mixed_fasta(seed=4, line=50), E(title="a title", line_length=70)),
+        "rna": (mixed_fasta(seed=5).replace(b"T", b"U").replace(b"t", b"u"),
+                E(seq_type=C.SEQ_TYPE_RNA)),
+        "no_mask": (mixed_fasta(seed=6), E(no_mask=True)),
+        "extended": (mixed_fasta(seed=7, n_rec=60), E(extended=True, block_bytes=1 << 12)),
+        "fastq": (mixed_fastq(), E()),
+        "fastq_extended": (mixed_fastq(seed=8), E(extended=True, block_bytes=1 << 12)),
+        "protein": (protein_fasta(), E(seq_type=C.SEQ_TYPE_PROTEIN)),
+        "text": (text_fasta(), E(seq_type=C.SEQ_TYPE_TEXT)),
+        "empty": (b"", E()),
+    }
+
+
+_ARCHIVES: dict = {}
+
+
+def _archive(name: str) -> bytes:
+    if name not in _ARCHIVES:
+        data, opts = _mode_archives()[name]
+        blob = PENC.encode(data, opts)[0]
+        assert blob == RENC.encode(data, _ref_opts(opts))[0]
+        _ARCHIVES[name] = blob
+    return _ARCHIVES[name]
+
+
+#: (method, arguments) of each Decoder output mode untnaf calls
+DECODER_MODES = [("format_name", ()), ("part_list", ()), ("part_sizes", ()), ("title", ()),
+                 ("number", ()), ("ids", ()), ("names", ()), ("lengths", ()),
+                 ("total_length", ()), ("mask", ()), ("total_mask_length", ()),
+                 ("four_bit", ()), ("seq_concat", ()), ("seq_concat", (False,)),
+                 ("sequences", ()), ("charcount", ()), ("fasta", ()), ("fasta", (False,)),
+                 ("fastq", ()), ("fasta_range", (2, 9)), ("fasta_range", (0, 10 ** 6)),
+                 ("fastq_range", (3, 40)), ("fastq_range", (5, 5))]
+
+
+def _mode_output(D, blob: bytes, method: str, args: tuple, **opts):
+    """What ``untnaf`` prints for a mode: the counters read and the title
+    skipped first, as its ``_render`` does; an error as its name and text."""
+    d = D.Decoder(io.BytesIO(blob), D.DecodeOptions(**opts))
+    if method not in ("format_name", "part_list"):
+        d.r.read_counters()
+        if method not in ("number", "part_sizes", "title"):
+            d.r.skip_section("title")
+    try:
+        out = getattr(d, method)(*args)
+    except (ValueError, RuntimeError) as e:
+        return type(e).__name__, str(e)
+    return out
+
+
+@pytest.mark.parametrize("method,args", DECODER_MODES,
+                         ids=[f"{m}{''.join(map(str, a))}" for m, a in DECODER_MODES])
+def test_decoder_modes_match(method, args):
+    for name in _mode_archives():
+        blob = _archive(name)
+        for opts in (dict(), dict(use_mask=False), dict(line_length=33)):
+            got = _mode_output(PDEC, blob, method, args, **opts)
+            assert got == _mode_output(RDEC, blob, method, args, **opts), (name, opts)
+
+
+def test_decoder_modes_on_numpy_paths(monkeypatch):
+    """seq_concat, sequences and charcount without the C++ runtime."""
+    monkeypatch.setattr(native, "available", lambda: False)
+    for name in ("fasta", "rna", "protein", "text", "empty"):
+        blob = _archive(name)
+        for method in ("seq_concat", "sequences", "charcount"):
+            for opts in (dict(), dict(use_mask=False)):
+                got = _mode_output(PDEC, blob, method, (), **opts)
+                assert got == _mode_output(RDEC, blob, method, (), **opts), (name, method)
+
+
+def _streamed(D, blob: bytes, fastq: bool, batch: int, masking=None, **opts) -> bytes:
+    d = D.Decoder(io.BytesIO(blob), D.DecodeOptions(**opts))
+    d.r.read_counters()
+    d.r.skip_section("title")
+    out = io.BytesIO()
+    if fastq:
+        d.stream_fastq(out, batch_chars=batch)
+    else:
+        d.stream_fasta(out, batch_chars=batch, masking=masking)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("batch", [1000, 1 << 16, 32 << 20])
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_stream_decode_matches(fastq, batch):
+    """Below F1's size: the port's stream equals its whole-buffer output and
+    naf_tpu's stream, on every archive of the modes."""
+    for name in _mode_archives():
+        blob = _archive(name)
+        if fastq and not PDEC.Decoder(io.BytesIO(blob)).h.has_quality:
+            continue
+        for opts in (dict(), dict(use_mask=False), dict(line_length=7)):
+            got = _streamed(PDEC, blob, fastq, batch, **opts)
+            d = PDEC.Decoder(io.BytesIO(blob), PDEC.DecodeOptions(**opts))
+            assert got == (d.fastq() if fastq else d.fasta()), (name, opts)
+            assert got == _streamed(RDEC, blob, fastq, batch, **opts), (name, opts)
+    if not fastq:
+        blob = _archive("fasta")
+        assert (_streamed(PDEC, blob, False, batch, masking=False)
+                == PDEC.Decoder(io.BytesIO(blob)).fasta(False))
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_stream_decode_at_the_render_split_returns_the_input(fastq):
+    """At and above the size where naf_tpu's render goes multithreaded (F1:
+    2**21 chars, 4 threads), the port's stream, in one batch and in many,
+    gives back the input."""
+    rng = np.random.default_rng(47)
+    if fastq:
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(15_000, 150))
+        qual = rng.integers(35, 74, size=(15_000, 150), dtype=np.uint8)
+        data = b"".join(b"@q%d c\n%s\n+\n%s\n" % (i, seq[i].tobytes(), qual[i].tobytes())
+                        for i in range(15_000))
+    else:
+        data = _gen(total=2_400_000, rec_len=800_000, seed=47)
+    blob = PENC.encode(data, PENC.EncodeOptions(threads=8))[0]
+    for batch in (32 << 20, 300_001):
+        assert _streamed(PDEC, blob, fastq, batch) == data
+
+
+# ---------------------------------------------------------------------------
+# the stream encoder
+# ---------------------------------------------------------------------------
+
+def _stream_inputs():
+    E = PENC.EncodeOptions
+    rng = np.random.default_rng(48)
+    giant = rng.choice(np.frombuffer(b"ACGTacgtNn", np.uint8), size=300_000).tobytes()
+    odd = rng.choice(np.frombuffer(b"ACGTacgt", np.uint8), size=100_001).tobytes()
+    return {
+        "fasta": lambda: (mixed_fasta(n_rec=60), E()),
+        "giant_record": lambda: (b">giant chromosome\n" + b"\n".join(
+            giant[k:k + 70] for k in range(0, len(giant), 70)) + b"\n>tail\nACGT\n", E()),
+        "odd_lines": lambda: (b">odd\n" + b"\n".join(
+            odd[k:k + 61] for k in range(0, len(odd), 61)) + b"\n", E()),
+        "case_runs": lambda: (b"".join(b">m%d\n" % i + (b"acgt" if i % 2 else b"ACGT") * 5000
+                                       + b"\n" for i in range(20)), E()),
+        "options": lambda: (mixed_fasta(seed=11), E(level=5, long_window_log=20, title="t t",
+                                                    line_length=80, threads=2)),
+        "rna": lambda: (mixed_fasta(seed=12), E(seq_type=C.SEQ_TYPE_RNA)),
+        "dna_no_mask": lambda: (mixed_fasta(seed=13), E(no_mask=True)),
+        "protein": lambda: (protein_fasta(n_rec=80), E(seq_type=C.SEQ_TYPE_PROTEIN)),
+        "text_no_mask": lambda: (text_fasta(n_rec=40), E(seq_type=C.SEQ_TYPE_TEXT,
+                                                         no_mask=True)),
+        "fastq": lambda: (mixed_fastq(n_rec=500), E()),
+        "fastq_unexpected": lambda: (b"".join(b"@r%d\nAC\x05GT\n+\nII\x02II\n" % i
+                                              for i in range(2000)), E()),
+        "empty": lambda: (b"", E()),
+    }
+
+
+STREAM_INPUTS = _stream_inputs()
+
+
+@pytest.mark.parametrize("chunk", [1 << 10, 1 << 16, None], ids=["1KiB", "64KiB", "default"])
+@pytest.mark.parametrize("name", list(STREAM_INPUTS))
+def test_encode_stream_matches(name, chunk):
+    """Archive bytes and stats equal the port's host encode() and naf_tpu's
+    encode_stream at the same chunk size (records spanning chunks)."""
+    data, opts = STREAM_INPUTS[name]()
+    kw = {} if chunk is None else dict(chunk_size=chunk)
+    out = io.BytesIO()
+    stats = PSTREAM.encode_stream(io.BytesIO(data), out, opts, **kw)
+    blob, host_stats = PENC.encode(data, opts)
+    assert out.getvalue() == blob
+    for f in ("n_sequences", "longest_line", "seq_size_original", "in_format"):
+        assert getattr(stats, f) == getattr(host_stats, f), f
+    for f in ("unexpected_id", "unexpected_comment", "unexpected_seq", "unexpected_qual"):
+        assert np.array_equal(getattr(stats, f), getattr(host_stats, f)), f
+    ref = io.BytesIO()
+    RSTREAM.encode_stream(io.BytesIO(data), ref, _ref_opts(opts), **kw)
+    assert ref.getvalue() == blob
+
+
+@pytest.mark.parametrize("data,kw", [
+    (b"@r\nACGT\n+\n!!!\n", {}),
+    (b"@r1\nACGT\n+\n!!!!\nr2\nAC\n+\n!!\n", {}),
+    (b">a\nACGTJ\n", dict(strict=True)),
+    (b">a\nAC\n", dict(in_format=2)),
+    (b">" + b"h" * 5000 + b"\nACGT\n", {}),
+], ids=["qual_length", "no_at", "strict", "format_mismatch", "long_header"])
+def test_encode_stream_errors_match(data, kw):
+    msgs = []
+    for stream, E in ((PSTREAM, PENC.EncodeOptions), (RSTREAM, RENC.EncodeOptions)):
+        try:
+            stream.encode_stream(io.BytesIO(data), io.BytesIO(), E(**kw), chunk_size=1 << 10)
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    assert msgs[0] == msgs[1]
+
+
+def test_encode_stream_spills_and_cleans_up():
+    """With NAF_TPU_SPILL_MB=0 and a temp dir, a section that streams out
+    compressed bytes before its end (one-thread zstd, past one 4 MiB stage)
+    goes through a temp file named as the reference names it; the archive
+    is the same bytes and no temp file is left, unless asked for."""
+    code = r"""
+import io, os, sys
+from naf_tpu_torch.codec import zstd_backend as Z
+from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+from naf_tpu_torch.pipeline.stream import encode_stream
+copied = []
+orig = Z.SpilledPayload.copy_into
+def copy_into(self, out):
+    copied.append(os.path.basename(self.path))
+    orig(self, out)
+Z.SpilledPayload.copy_into = copy_into
+data = open(sys.argv[1], "rb").read()
+tmp = sys.argv[2]
+for keep in (False, True):
+    opts = EncodeOptions(temp_dir=tmp, temp_name="in.fa", keep_temp_files=keep)
+    out = io.BytesIO()
+    encode_stream(io.BytesIO(data), out, opts, chunk_size=1 << 20)
+    assert out.getvalue() == encode(data, EncodeOptions())[0]
+    print(keep, sorted(copied), sorted(os.listdir(tmp)))
+    copied.clear()
+sys.stdout.buffer.write(out.getvalue())
+"""
+    work = Path(os.environ.get("TMPDIR", "/tmp")) / f"naf_tpu_torch_spill_{os.getpid()}"
+    tmp = work / "tmp"
+    tmp.mkdir(parents=True)
+    data = _gen(total=10_000_000, rec_len=2_500_000, seed=49)
+    (work / "in.fa").write_bytes(data)
+    try:
+        r = subprocess.run([sys.executable, "-c", code, str(work / "in.fa"), str(tmp)],
+                           capture_output=True, env=dict(os.environ, PYTHONPATH=str(REPO),
+                                                         NAF_TPU_SPILL_MB="0"),
+                           cwd=REPO, timeout=300)
+        left = sorted(p.name for p in tmp.iterdir())
+    finally:
+        for p in sorted(work.rglob("*"), reverse=True):
+            p.unlink() if p.is_file() else p.rmdir()
+        work.rmdir()
+    assert r.returncode == 0, r.stderr.decode()
+    lines = r.stdout.split(b"\n", 2)
+    assert lines[0] == b"False ['in.fa.seq'] []"
+    assert lines[1] == b"True ['in.fa.seq'] ['in.fa.seq']"
+    assert left == ["in.fa.seq"]
+    assert lines[2] == RENC.encode(data, RENC.EncodeOptions())[0]

@@ -9,7 +9,8 @@
   * fasta_device(device="cpu") gives back the input bytes and equals
     naf_tpu.parallel.decode.render_regular on a 1-device CPU mesh, and a
     ragged archive takes the ragged device render;
-  * the port imports neither jax nor naf_tpu, importing it leaves the
+  * the port imports neither jax nor naf_tpu (its CLIs and stream encoder
+    included), its host modules load no torch, importing it leaves the
     ``zstandard`` module alone, and asking for CUDA without a card raises.
 """
 
@@ -325,12 +326,22 @@ for m in pkgutil.walk_packages(naf_tpu_torch.__path__, "naf_tpu_torch."):
     importlib.import_module(m.name)
 from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
+from naf_tpu_torch.pipeline.stream import encode_stream
+from naf_tpu_torch.cli import tnaf, untnaf
 data = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
 blob = encode_device(data, device="cpu")[0]
 assert fasta_device(Decoder(io.BytesIO(blob)), device="cpu") == data
+out = io.BytesIO()
+encode_stream(io.BytesIO(data), out)
+assert out.getvalue() == blob
 fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
 blob = encode_device(fq, device="cpu")[0]
 assert fastq_device(Decoder(io.BytesIO(blob)), device="cpu") == fq.replace(b"acgt", b"ACGT").replace(b"cc", b"CC")
+open(sys.argv[1] + ".fq", "wb").write(fq)
+assert tnaf.main(["-o", sys.argv[1] + ".naf", sys.argv[1] + ".fq"]) == 0
+assert open(sys.argv[1] + ".naf", "rb").read() == blob
+assert untnaf.main(["-o", sys.argv[1] + ".out", "--names", sys.argv[1] + ".naf"]) == 0
+assert open(sys.argv[1] + ".out", "rb").read() == b"q1 c\nq2 d\n"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
 assert not bad, bad
@@ -338,10 +349,40 @@ print("ok")
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = str(REPO)
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       env=env, cwd=REPO, timeout=300)
+    stem = Path(env.get("TMPDIR", "/tmp")) / f"naf_tpu_torch_nojax_{os.getpid()}"
+    try:
+        r = subprocess.run([sys.executable, "-c", code, str(stem)], capture_output=True,
+                           text=True, env=env, cwd=REPO, timeout=300)
+    finally:
+        for ext in (".fq", ".naf", ".out"):
+            Path(str(stem) + ext).unlink(missing_ok=True)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+#: the port's modules that the host paths (and the CLIs without --device) run
+HOST_MODULES = ["naf_tpu_torch", "naf_tpu_torch.version", "naf_tpu_torch.codec",
+                "naf_tpu_torch.format.container", "naf_tpu_torch.native.host",
+                "naf_tpu_torch.ops.histogram_np", "naf_tpu_torch.pipeline.parser",
+                "naf_tpu_torch.pipeline.encoder", "naf_tpu_torch.pipeline.decoder",
+                "naf_tpu_torch.pipeline.stream", "naf_tpu_torch.cli.tnaf",
+                "naf_tpu_torch.cli.untnaf"]
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_module_loads_no_torch(module):
+    """Each host module imports with neither torch, nor jax, nor any module
+    of naf_tpu loaded."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'naf_tpu'))\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       cwd=REPO, timeout=300)
+    assert r.returncode == 0, r.stderr
 
 
 def test_importing_the_port_leaves_zstandard_alone():

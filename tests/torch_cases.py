@@ -761,3 +761,59 @@ def ragged_fastq(rng, n_rec: int = 50, max_len: int = 150) -> bytes:
         qual = rng.integers(33, 74, size=ln, dtype=np.uint8).tobytes()
         out.append(b"@read%d/%d\n%s\n+\n%s\n" % (i, i, seq, qual))
     return b"".join(out)
+
+
+# ---- whole inputs of the host modes, the stream encoder and the CLI ------------
+
+def mixed_fasta(seed: int = 0, n_rec: int = 40, max_len: int = 3000, line: int = 60) -> bytes:
+    """A nucleotide FASTA: soft-masked runs, IUPAC codes and gaps, an empty
+    record, records with and without a comment, ``line``-wide lines."""
+    rng = np.random.default_rng(seed)
+    upper = np.frombuffer(b"ACGTACGTACGTNRYKMSWBDHV-", np.uint8)
+    out = []
+    for i in range(n_rec):
+        ln = 0 if i == 3 else int(rng.integers(1, max_len))
+        seq = rng.choice(upper, size=ln)
+        for s in rng.integers(0, max(ln, 1), size=ln // 400):
+            seq[s:s + int(rng.integers(1, 300))] |= 32
+        head = b">seq%d" % i + (b" sample %d" % i if i % 3 else b"")
+        body = seq.tobytes()
+        out.append(head + b"\n" + b"".join(body[j:j + line] + b"\n"
+                                           for j in range(0, ln, line)))
+    return b"".join(out)
+
+
+def mixed_fastq(seed: int = 1, n_rec: int = 300, max_len: int = 250) -> bytes:
+    """A FASTQ of ragged reads with soft-masked runs and Ns, comments on
+    some deflines."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_rec):
+        ln = int(rng.integers(1, max_len))
+        seq = rng.choice(np.frombuffer(b"ACGTACGTN", np.uint8), size=ln)
+        if i % 4 == 0:
+            seq[ln // 3:ln // 2] |= 32
+        qual = rng.integers(35, 74, size=ln, dtype=np.uint8)
+        head = b"@r%d" % i + (b" lane:%d" % (i % 7) if i % 2 else b"")
+        out.append(b"%s\n%s\n+\n%s\n" % (head, seq.tobytes(), qual.tobytes()))
+    return b"".join(out)
+
+
+def protein_fasta(seed: int = 2, n_rec: int = 30) -> bytes:
+    """A protein FASTA of 60-wide lines, some residues lowercase."""
+    rng = np.random.default_rng(seed)
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYXacdefg*", np.uint8)
+    out = []
+    for i in range(n_rec):
+        seq = rng.choice(aa, size=int(rng.integers(1, 400))).tobytes()
+        out.append(b">sp|P%05d|PROT_%d desc\n" % (i, i)
+                   + b"".join(seq[j:j + 60] + b"\n" for j in range(0, len(seq), 60)))
+    return b"".join(out)
+
+
+def text_fasta(seed: int = 3, n_rec: int = 10) -> bytes:
+    """A text-typed FASTA: printable bytes of any case in the records."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(b"The quick brown fox jumps over 13 lazy dogs.,;:!?()", np.uint8)
+    return b"".join(b">t%d words\n%s\n" % (i, rng.choice(pool, size=int(rng.integers(1, 200)))
+                                           .tobytes()) for i in range(n_rec))
