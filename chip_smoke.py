@@ -46,14 +46,27 @@ Phases, each printing JSON lines:
      beside the in-process ``encode_device`` / ``fasta_device`` time; one
      ``tnaf --device -c < gen_fasta(64) | untnaf --device -c`` pipe of two
      processes, whose stderr must be empty, whose output must be the input,
-     and whose encode takes the named host route ``encode_host:stream``;
-     and the peak device memory of ``tnaf --device`` on
-     gen_fasta_single(252), just under the 256 MiB in-memory threshold.
-Five paths run with the launch counts set to 0 just before and read just
+     and whose encode streams on the card (``encode_device:stream``, every
+     piece ``stream_device``); the peak device memory of ``tnaf --device``
+     on gen_fasta_single(252), just under the 256 MiB in-memory threshold;
+     ``tnaf --device`` on gen_fasta(300), a file over the threshold, which
+     streams on the card (its archive equal to the host ``tnaf``'s, its
+     peak device memory printed); and ``tnaf --device --engine native`` /
+     ``untnaf --device --engine native`` on gen_fasta_single(128), equal to
+     the host CLI with the same engine and to the input, host times beside;
+  7. the stream: ``encode_stream`` with ``DeviceScanEngine`` on the card in
+     64 MiB chunks against the host ``encode_stream`` (its default chunk),
+     on gen_fasta_single(1024) (1.07 GB, one record continued across
+     chunks) and gen_fastq(1_600_000, read_len=150) (0.51 GB): each archive
+     equal to the host stream's, every piece on the fused device path, the
+     emit and pack launched once a piece, the peak device memory above the
+     start under 738,199,040 bytes (the in-memory encode's of a 4x smaller
+     input), both rates printed.
+Six paths run with the launch counts set to 0 just before and read just
 after each: the fused FASTA path and the fused FASTQ path (phases 3-4 on
-their inputs), the two-pass encodes, the ragged decodes and the CLI (its
-in-process calls and the pipe's two processes).  Every kernel of a path
-must have launched in it; the kernels line sums the five.  The
+their inputs), the two-pass encodes, the ragged decodes, the CLI (its
+in-process calls and the pipe's two processes) and the stream.  Every
+kernel of a path must have launched in it; the kernels line sums the six.  The
 classifies launch standalone on the two-pass path and as device code inside
 each fused emit: a classify's row counts its standalone launches and gives
 the emit's as ``fused_launches``.  The last line is the result.  Any
@@ -75,6 +88,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 #: the card's memory access granule: a load reads whole 32-byte sectors
 SECTOR_BYTES = 32
+#: the chunk of the streamed device encode, as ``tnaf --device`` streams
+STREAM_CHUNK = 64 << 20
+#: files from this size on stream in ``tnaf`` (NAF_TPU_STREAM_THRESHOLD)
+STREAM_THRESHOLD = 256 << 20
+#: a stream's peak device memory above its start must stay under the peak of
+#: the in-memory encode of gen_fasta_single(252) (267.5 MB; PERF.md section 5),
+#: four times smaller than the 1 GB stream input
+PEAK_LIMIT = 738_199_040
 
 
 def emit(row: dict) -> None:
@@ -507,8 +528,15 @@ sys.exit(rc)
 """
 
 
+def stream_routes_ok(routes: dict) -> bool:
+    """One streamed ``tnaf --device`` whose every piece took the fused
+    device path."""
+    return (set(routes) == {"encode_device:stream", "stream_device"}
+            and routes["encode_device:stream"] == 1 and routes["stream_device"] > 0)
+
+
 def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: tuple,
-              opts) -> dict:
+              stream_input: tuple, native_input: tuple, opts) -> dict:
     """Phase 6 (see the module docstring); returns the CLI path's launch
     counts, counted from 0, the pipe's processes added in."""
     import shutil
@@ -517,6 +545,7 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
     import torch
 
     from naf_tpu_torch import device as D
+    from naf_tpu_torch.codec import set_decode_engine
     from naf_tpu_torch.parallel.pipeline import encode_device
     from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
     from naf_tpu_torch.pipeline.encoder import encode
@@ -575,6 +604,69 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
             row.update(archive=os.path.getsize(path("dev.naf")), equal_host=True,
                        equal_input=True)
             rows.append(row)
+
+        # a file over the in-memory threshold: tnaf --device streams it on the card
+        name, data = stream_input
+        if len(data) < STREAM_THRESHOLD:
+            raise AssertionError(f"{name}: {len(data)} bytes is under the stream threshold")
+        with open(path("stream.fa"), "wb") as f:
+            f.write(data)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        seconds = []
+        got = routes_of(lambda: seconds.append(
+            run_cli("tnaf", ["--device", "-o", path("stream_dev.naf"), path("stream.fa")])))
+        peak = torch.cuda.max_memory_allocated() - base
+        if not stream_routes_ok(got):
+            raise AssertionError(f"{name}: tnaf --device took route {got}")
+        host_s = run_cli("tnaf", ["-o", path("stream_host.naf"), path("stream.fa")])
+        if read("stream_dev.naf") != read("stream_host.naf"):
+            raise AssertionError(f"{name}: streamed tnaf --device archive != host tnaf archive")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"{name}: peak device memory {peak} is not under {PEAK_LIMIT}")
+        emit({"phase": "cli_stream", "input": name, "card": card, "bytes": len(data),
+              "tnaf_device_s": seconds[0], "tnaf_host_s": host_s, "routes": got,
+              "archive": os.path.getsize(path("stream_dev.naf")), "equal_host": True,
+              "peak_above_start_bytes": peak})
+        for f in ("stream.fa", "stream_dev.naf", "stream_host.naf"):
+            os.unlink(path(f))
+
+        # the native entropy engine, with and without --device
+        name, data = native_input
+        with open(path("native.fa"), "wb") as f:
+            f.write(data)
+        row = {"phase": "cli_native_engine", "input": name, "card": card, "bytes": len(data)}
+        enc_s = []
+        got = routes_of(lambda: enc_s.append(run_cli(
+            "tnaf", ["--device", "--engine", "native", "-o", path("ndev.naf"),
+                     path("native.fa")])))
+        if got != {"encode_device": 1}:
+            raise AssertionError(f"{name}: tnaf --device --engine native took route {got}")
+        row["tnaf_device_s"] = enc_s[0]
+        row["tnaf_host_s"] = run_cli("tnaf", ["--engine", "native", "-o", path("nhost.naf"),
+                                              path("native.fa")])
+        if read("ndev.naf") != read("nhost.naf"):
+            raise AssertionError(f"{name}: tnaf --device --engine native archive != host's")
+        try:
+            dec_s = []
+            got = routes_of(lambda: dec_s.append(run_cli(
+                "untnaf", ["--device", "--engine", "native", "-o", path("ndev.out"),
+                           path("ndev.naf")])))
+            if got != {"decode_device": 1}:
+                raise AssertionError(f"{name}: untnaf --device --engine native took {got}")
+            row["untnaf_device_s"] = dec_s[0]
+            row["untnaf_host_s"] = run_cli("untnaf", ["--engine", "native", "-o",
+                                                      path("nhost.out"), path("ndev.naf")])
+        finally:
+            set_decode_engine("zstd")
+        row["untnaf_host_zstd_engine_s"] = run_cli("untnaf", ["-o", path("nlib.out"),
+                                                              path("ndev.naf")])
+        out = read("ndev.out")
+        if out != read("nhost.out") or out != read("nlib.out") or out != data:
+            raise AssertionError(f"{name}: untnaf --engine native output != host's or input")
+        row.update(archive=os.path.getsize(path("ndev.naf")), equal_host=True, equal_input=True)
+        emit(row)
         launches = dict(D.LAUNCHES)
 
         # the same work in this process, outside the counted path
@@ -618,8 +710,11 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
             enc_counts = json.load(f)
         with open(path("dec.json")) as f:
             dec_counts = json.load(f)
-        if enc_counts["routes"] != {"encode_host:stream": 1}:
+        if not stream_routes_ok(enc_counts["routes"]):
             raise AssertionError(f"pipe: tnaf --device took route {enc_counts['routes']}")
+        for k in ("emit_fasta", "pack_4bit"):
+            if enc_counts["launches"][k] <= 0:
+                raise AssertionError(f"pipe: {k} did not launch in tnaf --device")
         if dec_counts["routes"] != {"decode_device": 1}:
             raise AssertionError(f"pipe: untnaf --device took route {dec_counts['routes']}")
         for k in ("unpack_4bit", "apply_mask_parity"):
@@ -636,8 +731,8 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
 
         # the peak device memory of the in-memory encode just under the threshold
         name, data = threshold_input
-        if len(data) >= 256 << 20:
-            raise AssertionError(f"{name}: {len(data)} bytes is not under 256 MiB")
+        if len(data) >= STREAM_THRESHOLD:
+            raise AssertionError(f"{name}: {len(data)} bytes is not under the stream threshold")
         with open(path("big.fa"), "wb") as f:
             f.write(data)
         torch.cuda.empty_cache()
@@ -657,6 +752,59 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def stream_phase(card: str, dev, inputs: list, opts) -> dict:
+    """Phase 7 (see the module docstring); returns the stream path's launch
+    counts, counted from 0."""
+    import torch
+
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.parallel.stream import DeviceScanEngine
+    from naf_tpu_torch.pipeline.stream import DEFAULT_CHUNK, encode_stream
+
+    D.reset_counts()
+    for name, data, fastq in inputs:
+        t0 = time.perf_counter()
+        host = io.BytesIO()
+        encode_stream(io.BytesIO(data), host, opts)
+        host_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before, routes_before = dict(D.LAUNCHES), dict(D.ROUTES)
+        eng = DeviceScanEngine(device=dev)
+        out = io.BytesIO()
+        t0 = time.perf_counter()
+        encode_stream(io.BytesIO(data), out, opts, chunk_size=STREAM_CHUNK, engine=eng)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        routes = {k: v - routes_before.get(k, 0) for k, v in D.ROUTES.items()
+                  if v != routes_before.get(k, 0)}
+        launches = {k: v - before[k] for k, v in D.LAUNCHES.items() if v != before[k]}
+        if out.getvalue() != host.getvalue():
+            raise AssertionError(f"{name}: device stream archive != host encode_stream archive")
+        if eng.device_chunks <= 0 or eng.native_chunks != 0 or routes != {
+                "stream_device": eng.device_chunks}:
+            raise AssertionError(f"{name}: stream pieces took routes {routes}")
+        for k in ("emit_fastq" if fastq else "emit_fasta", "pack_4bit"):
+            if launches.get(k, 0) < eng.device_chunks:
+                raise AssertionError(f"{name}: {k} launched {launches.get(k, 0)} times for "
+                                     f"{eng.device_chunks} pieces")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"{name}: the stream's peak device memory {peak} is not under "
+                                 f"{PEAK_LIMIT}")
+        mb = len(data) / 1e6
+        emit({"phase": "stream", "input": name, "card": card, "bytes": len(data),
+              "archive": len(out.getvalue()), "equal_host_stream": True,
+              "chunk_bytes": STREAM_CHUNK, "host_chunk_bytes": DEFAULT_CHUNK,
+              "device_chunks": eng.device_chunks, "native_chunks": eng.native_chunks,
+              "routes": routes, "launches": launches, "device_stream_s": dev_s,
+              "host_stream_s": host_s, "device_stream_MBps": mb / dev_s,
+              "host_stream_MBps": mb / host_s, "peak_above_start_bytes": peak})
+        del host, out
+    return dict(D.LAUNCHES)
 
 
 def main() -> int:
@@ -1078,13 +1226,31 @@ def main() -> int:
                  (*fastq_inputs[1], [], opts, True, "encode_device", "decode_device"),
                  (*two_pass_inputs[0][:2], ["--protein"], two_pass_inputs[0][2], False,
                   "encode_device:two_pass:text_like", "decode_device:ragged:")]
-    path_launches["cli"] = cli_phase(card, dev, cli_cases, fasta_inputs[0], big, opts)
+    path_launches["cli"] = cli_phase(card, dev, cli_cases, fasta_inputs[0], big,
+                                     ("gen_fasta(300)", bench.gen_fasta(300)), fasta_inputs[1],
+                                     opts)
     del big
     emit({"phase": "launches", "cli_path": path_launches["cli"]})
     for k in ("emit_fasta", "emit_fastq", "pack_4bit", "unpack_4bit", "apply_mask_parity",
               "classify_fasta", "cumsum_i32", "maxscan_i32", "compact", "compact_dense"):
         if path_launches["cli"][k] <= 0:
             raise AssertionError(f"{k} was not launched on the cli path")
+
+    # ---- 7. the streamed device encode ----------------------------------
+    del fasta_inputs, fastq_inputs, two_pass_inputs, fasta_archives, fastq_archives
+    del two_pass_archives, ragged_items
+    t0 = time.perf_counter()
+    stream_inputs = [("gen_fasta_single(1024)", bench.gen_fasta_single(1024), False),
+                     ("gen_fastq(1600000,read_len=150)",
+                      bench.gen_fastq(1_600_000, read_len=150), True)]
+    emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
+          "bytes": {n: len(d) for n, d, _ in stream_inputs}})
+    path_launches["stream"] = stream_phase(card, dev, stream_inputs, opts)
+    del stream_inputs
+    emit({"phase": "launches", "stream_path": path_launches["stream"]})
+    for k in ("emit_fasta", "emit_fastq", "pack_4bit"):
+        if path_launches["stream"][k] <= 0:
+            raise AssertionError(f"{k} was not launched on the stream path")
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
     if bad:

@@ -6,14 +6,16 @@ standard error, exit status and archives equal the JAX package's host
 CLI's, but for the version line.  Inputs under
 ``NAF_TPU_STREAM_THRESHOLD`` (256 MiB) are encoded in memory, larger files
 and pipes by the bounded-memory ``encode_stream``, whose sections spill to
-the temp dir past ``NAF_TPU_SPILL_MB``.  ``--device`` encodes an input in
-memory with the port's CUDA kernels (``encode_device`` on ``cuda``); a
-pipe or a larger file still takes the host ``encode_stream``, counted in
-``device.ROUTES`` as ``encode_host:stream``, until the port has a device
-scan engine.  A failure on the card ends the CLI with an error.  Only the
-library zstd engine is ported: ``--engine native`` (and ``device``, which
-the reference demotes to it) ends with an error.  Without ``--device``
-nothing here loads torch.
+the temp dir past ``NAF_TPU_SPILL_MB``.  ``--device`` runs the port's CUDA
+kernels: an input under the threshold in memory (``encode_device`` on
+``cuda``), a pipe or a larger file through ``encode_stream`` with the
+device scan engine (``parallel.stream.DeviceScanEngine``) in chunks of
+``NAF_TPU_DEVICE_CHUNK`` (64 MiB), counted in ``device.ROUTES`` as
+``encode_device:stream``.  ``--extended`` and an ``--engine`` other than
+``zstd`` always encode in memory.  A failure on the card ends the CLI with
+an error.  ``--engine native`` compresses with the package's own RFC 8878
+encoder; ``--engine device`` is demoted to it, as in the reference CLI.
+Without ``--device`` nothing here loads torch.
 """
 
 from __future__ import annotations
@@ -335,9 +337,6 @@ def main(argv: list[str] | None = None) -> int:
         _die("'-c' and '-o' can't be used together")
     if opts.well_formed and opts.strict:
         _die("'--well-formed' and '--strict' can't be used together")
-    if opts.engine != "zstd":
-        _die(f"--engine {opts.engine} is not available in naf_tpu_torch: only the zstd "
-             "library engine is ported")
 
     if in_path is None and sys.stdin.isatty():
         _msg(f'{PROG} error: no input specified, use "{PROG} -h" for help\n')
@@ -405,7 +404,8 @@ def main(argv: list[str] | None = None) -> int:
             in_size = os.fstat(inf.fileno()).st_size
         except OSError:
             pass
-    in_memory = opts.extended or (in_size is not None and in_size < stream_threshold)
+    in_memory = (opts.extended or opts.engine != "zstd"
+                 or (in_size is not None and in_size < stream_threshold))
     try:
         if use_device:
             # torch is imported only here, keeping the default CLI's cold
@@ -470,23 +470,24 @@ class _DeviceError(Exception):
 
 def _encode_device(inf, outf, opts: EncodeOptions, in_memory: bool):
     """``--device``: the input in memory through the CUDA kernels, or a
-    pipe or large file through the host ``encode_stream`` by the named
-    route ``encode_host:stream``."""
+    pipe or large file streamed through them in chunks by the device scan
+    engine (route ``encode_device:stream``)."""
     from ..device import count_route, cuda_device
     from ..parallel.pipeline import encode_device
+    from ..parallel.stream import DeviceScanEngine
 
-    data = inf.read() if in_memory else None
     try:
         dev = cuda_device()
-        if data is not None:
-            blob, stats = encode_device(data, opts, device=dev)
+        if in_memory:
+            blob, stats = encode_device(inf.read(), opts, device=dev)
+            outf.write(blob)
+            return stats
+        count_route("encode_device:stream")
+        chunk = int(os.environ.get("NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
+        return encode_stream(inf, outf, opts, chunk_size=chunk,
+                             engine=DeviceScanEngine(device=dev))
     except (RuntimeError, OSError) as e:
         raise _DeviceError(f"device encode failed: {e}") from None
-    if data is None:
-        count_route("encode_host:stream")
-        return encode_stream(inf, outf, opts)
-    outf.write(blob)
-    return stats
 
 
 if __name__ == "__main__":

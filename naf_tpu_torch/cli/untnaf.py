@@ -6,9 +6,10 @@ standard error and exit status equal the JAX package's host CLI's for
 every output type, but for the version line.  ``--device`` renders FASTA
 and FASTQ with the port's CUDA kernels (``fasta_device``,
 ``fastq_device`` on ``cuda``); a failure there ends the CLI with an error,
-it never carries on on the host.  Only the library zstd engine is ported:
-``--engine native`` ends with an error.  Without ``--device`` nothing here
-loads torch.
+it never carries on on the host.  ``--engine native`` decompresses with the
+package's own RFC 8878 decoder (``codec.set_decode_engine``), also under
+``--device``, whose render then takes what it decompressed.  Without
+``--device`` nothing here loads torch.
 """
 
 from __future__ import annotations
@@ -104,7 +105,6 @@ def main(argv: list[str] | None = None) -> int:
     print_version = False
     use_mask = True
     use_device = False
-    engine = "zstd"
     line_length: int | None = None
 
     def set_out_type(t: int) -> None:
@@ -157,7 +157,9 @@ def main(argv: list[str] | None = None) -> int:
                     i += 1
                     if argv[i] not in ("zstd", "native"):
                         _die(f'unknown engine "{argv[i]}"')
-                    engine = argv[i]
+                    from ..codec import set_decode_engine
+
+                    set_decode_engine(argv[i])
                     i += 1
                     continue
                 if a in ("--binary-stdout", "--binary-stderr", "--binary"):
@@ -208,9 +210,6 @@ def main(argv: list[str] | None = None) -> int:
 
     if force_stdout and out_path is not None:
         _die("-c and -o arguments can't be used together")
-    if engine != "zstd":
-        _die(f"--engine {engine} is not available in naf_tpu_torch: only the zstd library "
-             "engine is ported")
 
     if in_path is None and sys.stdin.isatty():
         _msg(f'{PROG} error: no input specified, use "{PROG} -h" for help\n')

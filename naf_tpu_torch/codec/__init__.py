@@ -1,5 +1,5 @@
-"""The zstd section codec (the port's copy of ``naf_tpu/codec``, library
-engine only)."""
+"""The zstd section codec (the port's copy of ``naf_tpu/codec``: the
+library engine and the native engine)."""
 
 from .zstd_backend import (
     MAX_CLEVEL,
@@ -11,12 +11,19 @@ from .zstd_backend import (
     SpilledPayload,
     SpillingSectionCompressor,
     check_engine,
+    compress_part_native,
     compress_section,
     compress_section_blocked,
+    compress_section_native,
+    compress_section_parts,
+    decode_engine,
     decompress_section,
     decompress_section_blocked,
+    decompress_section_native,
     iter_decompress,
     parse_blocked_index,
+    set_decode_engine,
+    stitch_section_frame,
 )
 
 __all__ = [
@@ -26,4 +33,7 @@ __all__ = [
     "compress_section", "compress_section_blocked",
     "decompress_section", "decompress_section_blocked",
     "iter_decompress", "parse_blocked_index",
+    "compress_section_native", "compress_part_native", "compress_section_parts",
+    "stitch_section_frame", "decompress_section_native",
+    "set_decode_engine", "decode_engine",
 ]

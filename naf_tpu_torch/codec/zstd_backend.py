@@ -4,22 +4,28 @@ Each NAF section is one zstd frame stored minus its 4-byte frame magic
 (compressor parity: ennaf/src/compressor.c:150-173; decoder re-injects it,
 unnaf/src/utils.c:144-150).
 
-The port's copy of ``naf_tpu/codec/zstd_backend.py``, cut down to the
-library engine: section compression and decompression, one-shot and
-streaming, and the extended format's blocked sections.  Compression goes
-through the system libzstd (``zstd_compat``) where it exists, as the JAX
-package's does through ``naf_tpu/codec/syszstd.py``, so both write the same
-frames; else through the ``zstandard`` package.  Decompression goes through
-the package where it imports, else through ``zstd_compat``.  The JAX
-package's own entropy engines (``engine="native"``, ``engine="device"``)
-are not ported and raise ``NotImplementedError``.
+The port's copy of ``naf_tpu/codec/zstd_backend.py``: section compression
+and decompression, one-shot and streaming, and the extended format's
+blocked sections, with two entropy engines.  The library engine
+(``engine="zstd"``) compresses through the system libzstd (``zstd_compat``)
+where it exists, as the JAX package's does through
+``naf_tpu/codec/syszstd.py``, so both write the same frames, else through
+the ``zstandard`` package; it decompresses through the package where it
+imports, else through ``zstd_compat``.  The native engine
+(``engine="native"``, ``set_decode_engine("native")``) is the RFC 8878
+encoder and decoder of ``native/naf_zstd.cpp`` in the port's host library.
+The JAX package's device match-finder engine (``engine="device"``) is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import ctypes as ct
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional
+
+import numpy as np
 
 from .. import zstd_compat
 from ..format.constants import ZSTD_FRAME_MAGIC
@@ -37,16 +43,17 @@ WINDOWLOG_MAX = 31
 MIN_CLEVEL = -131072
 MAX_CLEVEL = 22
 
-#: the JAX package's entropy engines, which the port does not have
-UNPORTED_ENGINES = ("native", "device")
+#: the JAX package's entropy engine that the port does not have
+UNPORTED_ENGINES = ("device",)
 
 
 def check_engine(engine: str) -> None:
     """Raise for an entropy engine the port does not have."""
     if engine in UNPORTED_ENGINES:
         raise NotImplementedError(
-            f"engine={engine!r} (naf_tpu's own zstd engine) is not ported to naf_tpu_torch")
-    if engine != "zstd":
+            f"engine={engine!r} (naf_tpu's device match-finder engine) is not ported to "
+            "naf_tpu_torch")
+    if engine not in ("zstd", "native"):
         raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -189,8 +196,44 @@ def compress_section(data, level: int = 1, window_log: int = 0, threads: int = 0
     return c.finish()
 
 
+_DECODE_ENGINE = "zstd"
+
+
+def set_decode_engine(name: str) -> None:
+    """Select the decode-side entropy engine: 'zstd' (library, default) or
+    'native' (the RFC 8878 decoder in native/naf_zstd.cpp; reference parity
+    unnaf/src/input.c:260-292)."""
+    global _DECODE_ENGINE
+    if name not in ("zstd", "native"):
+        raise ValueError(f"unknown decode engine {name!r}")
+    _DECODE_ENGINE = name
+
+
+def decode_engine() -> str:
+    return _DECODE_ENGINE
+
+
+def decompress_section_native(payload: bytes, uncompressed_size: int) -> bytes:
+    """One-shot decode with the native zstd decoder."""
+    lib = _native_lib()
+    frame = ZSTD_FRAME_MAGIC + payload
+    src = np.frombuffer(frame, np.uint8)
+    # +32 slack: the decoder's wide match copies overshoot the logical cap
+    # by up to 15 bytes (overwritten or ignored; never returned)
+    out = np.empty(max(uncompressed_size, 1) + 32, np.uint8)
+    w = lib.naf_zstd_decompress(src.ctypes.data_as(ct.c_void_p), src.size,
+                                out.ctypes.data_as(ct.c_void_p), uncompressed_size)
+    if w == (1 << 64) - 1:
+        raise RuntimeError("native decode: corrupt zstd stream")
+    if w != uncompressed_size:
+        raise RuntimeError("section decompression size mismatch")
+    return out[:w].tobytes()
+
+
 def decompress_section(payload: bytes, uncompressed_size: int) -> bytes:
     """One-shot decode of a magic-stripped section payload."""
+    if _DECODE_ENGINE == "native":
+        return decompress_section_native(payload, uncompressed_size)
     dctx = _decompress_lib().ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
     out = dctx.decompress(ZSTD_FRAME_MAGIC + payload,
                           max_output_size=max(uncompressed_size, 1))
@@ -202,14 +245,44 @@ def decompress_section(payload: bytes, uncompressed_size: int) -> bytes:
 class SectionDecompressor:
     """Streaming decoder for a magic-stripped section payload: `feed()`
     compressed chunks (the frame magic is put back in front of the first),
-    get the decompressed bytes each one completes."""
+    get the decompressed bytes each one completes.
 
-    def __init__(self):
+    With the native decode engine selected and both totals given, the
+    input is buffered and decoded one-shot when the last compressed byte
+    arrives (the native decoder has no incremental entry point); callers
+    that feed until ``total_in`` bytes are in work unchanged, at the cost
+    of section-sized memory.  ``force_library`` keeps the library's
+    incremental decode, for callers that stop at an output prefix.
+    """
+
+    def __init__(self, total_in: Optional[int] = None, total_out: Optional[int] = None,
+                 force_library: bool = False):
+        self._done = False
+        self._native = (not force_library and _DECODE_ENGINE == "native"
+                        and total_in is not None and total_out is not None)
+        if self._native:
+            self._total_in, self._total_out = total_in, total_out
+            self._got = 0
+            self._parts: list = []
+            return
         dctx = _decompress_lib().ZstdDecompressor(max_window_size=1 << WINDOWLOG_MAX)
         self._obj = dctx.decompressobj()
         self._first = True
 
     def feed(self, chunk: bytes) -> bytes:
+        if self._done:
+            # one-shot contract: a feed after the last chunk would hand a
+            # lone fragment to the native decoder
+            raise RuntimeError("section decompressor exhausted")
+        if self._native:
+            self._parts.append(chunk)
+            self._got += len(chunk)
+            if self._got < self._total_in:
+                return b""
+            payload = b"".join(self._parts)
+            self._parts = []
+            self._done = True
+            return decompress_section_native(payload, self._total_out)
         if self._first:
             chunk = ZSTD_FRAME_MAGIC + chunk
             self._first = False
@@ -248,10 +321,10 @@ def compress_section_blocked(data, level: int = 1, window_log: int = 0,
                              engine: str = "zstd") -> bytes:
     """Compress `data` as independently-framed blocks with an index."""
     check_engine(engine)
+    one = compress_section_native if engine == "native" else compress_section
     mv = memoryview(data)
     blocks = [mv[i:i + block_bytes] for i in range(0, mv.nbytes, block_bytes)] or [mv[:0]]
-    frames = _pool_map(lambda b: compress_section(b, level=level, window_log=window_log),
-                       blocks, threads)
+    frames = _pool_map(lambda b: one(b, level=level, window_log=window_log), blocks, threads)
     out = [encode_vle(len(frames))]
     for b, f in zip(blocks, frames):
         out.append(encode_vle(b.nbytes))
@@ -283,6 +356,127 @@ def decompress_section_blocked(payload: bytes, uncompressed_size: int,
     if len(out) != uncompressed_size:
         raise RuntimeError("blocked section decompression size mismatch")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Native entropy engine (native/naf_zstd.cpp): the package's own RFC 8878
+# encoder (greedy LZ77, Huffman literals, predefined-FSE sequences) and
+# decoder.  It writes standard zstd frames, so archives stay decodable by
+# the reference unnaf and by the library engine alike.
+# ---------------------------------------------------------------------------
+
+_native_bound = False
+
+
+def _native_lib():
+    """The host library with the entropy engine's entry points bound."""
+    global _native_bound
+    from ..native import host
+
+    lib = host._load()
+    if lib is None:
+        raise RuntimeError("native engine unavailable")
+    if not _native_bound:
+        u64, i32, p = ct.c_uint64, ct.c_int32, ct.c_void_p
+        lib.naf_zstd_decompress.restype = u64
+        lib.naf_zstd_decompress.argtypes = [p, u64, p, u64]
+        for fn in (lib.naf_zstd_compress_ex, lib.naf_zstd_compress_part):
+            fn.restype = u64
+            fn.argtypes = [p, u64, p, u64, i32, i32]
+        lib.naf_zstd_window_log_for.restype = i32
+        lib.naf_zstd_window_log_for.argtypes = [i32, i32]
+        _native_bound = True
+    return lib
+
+
+def _native_compress(fn, mv: memoryview, level: int, window_log: int) -> bytes:
+    src = np.frombuffer(mv, np.uint8) if mv.nbytes else None
+    cap = mv.nbytes + mv.nbytes // 4 + 4096
+    dst = np.empty(cap, np.uint8)
+    w = fn(src.ctypes.data_as(ct.c_void_p) if src is not None else None, mv.nbytes,
+           dst.ctypes.data_as(ct.c_void_p), cap, int(level), int(window_log))
+    if w == 0:
+        raise RuntimeError("native engine buffer overflow")
+    return dst[:w].tobytes()
+
+
+def compress_section_native(data, level: int = 1, window_log: int = 0) -> bytes:
+    """Compress one section with the native engine; magic-stripped frame.
+
+    ``level`` follows the zstd scale (-131072..22; parity target
+    ennaf/src/ennaf.c:216-245); ``window_log`` mirrors ``--long N``
+    (compressor.c:7-21): > 0 widens the match window and enables the
+    long-distance table.
+    """
+    frame = _native_compress(_native_lib().naf_zstd_compress_ex, memoryview(data), level,
+                             window_log)
+    if frame[:4] != ZSTD_FRAME_MAGIC:
+        raise RuntimeError("native engine produced an invalid frame")
+    return frame[4:]
+
+
+def compress_part_native(data, level: int = 1, window_log: int = 0) -> bytes:
+    """One part of a stitched single frame: a bare zstd block chain.
+
+    No frame header, no last-block bit, fresh (invalid) rep-offset state:
+    the chain decodes identically after any predecessor, so parts
+    compressed on different threads or hosts stitch into one valid frame
+    (``stitch_section_frame``).  Empty input -> empty chain.
+    """
+    mv = memoryview(data)
+    if mv.nbytes == 0:
+        return b""
+    return _native_compress(_native_lib().naf_zstd_compress_part, mv, level, window_log)
+
+
+def _window_descriptor(window: int) -> int:
+    """Smallest zstd Window_Descriptor byte covering ``window`` bytes."""
+    for exp in range(0, 32):
+        base = 1 << (10 + exp)
+        for mantissa in range(8):
+            if base + (base >> 3) * mantissa >= window:
+                return (exp << 3) | mantissa
+    return (21 << 3)                      # 2 GB, unreachable in practice
+
+
+def stitch_section_frame(chains, part_sizes, level: int = 1, window_log: int = 0) -> bytes:
+    """Per-part block chains -> one magic-stripped zstd frame.
+
+    ``chains[i]`` is ``compress_part_native(parts[i])``; ``part_sizes[i]``
+    the part's uncompressed length.  The frame is a header (window sized to
+    the largest possible offset: min(max part, the level's match window)),
+    the chains one after the other, and an empty raw last block.  The
+    reference decoder injects exactly one frame magic per section
+    (unnaf/src/input.c:278), so independent blocks inside one frame are the
+    only parallel layout it decodes.
+    """
+    lib = _native_lib()
+    total = sum(int(s) for s in part_sizes)
+    max_part = max((int(s) for s in part_sizes), default=0)
+    wlog = int(lib.naf_zstd_window_log_for(int(level), int(window_log)))
+    window = min(max_part, 1 << wlog) if max_part else 1024
+    out = bytearray()
+    out.append(0xC0)                      # FCS_Flag=3 (8 bytes), no flags
+    out.append(_window_descriptor(window))
+    out += int(total).to_bytes(8, "little")
+    for ch in chains:
+        out += ch
+    out += b"\x01\x00\x00"                # empty raw block, last bit set
+    return bytes(out)
+
+
+def compress_section_parts(parts, level: int = 1, window_log: int = 0,
+                           threads: int = 0) -> bytes:
+    """Thread-parallel single-frame compression of independent parts.
+
+    Returns a magic-stripped frame that the reference ``unnaf``, the
+    library engine and the native decoder all decode.  ``threads`` caps
+    the pool (0 = cpu count); the ctypes calls release the GIL, so the
+    parts compress in parallel.
+    """
+    parts = [memoryview(p) for p in parts]
+    chains = _pool_map(lambda p: compress_part_native(p, level, window_log), parts, threads)
+    return stitch_section_frame(chains, [p.nbytes for p in parts], level, window_log)
 
 
 # ---------------------------------------------------------------------------

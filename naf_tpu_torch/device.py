@@ -11,7 +11,10 @@ run each classify as device code inside its emit kernel, counted as the
 emit; the two-pass encode launches the standalone classifies.
 ``ROUTES`` counts which way the encode and decode entry points went: the
 fused or two-pass device encode, the uniform or ragged device render, or a
-named host route.
+named host route.  A streamed encode (``tnaf --device`` on a pipe or a
+large file) counts ``encode_device:stream`` once, and each of its pieces
+``stream_device``, ``stream_device:two_pass:<why>`` or
+``stream_host:<why>`` (``parallel/stream.py`` names the reasons).
 """
 
 from __future__ import annotations

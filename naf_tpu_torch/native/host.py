@@ -3,14 +3,17 @@
 The port's copy of ``naf_tpu/native/__init__.py``: a fused single-pass
 FASTA/FASTQ scanner and a fused decode renderer on the host, in place of
 the numpy implementations in ``pipeline.parser`` and ``ops``, which stay as
-the oracle and as the path without a C++ toolchain.
+the oracle and as the path without a C++ toolchain.  The same library
+holds the native entropy engine (``naf_zstd.cpp``, an RFC 8878 encoder and
+decoder), which ``codec.zstd_backend`` binds for ``engine="native"``.
 
-At first use g++ builds ``naf_native.cpp`` into
-``build/naf_tpu_torch/host/<hash of the source and flags>/`` in the checkout
-(beside the kernels' library), not into the source tree.  The original's
-multithreaded render is not copied (see the note in ``naf_native.cpp``):
-``render`` always takes the one-thread path.  ``NAF_TPU_TORCH_NO_NATIVE=1``
-turns the library off, and every caller takes its numpy path.
+At first use g++ builds ``naf_native.cpp`` and ``naf_zstd.cpp`` into one
+library under ``build/naf_tpu_torch/host/<hash of the sources and flags>/``
+in the checkout (beside the kernels' library), not into the source tree.
+The original's multithreaded render is not copied (see the note in
+``naf_native.cpp``): ``render`` always takes the one-thread path.
+``NAF_TPU_TORCH_NO_NATIVE=1`` turns the library off, and every caller takes
+its numpy path (the native entropy engine then raises).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 
 from .build import BUILD_ROOT
 
-SOURCE = Path(__file__).resolve().parent / "naf_native.cpp"
+SOURCES = [Path(__file__).resolve().parent / name for name in ("naf_native.cpp", "naf_zstd.cpp")]
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
 
 _lib: Optional[ct.CDLL] = None
@@ -72,14 +75,16 @@ def _build() -> Optional[Path]:
     if cxx is None:
         return None
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     out_dir = BUILD_ROOT / "host" / h.hexdigest()[:16]
     so = out_dir / "libnaf_native.so"
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libnaf_native.{os.getpid()}.tmp.so"
-    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True)
+    r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
+                       capture_output=True)
     if r.returncode != 0 or not tmp.exists():
         return None
     os.replace(tmp, so)

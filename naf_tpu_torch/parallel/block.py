@@ -194,14 +194,17 @@ def stats_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq
 
 
 def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, fastq: bool,
-               pack_nibbles: bool) -> list:
+               pack_nibbles: bool, parity_base: int = 0) -> list:
     """Pass 2 on one block: ``_emit_fn`` for one device.
 
     ``masks`` and ``stats`` are what ``stats_block`` returned for this
     block; the counts size every output exactly.  Nucleotide streams are
-    packed to nibbles (``pack_nibbles``) from parity 0, since no chars come
-    before the one block; protein and text keep the compacted bytes and
-    store no mask.  Returns the ``em_np`` list that ``_stitch_and_build``
+    packed to nibbles (``pack_nibbles``) at the global nibble parity
+    ``parity_base`` (the char count before this block: 0 in memory, the
+    stream's count so far for a chunk of a stream): on odd parity the
+    block's first char pairs with the previous chunk's last, so chars[1:]
+    are packed and ``first_code`` is the code of chars[0].  Protein and
+    text keep the compacted bytes and store no mask.  Returns the ``em_np`` list that ``_stitch_and_build``
     takes: [packed, first_code, cnt, id_vals, com_vals, qual_vals, seq_lens,
     id_lens, com_lens, qual_lens, run_lens], host arrays with one row,
     fetched from the device as one byte buffer and one i32 buffer holding
@@ -211,7 +214,7 @@ def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, 
     cnt, n_rec = stats["count"], stats["n_rec"]
     seq_c, cnt_d = S.compact_best(s["stream_keep"], s["stream_val"], dense=True)
     if pack_nibbles:
-        packed = pack_4bit(seq_c, shift=0, out_len=(cnt + 1) // 2 + 1)
+        packed = pack_4bit(seq_c, shift=int(parity_base) % 2, out_len=(cnt + 1) // 2 + 1)
         first_code = device_tables(seq_type, b.device)["nuc_code"][seq_c[:1].long()]
         m_cap = max(stats["n_runs"], 2)
         lower = (seq_c >= 96) & (_arange(seq_c.numel(), seq_c) < cnt_d)

@@ -134,7 +134,8 @@ class _Prefetcher:
     high-water mark bounds memory.
     """
 
-    def __init__(self, f: BinaryIO, csize: int, high_water: int):
+    def __init__(self, f: BinaryIO, csize: int, high_water: int,
+                 total_out: Optional[int] = None):
         self._win = _ChunkWindow()
         self._dropped = 0
         self._lock = threading.Lock()
@@ -145,7 +146,7 @@ class _Prefetcher:
         self._high = max(high_water, 8 << 20)
 
         def run():
-            d = SectionDecompressor()
+            d = SectionDecompressor(csize, total_out)
             left = csize
             try:
                 while left > 0:
@@ -436,14 +437,16 @@ class Decoder:
 
     # ---- record ranges --------------------------------------------------------
 
-    def _range_chars(self, merged: np.ndarray, r0: int, r1: int) -> tuple[int, int, int]:
-        """(csize, c0, c1): the sequence section's compressed size and the
-        char range of records [r0, r1), the file at the section's payload."""
+    def _range_chars(self, merged: np.ndarray, r0: int, r1: int
+                     ) -> tuple[int, int, int, int]:
+        """(csize, total, c0, c1): the sequence section's compressed size, its
+        char count and the char range of records [r0, r1), the file at the
+        section's payload."""
         total, csize = self.r.section_sizes("sequence")
         rec_ends = np.cumsum(merged.astype(np.int64))
         if int(rec_ends[-1]) != total or not self.is_nucleotide:
             raise DecodeError("range decode requires a regular nucleotide archive")
-        return csize, int(rec_ends[r0 - 1]) if r0 > 0 else 0, int(rec_ends[r1 - 1])
+        return csize, total, int(rec_ends[r0 - 1]) if r0 > 0 else 0, int(rec_ends[r1 - 1])
 
     def _render_batch(self, mode: int, r0: int, r1: int, c0: int, c1: int, meta,
                       seq_slice: np.ndarray, *, mask_units=None,
@@ -474,12 +477,12 @@ class Decoder:
         if r1 <= r0:
             return b""
         meta = self._range_metadata(self.masking)
-        csize, c0, c1 = self._range_chars(meta[2], r0, r1)
-        seq_slice = self._section_byte_slice(csize, c0 // 2, (c1 + 1) // 2)
+        csize, total, c0, c1 = self._range_chars(meta[2], r0, r1)
+        seq_slice = self._section_byte_slice(csize, (total + 1) // 2, c0 // 2, (c1 + 1) // 2)
         return self._render_batch(native.MODE_FASTA, r0, r1, c0, c1, meta, seq_slice,
                                   mask_units=self._batch_mask_units(meta[3], c0, c1))
 
-    def _section_byte_slice(self, csize: int, s0: int, s1: int,
+    def _section_byte_slice(self, csize: int, total_out: int, s0: int, s1: int,
                             drain: bool = False) -> np.ndarray:
         """Decompressed bytes [s0, s1) of the section at the current file
         position.  Extended archives touch only the blocks overlapping the
@@ -502,7 +505,10 @@ class Decoder:
                 if pos >= s1:
                     break
             return np.frombuffer(b"".join(pieces), np.uint8)
-        d = SectionDecompressor()
+        # a prefix read keeps the library's incremental decode even under
+        # the native engine, whose one-shot decoder would decode the whole
+        # section for a small prefix
+        d = SectionDecompressor(csize, total_out, force_library=s1 < total_out)
         left = csize
         out = bytearray()
         while len(out) < s1 and left > 0:
@@ -532,10 +538,11 @@ class Decoder:
         if r1 <= r0:
             return b""
         meta = self._range_metadata(False)
-        csize, c0, c1 = self._range_chars(meta[2], r0, r1)
-        seq_slice = self._section_byte_slice(csize, c0 // 2, (c1 + 1) // 2, drain=True)
-        _, qcsize = self.r.section_sizes("quality")
-        qual_slice = self._section_byte_slice(qcsize, c0, c1)
+        csize, total, c0, c1 = self._range_chars(meta[2], r0, r1)
+        seq_slice = self._section_byte_slice(csize, (total + 1) // 2, c0 // 2, (c1 + 1) // 2,
+                                             drain=True)
+        qtotal, qcsize = self.r.section_sizes("quality")
+        qual_slice = self._section_byte_slice(qcsize, qtotal, c0, c1)
         return self._render_batch(native.MODE_FASTQ, r0, r1, c0, c1, meta, seq_slice,
                                   qual=qual_slice)
 
@@ -752,7 +759,8 @@ class Decoder:
                 self._decode_payload(self.r.f.read(csize), expect), np.uint8)
             outf.write(self.fasta(masking))
             return
-        pf = _Prefetcher(self.r.f, csize, high_water=4 * (batch_chars // 2))
+        pf = _Prefetcher(self.r.f, csize, high_water=4 * (batch_chars // 2),
+                         total_out=(total + 1) // 2)
         try:
             for r0, r1, c0, c1 in self._batches(rec_ends, batch_chars):
                 pf.wait_until((c1 + 1) // 2)
@@ -785,7 +793,8 @@ class Decoder:
             return
         seq_payload = self.r.f.read(csize)   # compressed seq stays in RAM
         qtotal, qcsize = self.r.section_sizes("quality")
-        ds, dq = SectionDecompressor(), SectionDecompressor()
+        ds = SectionDecompressor(csize, (total + 1) // 2)
+        dq = SectionDecompressor(qcsize, qtotal)
         swin, qwin = _ChunkWindow(), _ChunkWindow()
         s_off = 0          # compressed seq consumed
         q_left = qcsize

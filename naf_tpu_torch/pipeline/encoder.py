@@ -4,8 +4,11 @@ The port's copy of ``naf_tpu/pipeline/encoder.py``: ``encode`` parses an
 input held in memory (``pipeline.parser``) and ``build_archive`` writes the
 zstd sections and the container; the device encode
 (``parallel.pipeline.encode_device``) shares ``build_archive``, so both give
-the same archive bytes.  Only the library zstd engine is ported:
-``engine="native"`` and ``engine="device"`` raise ``NotImplementedError``.
+the same archive bytes.  ``engine="native"`` compresses every section with
+the native entropy engine (``codec.compress_section_native``), a large SEQ
+section in thread-parallel parts stitched into one frame
+(``codec.compress_section_parts``); ``engine="device"`` (naf_tpu's device
+match-finder) is not ported and raises ``NotImplementedError``.
 
 Every archive produced here is decodable by the reference `unnaf`.
 """
@@ -17,12 +20,17 @@ from typing import Optional
 
 import numpy as np
 
-from ..codec import SectionCompressor, check_engine, compress_section_blocked
+from ..codec import (SectionCompressor, check_engine, compress_section_blocked,
+                     compress_section_native, compress_section_parts)
 from ..format import constants as C
 from ..format.container import NafArchive, NafHeader, Section, naf_bytes
 from ..ops.mask import mask_units_from_bytes
 from ..ops.nibble_np import pack_4bit_np
 from . import parser as P
+
+#: native-engine SEQ payloads at least this large split into thread-parallel
+#: single-frame parts (history-free block chains; codec.zstd_backend)
+PARTS_MIN_BYTES = 16 << 20
 
 
 @dataclass
@@ -39,7 +47,7 @@ class EncodeOptions:
     threads: int = 0                       # zstd worker threads per section
     extended: bool = False                 # tnaf extended format (blocked SEQ)
     block_bytes: int = 4 << 20             # extended: block size (packed bytes)
-    engine: str = "zstd"                   # "zstd" (library); no other is ported
+    engine: str = "zstd"                   # "zstd" (library) | "native" (ours)
     temp_dir: Optional[str] = None         # spill compressed sections here
     temp_name: str = "tnaf"                # temp file prefix (--name)
     keep_temp_files: bool = False
@@ -136,6 +144,10 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
     level, threads = opts.level, opts.threads
 
     def compress_bytes(buf, window_log: int = 0) -> Section:
+        if opts.engine == "native":
+            mv = memoryview(buf)
+            return Section(uncompressed_size=mv.nbytes,
+                           payload=compress_section_native(mv, level=level))
         sc = SectionCompressor(level=level, window_log=window_log, threads=threads)
         sc.write(buf)
         return Section(uncompressed_size=sc.uncompressed_size, payload=sc.finish())
@@ -144,8 +156,19 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
         if opts.extended:
             return compress_section_blocked(
                 buf, level=level, window_log=opts.long_window_log,
-                threads=threads, block_bytes=opts.block_bytes)
+                threads=threads, block_bytes=opts.block_bytes, engine=opts.engine)
         # --long widens the SEQ window only (compressor.c:7-21)
+        if opts.engine == "native":
+            n = memoryview(buf).nbytes
+            if threads > 1 and n >= PARTS_MIN_BYTES:
+                # history-free parts of at least 8 MB stitched into one
+                # standard frame: the job split libzstd's own MT mode makes
+                part = max(8 << 20, -(-n // threads))
+                parts = [memoryview(buf)[i:i + part] for i in range(0, n, part)]
+                return compress_section_parts(parts, level=level,
+                                              window_log=opts.long_window_log,
+                                              threads=threads)
+            return compress_section_native(buf, level=level, window_log=opts.long_window_log)
         sc = SectionCompressor(level=level, window_log=opts.long_window_log,
                                threads=threads)
         sc.write(buf)
@@ -185,7 +208,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                 uncompressed_size=int(res.qual.size),
                 payload=compress_section_blocked(
                     res.qual.tobytes(), level=level, threads=threads,
-                    block_bytes=opts.block_bytes))
+                    block_bytes=opts.block_bytes, engine=opts.engine))
         else:
             jobs["quality"] = lambda: compress_bytes(res.qual.tobytes())
 

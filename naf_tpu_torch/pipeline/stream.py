@@ -17,8 +17,8 @@ length):
 
 Produces archives byte-identical to ``encoder.encode`` for the same input
 and options.  ``tnaf`` takes this path for pipes and for files of
-``NAF_TPU_STREAM_THRESHOLD`` (256 MiB) or more, ``--device`` included
-until the port has a device scan engine.
+``NAF_TPU_STREAM_THRESHOLD`` (256 MiB) or more; with ``--device`` the
+pieces go through ``parallel.stream.DeviceScanEngine`` (``engine=``).
 
 Reference parity: ennaf/src/process.c 1 MB parse buffers; compressor.c
 2 MB section buffers + temp-file spill.

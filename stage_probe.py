@@ -2,7 +2,7 @@
 """Where a device encode and decode spend their time, stage by stage, on one
 CUDA card.
 
-    python3 stage_probe.py [--reps 5] [--inputs fused|two_pass]
+    python3 stage_probe.py [--reps 5] [--inputs fused|two_pass|stream]
 
 ``fused`` (the default): bench.py's gen_fastq(500_000, read_len=150),
 gen_fastq(250_000) and gen_fasta_single(128), whose encodes take the fused
@@ -14,8 +14,14 @@ render.  Times each stage of ``encode_device`` and of ``fasta_device`` /
 of --reps), the whole calls, and the host encode() and Decoder for
 comparison.  Then traces one whole encode and one whole decode with
 ``torch.profiler`` and prints the device's busy time (kernels and copies)
-over the wall time of the call.  One JSON line per input and direction;
-the last line says which card, as nvidia-smi names it.
+over the wall time of the call.  ``stream``: bench.py's
+gen_fasta_single(1024) and gen_fastq(1_600_000, read_len=150) through
+``encode_stream`` with ``DeviceScanEngine`` in 64 MiB chunks, and with the
+host scanner at its default chunk: the whole streams (median of --reps),
+then one staged run of each, whose stages are summed over the pieces
+(each ends synchronised), and the device's busy share over one stream.
+One JSON line per input and direction; the last line says which card, as
+nvidia-smi names it.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--inputs", choices=("fused", "two_pass"), default="fused")
+    ap.add_argument("--inputs", choices=("fused", "two_pass", "stream"), default="fused")
     args = ap.parse_args()
 
     import bench
@@ -149,6 +155,87 @@ def main() -> int:
               flush=True)
         del outs, render
         torch.cuda.empty_cache()
+
+    def probe_stream(name, data) -> None:
+        """The whole device and host streams, then the stages of one of
+        each, summed over its pieces."""
+        from naf_tpu_torch.codec import zstd_backend as ZB
+        from naf_tpu_torch.native import host as NH
+        from naf_tpu_torch.parallel import stream as PS
+        from naf_tpu_torch.pipeline.stream import encode_stream
+
+        fastq = data[:1] == b"@"
+        engines = []
+
+        def device_stream():
+            engines.append(PS.DeviceScanEngine(device=dev))
+            encode_stream(io.BytesIO(data), io.BytesIO(), opts, chunk_size=64 << 20,
+                          engine=engines[-1])
+
+        def host_stream():
+            encode_stream(io.BytesIO(data), io.BytesIO(), opts)
+
+        whole = {"device_stream": med(device_stream), "host_stream": med(host_stream)}
+        acc: dict = {}
+
+        def timed(key, fn, sync=True):
+            def w(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if sync:
+                        torch.cuda.synchronize()
+                    acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+            return w
+
+        def staged(run, patches) -> dict:
+            acc.clear()
+            saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _, _ in patches]
+            try:
+                for owner, attr, key, sync in patches:
+                    raw = owner.__dict__[attr]
+                    fn = timed(key, raw.__func__ if isinstance(raw, staticmethod) else raw, sync)
+                    setattr(owner, attr, staticmethod(fn) if isinstance(raw, staticmethod)
+                            else fn)
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for owner, attr, raw in saved:
+                    setattr(owner, attr, raw)
+            return {"wall": wall, **acc}
+
+        zstd = (ZB.SectionCompressor, "write", "zstd_write_behind", False)
+        dev_st = staged(device_stream, [
+            (PS, "make_blocks_fastq" if fastq else "make_blocks", "make_blocks", True),
+            (PS, "fused_block_fastq" if fastq else "fused_block", "kernels", True),
+            (PS, "parse_fused_fastq" if fastq else "parse_fused_fasta", "fetch_and_parse", True),
+            (PS.DeviceScanEngine, "_passes", "passes", True),
+            (PS.DeviceScanEngine, "_build", "build", True),
+            (PS.DeviceScanEngine, "scan", "scan", True), zstd])
+        dev_st["upload_and_scalars"] = (dev_st["passes"] - dev_st["kernels"]
+                                        - dev_st["fetch_and_parse"])
+        dev_st["scan_other"] = (dev_st["scan"] - dev_st["make_blocks"] - dev_st["passes"]
+                                - dev_st["build"])
+        dev_st["outside_scan"] = dev_st["wall"] - dev_st["scan"]
+        host_st = staged(host_stream, [(NH, "scan", "scan", False), zstd])
+        host_st["outside_scan"] = host_st["wall"] - host_st["scan"]
+        busy = busy_share(device_stream)
+        print(json.dumps({"input": name, "direction": "stream", "bytes": len(data),
+                          "pieces": engines[-1].device_chunks,
+                          "host_pieces": engines[-1].native_chunks, "seconds": whole,
+                          "device_stream_stages": dev_st, "host_stream_stages": host_st,
+                          **busy, "card": card}), flush=True)
+
+    if args.inputs == "stream":
+        for name, make in (("gen_fasta_single(1024)", lambda: bench.gen_fasta_single(1024)),
+                           ("gen_fastq(1600000,read_len=150)",
+                            lambda: bench.gen_fastq(1_600_000, read_len=150))):
+            probe_stream(name, make())
+        print(card)
+        return 0
 
     if args.inputs == "two_pass":
         import chip_smoke as CS

@@ -128,6 +128,17 @@ TNAF_CASES = [
     ("error_missing_input", "dna.fa", ["-c", "no_such.fa"]),
     ("error_temp_dir", "dna.fa", ["-c", "--temp-dir", "no_such_dir", "{in}"]),
     ("help", "dna.fa", ["-h"]),
+    # the native entropy engine; 'device' is demoted to it with a line on stderr
+    ("native_engine", "dna.fa", ["-c", "--engine", "native", "{in}"]),
+    ("native_engine_out_file", "dna.fa", ["--engine", "native", "-o", "out.naf", "{in}"]),
+    ("native_engine_fastq_level", "reads.fq", ["-c", "--engine", "native", "-19", "{in}"]),
+    ("native_engine_stdin_long_threads", "stdin:dna.fa",
+     ["-c", "--engine", "native", "--long", "24", "--threads", "4"]),
+    ("native_engine_protein", "prot.fa", ["-c", "--engine", "native", "--protein", "{in}"]),
+    ("native_engine_extended", "dna.fa",
+     ["-c", "--engine", "native", "--extended", "--block-size", "1", "{in}"]),
+    ("device_engine_demoted", "dna.fa", ["-c", "--engine", "device", "{in}"]),
+    ("device_engine_demoted_fastq", "stdin:reads.fq", ["-c", "--engine", "device", "-3"]),
 ]
 
 
@@ -212,6 +223,9 @@ UNTNAF_CASES = (
        ("dna", ["--fasta", "--seq"]), ("dna", ["--engine", "bogus"]),
        ("dna", ["--range", "x:y"]), ("dna", ["--line-length", "-3"]),
        ("dna", ["--engine", "zstd", "--binary", "--verbose"])]
+    + [(n, ["--engine", "native", *t]) for n, t in (
+        ("dna", []), ("dna", ["--range", "3:11"]), ("dna", ["--sequences"]), ("fastq", []),
+        ("fastq", ["--range", "2:7"]), ("protein", []), ("extended", []))]
 )
 
 
@@ -224,7 +238,9 @@ def test_untnaf_matches(name, args, archives, tmp_path):
 
 @pytest.mark.parametrize("name,args", [("dna", []), ("dna", ["--unmasked-fasta"]),
                                        ("dna_title", ["--line-length", "7"]), ("fastq", []),
-                                       ("protein", []), ("extended", [])])
+                                       ("protein", []), ("extended", []),
+                                       ("dna", ["--engine", "native"]),
+                                       ("fastq", ["--engine", "native"])])
 def test_untnaf_stream_path_matches(name, args, archives, tmp_path):
     """``NAF_TPU_STREAM_THRESHOLD=1``: every file takes stream_fasta /
     stream_fastq, which must give what the whole-buffer render gives."""
@@ -252,7 +268,8 @@ _CHUNKED = ("import functools, sys\n"
 
 @pytest.mark.parametrize("src,args", [("dna.fa", []), ("reads.fq", []),
                                       ("prot.fa", ["--protein"]),
-                                      ("dna.fa", ["--title", "t", "-3", "--no-mask"])])
+                                      ("dna.fa", ["--title", "t", "-3", "--no-mask"]),
+                                      ("dna.fa", ["--engine", "native"])])
 def test_tnaf_stream_path_matches(src, args, files, tmp_path):
     """A file at NAF_TPU_STREAM_THRESHOLD=1 and a pipe take encode_stream:
     at the default chunk and at 1 KiB and 64 KiB chunks the archive is the
@@ -331,25 +348,3 @@ def test_device_without_a_card_fails(tool, args, stdin, files, archives, tmp_pat
                         "failed: device 'cuda' requested but no CUDA device is available\n"
                         ).encode()
     assert not (tmp_path / "out.naf").exists()
-
-
-@pytest.mark.parametrize("args,first", [
-    (["--engine", "native"], b""),
-    (["--engine", "device"], b"tnaf: --engine device is demoted to 'native' "
-                             b"(measured loss on TPU; see README)\n"),
-])
-def test_tnaf_unported_engine_fails(args, first, files, tmp_path):
-    r = subprocess.run(_cmd("naf_tpu_torch", "tnaf") + [*args, "-c", str(files / "dna.fa")],
-                       capture_output=True, env=_env(tmp_path), timeout=300)
-    assert (r.returncode, r.stdout) == (1, b"")
-    assert r.stderr == first + (b"tnaf error: --engine native is not available in "
-                                b"naf_tpu_torch: only the zstd library engine is ported\n")
-
-
-def test_untnaf_unported_engine_fails(archives, tmp_path):
-    r = subprocess.run(_cmd("naf_tpu_torch", "untnaf")
-                       + ["--engine", "native", "-c", str(archives / "dna.naf")],
-                       capture_output=True, env=_env(tmp_path), timeout=300)
-    assert (r.returncode, r.stdout) == (1, b"")
-    assert r.stderr == (b"untnaf error: --engine native is not available in naf_tpu_torch: "
-                        b"only the zstd library engine is ported\n")

@@ -34,8 +34,8 @@ from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device,
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
                          FASTQ_EMIT_CASES, MASK_PARITY_CASES, SCAN_CARD_CASES, SCAN_CASES,
-                         SEQ_TYPES, START_STATES, case_change_behind_tile_start, classify_case,
-                         compact_case, dense_toggles, emit_case, fasta_big_block,
+                         SEQ_TYPES, START_STATES, STREAM_CASES, case_change_behind_tile_start,
+                         classify_case, compact_case, dense_toggles, emit_case, fasta_big_block,
                          fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads,
                          mask_parity_input, ragged_fasta, ragged_fastq, reads_fasta, scan_case,
@@ -400,3 +400,66 @@ def test_two_pass_and_ragged_round_trip_on_card(card, name, data, opts, why):
     assert out == want
     assert D.ROUTES == {"decode_device:ragged:too_many_groups": 1}
     assert D.LAUNCHES["maxscan_i32"] >= 1      # the record lookups; the add scan is the mask's
+
+
+# ---- the streamed encode (parallel/stream.py) on the card ---------------------
+
+def _stream(data: bytes, opts, chunk: int, engine) -> bytes:
+    from naf_tpu_torch.pipeline.stream import encode_stream
+
+    buf = io.BytesIO()
+    encode_stream(io.BytesIO(data), buf, opts, chunk_size=chunk, engine=engine)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("chunk", [257, 1 << 20])
+@pytest.mark.parametrize("name", list(STREAM_CASES))
+def test_stream_engine_on_card(card, name, chunk):
+    """The engine on the card gives the archive it gives on the CPU (which
+    test_torch_stream.py holds against naf_tpu), each piece by the same
+    route."""
+    from naf_tpu_torch.parallel.stream import DeviceScanEngine
+
+    make, kw, _, _, _ = STREAM_CASES[name]
+    data, opts = make(), EncodeOptions(**kw)
+    D.reset_counts()
+    cpu = _stream(data, opts, chunk, DeviceScanEngine("cpu"))
+    cpu_routes = dict(D.ROUTES)
+    D.reset_counts()
+    eng = DeviceScanEngine(card)
+    assert _stream(data, opts, chunk, eng) == cpu == encode(data, opts)[0]
+    assert D.ROUTES == cpu_routes
+    if eng.device_chunks:
+        assert D.LAUNCHES["emit_fastq" if data[:1] == b"@" else "emit_fasta"] >= 1
+        assert D.LAUNCHES["pack_4bit"] >= 1
+
+
+@pytest.mark.parametrize("name", ["giant_record", "odd_masked_fasta", "odd_masked_fastq",
+                                  "reads_fasta"])
+def test_stream_engine_many_chunks_on_card(card, name):
+    """A few MB in 1 MiB chunks: a chromosome-like record continued across
+    chunks, odd parity under mask runs, and a header-dense FASTA whose
+    chunks take the two-pass protocol."""
+    from naf_tpu_torch.parallel.stream import DeviceScanEngine
+    from torch_cases import stream_odd_masked_fasta, stream_odd_masked_fastq
+
+    rng = np.random.default_rng(40)
+    data = {
+        "giant_record": lambda: b">chr\n" + b"".join(
+            rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=80).tobytes()
+            + (b"acgt\n" if i % 1000 < 7 else b"\n") for i in range(80_000)),
+        "odd_masked_fasta": lambda: stream_odd_masked_fasta(seed=41, n_rec=6000),
+        "odd_masked_fastq": lambda: stream_odd_masked_fastq(seed=42, n_rec=20_000),
+        "reads_fasta": lambda: reads_fasta(rng, 40_000),
+    }[name]()
+    opts = EncodeOptions()
+    D.reset_counts()
+    eng = DeviceScanEngine(card)
+    assert _stream(data, opts, 1 << 20, eng) == encode(data, opts)[0]
+    assert eng.device_chunks >= 3 and eng.native_chunks == 0
+    fastq = data[:1] == b"@"
+    assert D.LAUNCHES["emit_fastq" if fastq else "emit_fasta"] >= 3
+    assert D.LAUNCHES["pack_4bit"] >= 3
+    if name == "reads_fasta":
+        assert any(k.startswith("stream_device:two_pass:") for k in D.ROUTES)
+        assert D.LAUNCHES["classify_fasta"] >= 1 and D.LAUNCHES["compact_dense"] >= 1

@@ -817,3 +817,115 @@ def text_fasta(seed: int = 3, n_rec: int = 10) -> bytes:
     pool = np.frombuffer(b"The quick brown fox jumps over 13 lazy dogs.,;:!?()", np.uint8)
     return b"".join(b">t%d words\n%s\n" % (i, rng.choice(pool, size=int(rng.integers(1, 200)))
                                            .tobytes()) for i in range(n_rec))
+
+
+# ---- the streamed device encode (test_torch_stream.py, and on the card) --------
+
+def stream_fasta(rng, n_rec: int, maxlen: int = 300) -> bytes:
+    """Soft-masked records with comments in 61-wide lines."""
+    out = []
+    for i in range(n_rec):
+        s = bytes(rng.choice(list(b"ACGTacgtNnRy-"), size=int(rng.integers(1, maxlen))).tolist())
+        lines = [s[j:j + 61] for j in range(0, len(s), 61)]
+        out.append(b">seq%d comment %d\n" % (i, i) + b"\n".join(lines) + b"\n")
+    return b"".join(out)
+
+
+def stream_fastq(rng, n_rec: int, qual_lo: int = 33, qual_hi: int = 74) -> bytes:
+    """Ragged reads with comments, some bases lowercase."""
+    out = []
+    for i in range(n_rec):
+        n = int(rng.integers(1, 120))
+        s = bytes(rng.choice(list(b"ACGTacgtn"), size=n).tolist())
+        q = bytes(rng.integers(qual_lo, qual_hi, size=n, dtype=np.uint8).tolist())
+        out.append(b"@read%d some comment\n" % i + s + b"\n+\n" + q + b"\n")
+    return b"".join(out)
+
+
+def _case_runs(rng, codes: np.ndarray, max_run: int) -> np.ndarray:
+    """``codes`` in alternating upper and lower case runs of 1..max_run."""
+    lower = np.zeros(codes.size, bool)
+    pos, on = 0, bool(rng.integers(2))
+    while pos < codes.size:
+        n = int(rng.integers(1, max_run))
+        lower[pos:pos + n] = on
+        on, pos = not on, pos + n
+    return np.where(lower, codes | 0x20, codes).astype(np.uint8)
+
+
+def stream_odd_masked_fasta(seed: int = 30, n_rec: int = 24) -> bytes:
+    """Records of odd length, so the nibble parity flips from record to
+    record and chunks start at odd parity, under case runs of up to 700
+    chars, so mask runs cross chunk edges."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_rec):
+        n = 2 * int(rng.integers(20, 600)) + 1
+        s = _case_runs(rng, rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n), 700).tobytes()
+        out.append(b">r%d\n" % i + b"".join(s[j:j + 70] + b"\n" for j in range(0, n, 70)))
+    return b"".join(out)
+
+
+def stream_odd_masked_fastq(seed: int = 31, n_rec: int = 150) -> bytes:
+    """Reads of odd length under case runs that run across reads."""
+    rng = np.random.default_rng(seed)
+    lens = 2 * rng.integers(10, 80, size=n_rec) + 1
+    codes = _case_runs(rng, rng.choice(np.frombuffer(b"ACGT", np.uint8), size=int(lens.sum())),
+                       400)
+    out, pos = [], 0
+    for i, n in enumerate(lens):
+        q = rng.integers(33, 74, size=n, dtype=np.uint8).tobytes()
+        out.append(b"@q%d\n%s\n+\n%s\n" % (i, codes[pos:pos + n].tobytes(), q))
+        pos += n
+    return b"".join(out)
+
+
+def _giant_record(seed: int = 1) -> bytes:
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(list(b"ACGTacgt"), size=20000)
+    return b">chr1 giant\n" + b"\n".join(bytes(seq[j:j + 63].tolist())
+                                         for j in range(0, seq.size, 63)) + b"\n"
+
+
+def _giant_line(seed: int = 2) -> bytes:
+    return b">x\n" + bytes(np.random.default_rng(seed).choice(list(b"ACGTN"), size=30000)
+                           .tolist()) + b"\n"
+
+
+def _rna() -> bytes:
+    return stream_fasta(np.random.default_rng(3), 12).replace(b"T", b"U").replace(b"t", b"u")
+
+
+STREAM_EDGES = [b">\n", b">", b">a\nACGT", b">a\n>b\n\n>c\nAC\n",
+                b">i b\nACGTRYKMSWBDHVNacgtrykmswbdhvn\nZZ!!QQ\nACGT\n"]
+
+#: name -> (input, EncodeOptions keywords, chunk sizes, whether a piece must
+#: take the device, the host reasons a piece may take); the cases of
+#: naf_tpu's tests/test_device_stream.py and two of odd parity under masks
+STREAM_CASES = {
+    "multi_record": (lambda: stream_fasta(np.random.default_rng(0), 40), {}, (64, 257, 5000),
+                     True, ()),
+    "giant_single_record": (_giant_record, {}, (64, 257, 300, 1111, 5000), True, ()),
+    "single_giant_line": (_giant_line, {}, (257, 1024, 5000), False, ("open_line", "mid_line")),
+    **{f"edge_{i}": (lambda d=d: d, {}, (8, 64, 257, 5000), False,
+                     ("open_line", "mid_line")) for i, d in enumerate(STREAM_EDGES)},
+    "rna": (_rna, {"seq_type": C.SEQ_TYPE_RNA}, (64, 257, 999, 5000), True, ()),
+    "no_mask": (lambda: stream_fasta(np.random.default_rng(3), 12), {"no_mask": True}, (257,),
+                True, ()),
+    "level_19": (lambda: stream_fasta(np.random.default_rng(3), 12), {"level": 19}, (257,),
+                 True, ()),
+    "title": (lambda: stream_fasta(np.random.default_rng(3), 12), {"title": "t"}, (257,),
+              True, ()),
+    "protein": (lambda: b">p1\nMKVLA*xx\n>p2\nACDEFGHIKLMNPQRSTVWY\n",
+                {"seq_type": C.SEQ_TYPE_PROTEIN}, (16, 64, 257), False, ("host_mode",)),
+    "odd_masked_fasta": (stream_odd_masked_fasta, {}, (64, 257, 5000), True, ()),
+    "fastq_regular": (lambda: stream_fastq(np.random.default_rng(4), 200), {},
+                      (64, 257, 300, 4096, 5000), True, ("no_full_record",)),
+    "fastq_qual_at_sign": (lambda: b"".join(b"@r%d c\nACGT\n+\n@@F@\n" % i for i in range(50)),
+                           {}, (*range(17, 27), 257, 4096, 5000), True, ("no_full_record",)),
+    "fastq_plus_line_text": (lambda: b"".join(b"@r%d x\nACGTacgt\n+r%d x\nIIIIIIII\n" % (i, i)
+                                              for i in range(30)), {}, (64, 257, 999, 5000),
+                             True, ("no_full_record",)),
+    "odd_masked_fastq": (stream_odd_masked_fastq, {}, (64, 257, 5000), True,
+                         ("no_full_record",)),
+}
