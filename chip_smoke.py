@@ -61,12 +61,29 @@ Phases, each printing JSON lines:
      equal to the host stream's, every piece on the fused device path, the
      emit and pack launched once a piece, the peak device memory above the
      start under 738,199,040 bytes (the in-memory encode's of a 4x smaller
-     input), both rates printed.
-Six paths run with the launch counts set to 0 just before and read just
+     input), both rates printed;
+  8. the mesh: four blocks, all on the card (``block_mesh(devices=[card]
+     * 4)``): ``encode_device`` on gen_fasta_single(128), gen_fastq(500_000,
+     read_len=150), swissprot_like(160) and illumina_reads_fasta(750_000),
+     each archive equal to host encode()'s by its route, its wall time and
+     peak device memory beside the one-block encode's; the mesh render of
+     the FASTQ and the protein archive (``decode_device:ragged:mesh``)
+     equal to the host Decoder; ``DeviceScanEngine`` over the four blocks
+     on gen_fasta_single(1024) equal to the host stream; the multihost
+     encodes (plain, parts, extended) on gen_fasta(64) and
+     gen_fastq(250_000), first NCCL in this process (world size 1, four
+     blocks), then two processes on gloo sharing the card, two blocks each
+     (NCCL takes one rank a card): the plain archive equal to host
+     encode()'s, the others decoding to its decode, both ranks' archives
+     the same, each with its bytes gathered and wall time; and
+     ``dryrun_multichip(4)``, the checks of ``__graft_entry__.py``'s dry
+     run over the four blocks.
+Seven paths run with the launch counts set to 0 just before and read just
 after each: the fused FASTA path and the fused FASTQ path (phases 3-4 on
 their inputs), the two-pass encodes, the ragged decodes, the CLI (its
-in-process calls and the pipe's two processes) and the stream.  Every
-kernel of a path must have launched in it; the kernels line sums the six.  The
+in-process calls and the pipe's two processes), the stream and the mesh
+(the gloo ranks' launches added).  Every kernel of a path must have
+launched in it; the kernels line sums the seven.  The
 classifies launch standalone on the two-pass path and as device code inside
 each fused emit: a classify's row counts its standalone launches and gives
 the emit's as ``fused_launches``.  The last line is the result.  Any
@@ -90,6 +107,11 @@ HBM_BYTES_PER_S = 3.35e12
 SECTOR_BYTES = 32
 #: the chunk of the streamed device encode, as ``tnaf --device`` streams
 STREAM_CHUNK = 64 << 20
+#: the blocks of the mesh phase, all on the one card
+MESH_BLOCKS = 4
+#: seconds a rank of the two-process multihost run may take, rendezvous
+#: included
+MULTIHOST_TIMEOUT = 300
 #: files from this size on stream in ``tnaf`` (NAF_TPU_STREAM_THRESHOLD)
 STREAM_THRESHOLD = 256 << 20
 #: a stream's peak device memory above its start must stay under the peak of
@@ -807,6 +829,266 @@ def stream_phase(card: str, dev, inputs: list, opts) -> dict:
     return dict(D.LAUNCHES)
 
 
+#: one rank of a multi-process multihost run: argv is (rank, world, port,
+#: output JSON path, backend, blocks); the rank writes what it saw there,
+#: and its launch and route counts
+_MULTIHOST_WORKER = """import json, sys
+import chip_smoke
+rank, world, port, out, backend, blocks = sys.argv[1:7]
+json.dump(chip_smoke.multihost_rank(int(rank), int(world), int(port), backend=backend,
+                                    blocks=int(blocks)), open(out, "w"))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_inputs() -> list:
+    """(name, data) of the multihost checks: bench.py's gen_fasta(64) and
+    gen_fastq(250_000)."""
+    import bench
+
+    return [("gen_fasta(64)", bench.gen_fasta(64)), ("gen_fastq(250000)", bench.gen_fastq(250_000))]
+
+
+def multihost_rank(rank: int, world: int, port: int, *, backend: str, blocks: int,
+                   inputs=None) -> dict:
+    """This process's part of a multi-process encode:
+    ``encode_multihost``, ``encode_multihost_parts`` and
+    ``encode_multihost_extended`` on each multihost input, with ``blocks``
+    blocks on card ``rank`` mod the visible cards.  Checks the
+    plain archive against host ``encode()`` and the decodes of the other
+    two against the host ``Decoder``'s of it; returns, per input and
+    encode, the archive's size and digest, the bytes gathered and the wall
+    seconds, with this process's launch and route counts."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.parallel import multihost as MH
+    from naf_tpu_torch.parallel.mesh import block_mesh
+    from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder
+    from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    mesh = block_mesh(devices=[dev] * blocks)
+    opts = EncodeOptions(level=1, threads=os.cpu_count() or 0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, device_id=dev if backend == "nccl" else None)
+    try:
+        rows = {}
+        for name, data in inputs or multihost_inputs():
+            host = encode(data, opts)[0]
+            fastq = data[:1] == b"@"
+            hd = Decoder(io.BytesIO(host), DecodeOptions())
+            want = hd.fastq() if fastq else hd.fasta()
+            for fn, route in ((MH.encode_multihost, "encode_multihost"),
+                              (MH.encode_multihost_parts, "encode_multihost:parts"),
+                              (MH.encode_multihost_extended, "encode_multihost:extended")):
+                traffic = {}
+                routes = dict(D.ROUTES)
+                dist.barrier()
+                t0 = time.perf_counter()
+                blob = fn(data, opts, traffic=traffic, mesh=mesh)[0]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                got = {k: v - routes.get(k, 0) for k, v in D.ROUTES.items()
+                       if v != routes.get(k, 0)}
+                if got != {route: 1}:
+                    raise AssertionError(f"{name}: {fn.__name__} took route {got}")
+                if fn is MH.encode_multihost:
+                    if blob != host:
+                        raise AssertionError(f"{name}: encode_multihost != host encode()")
+                else:
+                    d = Decoder(io.BytesIO(blob), DecodeOptions())
+                    if (d.fastq() if fastq else d.fasta()) != want:
+                        raise AssertionError(f"{name}: {fn.__name__} decodes differently")
+                rows[f"{name} {fn.__name__}"] = {
+                    "archive": len(blob), "md5": hashlib.md5(blob).hexdigest(),
+                    "gathered_bytes": traffic["gathered_bytes"], "seconds": secs}
+    finally:
+        dist.destroy_process_group()
+    return {"rank": rank, "world": world, "backend": backend, "blocks": mesh.size,
+            "rows": rows, "routes": dict(D.ROUTES), "launches": dict(D.LAUNCHES)}
+
+
+def spawn_ranks(world: int, backend: str, blocks: int) -> tuple[list, float]:
+    """(each rank's ``multihost_rank`` result, wall seconds) of ``world``
+    processes of this script's multihost worker, each under
+    ``MULTIHOST_TIMEOUT``; raises when one fails or the ranks' archives
+    differ."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=os.path.join(here, "build"))
+    port = free_port()
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _MULTIHOST_WORKER, str(r), str(world),
+                               str(port), outs[r], backend, str(blocks)], env=env, cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(world)]
+    try:
+        for p in procs:
+            _, err_b = p.communicate(timeout=MULTIHOST_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"a {backend} rank exited {p.returncode}: "
+                                     f"{err_b.decode(errors='replace')[-3000:]}")
+        secs = time.perf_counter() - t0
+        results = []
+        for o in outs:
+            with open(o) as f:
+                results.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    for r in results[1:]:
+        if r["rows"].keys() != results[0]["rows"].keys() or any(
+                r["rows"][k]["md5"] != results[0]["rows"][k]["md5"] for k in r["rows"]):
+            raise AssertionError(f"the {backend} ranks returned different archives")
+    return results, secs
+
+
+def mesh_phase(card: str, dev, opts, protein) -> dict:
+    """Phase 8 (see the module docstring); returns the mesh path's launch
+    counts, counted from 0, the gloo ranks' added in."""
+    import torch
+
+    import bench
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.parallel.mesh import block_mesh, dryrun_multichip
+    from naf_tpu_torch.parallel.pipeline import encode_device
+    from naf_tpu_torch.parallel.stream import DeviceScanEngine
+    from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
+    from naf_tpu_torch.pipeline.encoder import encode
+    from naf_tpu_torch.pipeline.stream import encode_stream
+
+    mesh = block_mesh(devices=[dev] * MESH_BLOCKS)
+    t0 = time.perf_counter()
+    # (name, input, options, FASTQ, encode route)
+    cases = [("gen_fasta_single(128)", bench.gen_fasta_single(128), opts, False, "encode_device"),
+             ("gen_fastq(500000,read_len=150)", bench.gen_fastq(500_000, read_len=150), opts,
+              True, "encode_device"),
+             ("swissprot_like(160)", swissprot_like(160), protein, False,
+              "encode_device:two_pass:text_like"),
+             ("illumina_reads_fasta(750000)", illumina_reads_fasta(750_000), opts, False,
+              "encode_device:two_pass:sparse_overflow")]
+    stream_input = ("gen_fasta_single(1024)", bench.gen_fasta_single(1024))
+    mh_inputs = multihost_inputs()
+    emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
+          "bytes": {c[0]: len(c[1]) for c in cases + [stream_input] + mh_inputs}})
+
+    # the references, and the one-block encode of each input beside the mesh's
+    host, one_block = [], []
+    for name, data, o, _, _ in cases:
+        host.append(encode(data, o)[0])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = wall_time(lambda: encode_device(data, o, device=dev), 1)
+        one_block.append((secs, torch.cuda.max_memory_allocated() - base))
+    host_stream = io.BytesIO()
+    encode_stream(io.BytesIO(stream_input[1]), host_stream, opts)
+
+    def delta(before: dict, after: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+    D.reset_counts()
+    # encode over 4 blocks of the card
+    archives = []
+    for (name, data, o, fastq, route), want, (one_s, one_peak) in zip(cases, host, one_block):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        routes_before = dict(D.ROUTES)
+        t0 = time.perf_counter()
+        blob = encode_device(data, o, mesh=mesh)[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        routes = delta(routes_before, D.ROUTES)
+        if blob != want:
+            raise AssertionError(f"{name}: the {mesh.size}-block archive != host encode()'s")
+        if routes != {route: 1}:
+            raise AssertionError(f"{name}: the {mesh.size}-block encode took route {routes}")
+        archives.append(blob)
+        emit({"phase": "mesh_encode", "input": name, "card": card, "blocks": mesh.size,
+              "bytes": len(data), "equal_host": True, "routes": routes, "seconds": secs,
+              "one_block_seconds": one_s, "peak_device_bytes": peak,
+              "peak_above_start_bytes": peak - base,
+              "one_block_peak_above_start_bytes": one_peak})
+    # the mesh render of the FASTQ and the protein archive
+    for i in (1, 2):
+        name, _, _, fastq, _ = cases[i]
+        hd = Decoder(io.BytesIO(archives[i]), DecodeOptions())
+        want = hd.fastq() if fastq else hd.fasta()
+        routes_before = dict(D.ROUTES)
+        d = Decoder(io.BytesIO(archives[i]), DecodeOptions())
+        t0 = time.perf_counter()
+        out = fastq_device(d, mesh=mesh) if fastq else fasta_device(d, mesh=mesh)
+        secs = time.perf_counter() - t0
+        routes = delta(routes_before, D.ROUTES)
+        if out != want:
+            raise AssertionError(f"{name}: the mesh decode != host Decoder's")
+        if routes != {"decode_device:ragged:mesh": 1}:
+            raise AssertionError(f"{name}: the mesh decode took route {routes}")
+        emit({"phase": "mesh_decode", "input": name, "card": card, "blocks": mesh.size,
+              "equal_host": True, "routes": routes, "seconds": secs, "output_bytes": len(out)})
+    del cases, host, archives
+    # the stream engine over the 4 blocks
+    name, data = stream_input
+    eng = DeviceScanEngine(mesh=mesh)
+    routes_before = dict(D.ROUTES)
+    out = io.BytesIO()
+    t0 = time.perf_counter()
+    encode_stream(io.BytesIO(data), out, opts, chunk_size=STREAM_CHUNK, engine=eng)
+    secs = time.perf_counter() - t0
+    routes = delta(routes_before, D.ROUTES)
+    if out.getvalue() != host_stream.getvalue():
+        raise AssertionError(f"{name}: the {mesh.size}-block stream != host encode_stream's")
+    if eng.native_chunks or routes != {"stream_device": eng.device_chunks}:
+        raise AssertionError(f"{name}: the {mesh.size}-block stream took routes {routes}")
+    emit({"phase": "mesh_stream", "input": name, "card": card, "blocks": mesh.size,
+          "bytes": len(data), "equal_host_stream": True, "routes": routes, "seconds": secs,
+          "MBps": len(data) / 1e6 / secs})
+    del stream_input, data, out, host_stream
+    # multihost: NCCL in this process (NCCL takes one rank a card), then
+    # two processes on gloo sharing the card
+    got = multihost_rank(0, 1, free_port(), backend="nccl", blocks=MESH_BLOCKS,
+                         inputs=mh_inputs)
+    emit({"phase": "mesh_multihost", "card": card, "backend": "nccl", "world": 1,
+          "blocks": got["blocks"], "rows": got["rows"]})
+    results, gloo_s = spawn_ranks(2, "gloo", 2)
+    emit({"phase": "mesh_multihost", "card": card, "backend": "gloo", "world": 2,
+          "blocks": results[0]["blocks"], "note": "two ranks share the one card over gloo: "
+          "NCCL refuses two ranks on one card", "seconds_with_process_start": gloo_s,
+          "rows": results[0]["rows"], "routes": [r["routes"] for r in results]})
+    # the dry run of __graft_entry__.py
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_BLOCKS, [dev] * MESH_BLOCKS)
+    emit({"phase": "mesh_dryrun", "card": card, "blocks": MESH_BLOCKS, "cases": dry,
+          "seconds": time.perf_counter() - t0})
+    launches = dict(D.LAUNCHES)
+    for r in results:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1251,6 +1533,14 @@ def main() -> int:
     for k in ("emit_fasta", "emit_fastq", "pack_4bit"):
         if path_launches["stream"][k] <= 0:
             raise AssertionError(f"{k} was not launched on the stream path")
+
+    # ---- 8. the mesh -------------------------------------------------------
+    path_launches["mesh"] = mesh_phase(card, dev, opts, protein)
+    emit({"phase": "launches", "mesh_path": path_launches["mesh"]})
+    for k in ("emit_fasta", "emit_fastq", "pack_4bit", "classify_fasta", "classify_fastq",
+              "cumsum_i32", "maxscan_i32", "compact", "compact_dense"):
+        if path_launches["mesh"][k] <= 0:
+            raise AssertionError(f"{k} was not launched on the mesh path")
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
     if bad:

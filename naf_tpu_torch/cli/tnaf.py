@@ -7,9 +7,10 @@ CLI's, but for the version line.  Inputs under
 ``NAF_TPU_STREAM_THRESHOLD`` (256 MiB) are encoded in memory, larger files
 and pipes by the bounded-memory ``encode_stream``, whose sections spill to
 the temp dir past ``NAF_TPU_SPILL_MB``.  ``--device`` runs the port's CUDA
-kernels: an input under the threshold in memory (``encode_device`` on
-``cuda``), a pipe or a larger file through ``encode_stream`` with the
-device scan engine (``parallel.stream.DeviceScanEngine``) in chunks of
+kernels, one block on every visible card (``parallel.mesh.block_mesh``):
+an input under the threshold in memory (``encode_device``), a pipe or a
+larger file through ``encode_stream`` with the device scan engine
+(``parallel.stream.DeviceScanEngine``) in chunks of
 ``NAF_TPU_DEVICE_CHUNK`` (64 MiB), counted in ``device.ROUTES`` as
 ``encode_device:stream``.  ``--extended`` and an ``--engine`` other than
 ``zstd`` always encode in memory.  A failure on the card ends the CLI with
@@ -471,21 +472,23 @@ class _DeviceError(Exception):
 def _encode_device(inf, outf, opts: EncodeOptions, in_memory: bool):
     """``--device``: the input in memory through the CUDA kernels, or a
     pipe or large file streamed through them in chunks by the device scan
-    engine (route ``encode_device:stream``)."""
-    from ..device import count_route, cuda_device
+    engine (route ``encode_device:stream``), one block on every visible
+    card."""
+    from ..device import count_route
+    from ..parallel.mesh import block_mesh
     from ..parallel.pipeline import encode_device
     from ..parallel.stream import DeviceScanEngine
 
     try:
-        dev = cuda_device()
+        mesh = block_mesh()
         if in_memory:
-            blob, stats = encode_device(inf.read(), opts, device=dev)
+            blob, stats = encode_device(inf.read(), opts, mesh=mesh)
             outf.write(blob)
             return stats
         count_route("encode_device:stream")
         chunk = int(os.environ.get("NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
         return encode_stream(inf, outf, opts, chunk_size=chunk,
-                             engine=DeviceScanEngine(device=dev))
+                             engine=DeviceScanEngine(mesh=mesh))
     except (RuntimeError, OSError) as e:
         raise _DeviceError(f"device encode failed: {e}") from None
 

@@ -5,7 +5,8 @@ Flag parity target: unnaf/src/unnaf.c:249-353.  Its standard output,
 standard error and exit status equal the JAX package's host CLI's for
 every output type, but for the version line.  ``--device`` renders FASTA
 and FASTQ with the port's CUDA kernels (``fasta_device``,
-``fastq_device`` on ``cuda``); a failure there ends the CLI with an error,
+``fastq_device`` over every visible card); a failure there ends the CLI
+with an error,
 it never carries on on the host.  ``--engine native`` decompresses with the
 package's own RFC 8878 decoder (``codec.set_decode_engine``), also under
 ``--device``, whose render then takes what it decompressed.  Without
@@ -284,13 +285,15 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _render_device(dec: Decoder, out_type: int) -> bytes:
-    """FASTA or FASTQ rendered by the CUDA kernels on the current card; a
-    missing card, a kernel build or a launch that fails ends the CLI."""
+    """FASTA or FASTQ rendered by the CUDA kernels over every visible card;
+    a missing card, a kernel build or a launch that fails ends the CLI."""
+    from ..parallel.mesh import block_mesh
+
     try:
+        mesh = block_mesh()
         if out_type == FASTQ:
-            return fastq_device(dec, device="cuda")
-        return fasta_device(dec, None if out_type != UNMASKED_FASTA else False,
-                            device="cuda")
+            return fastq_device(dec, mesh=mesh)
+        return fasta_device(dec, None if out_type != UNMASKED_FASTA else False, mesh=mesh)
     except (RuntimeError, OSError) as e:
         _die(f"device decode failed: {e}")
 

@@ -10,7 +10,9 @@ from .zstd_backend import (
     SectionDecompressor,
     SpilledPayload,
     SpillingSectionCompressor,
+    blocked_payload,
     check_engine,
+    compress_frames,
     compress_part_native,
     compress_section,
     compress_section_blocked,
@@ -30,7 +32,7 @@ __all__ = [
     "MAX_CLEVEL", "MIN_CLEVEL", "WINDOWLOG_MAX", "WINDOWLOG_MIN",
     "SectionCompressor", "SectionDecompressor", "SpilledPayload",
     "SpillingSectionCompressor", "check_engine",
-    "compress_section", "compress_section_blocked",
+    "compress_section", "compress_section_blocked", "compress_frames", "blocked_payload",
     "decompress_section", "decompress_section_blocked",
     "iter_decompress", "parse_blocked_index",
     "compress_section_native", "compress_part_native", "compress_section_parts",

@@ -316,21 +316,39 @@ def _pool_map(fn, items, threads: int) -> list:
         return list(ex.map(fn, items))
 
 
-def compress_section_blocked(data, level: int = 1, window_log: int = 0,
-                             threads: int = 0, block_bytes: int = 4 << 20,
-                             engine: str = "zstd") -> bytes:
-    """Compress `data` as independently-framed blocks with an index."""
+def compress_frames(data, level: int = 1, window_log: int = 0, threads: int = 0,
+                    block_bytes: int = 4 << 20, engine: str = "zstd"
+                    ) -> tuple[list[int], list[bytes]]:
+    """`data` -> (per-frame raw lengths, independent magic-stripped frames).
+
+    The building block shared by the blocked section writer and the
+    multi-process extended encode (each process frames only its own bytes).
+    """
     check_engine(engine)
     one = compress_section_native if engine == "native" else compress_section
     mv = memoryview(data)
     blocks = [mv[i:i + block_bytes] for i in range(0, mv.nbytes, block_bytes)] or [mv[:0]]
     frames = _pool_map(lambda b: one(b, level=level, window_log=window_log), blocks, threads)
+    return [b.nbytes for b in blocks], frames
+
+
+def blocked_payload(raw_lens: list[int], frames: list[bytes]) -> bytes:
+    """The blocked-section envelope: VLE index + frames."""
     out = [encode_vle(len(frames))]
-    for b, f in zip(blocks, frames):
-        out.append(encode_vle(b.nbytes))
+    for r, f in zip(raw_lens, frames):
+        out.append(encode_vle(r))
         out.append(encode_vle(len(f)))
     out.extend(frames)
     return b"".join(out)
+
+
+def compress_section_blocked(data, level: int = 1, window_log: int = 0,
+                             threads: int = 0, block_bytes: int = 4 << 20,
+                             engine: str = "zstd") -> bytes:
+    """Compress `data` as independently-framed blocks with an index."""
+    return blocked_payload(*compress_frames(data, level=level, window_log=window_log,
+                                            threads=threads, block_bytes=block_bytes,
+                                            engine=engine))
 
 
 def parse_blocked_index(payload: bytes):

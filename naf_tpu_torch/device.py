@@ -1,9 +1,10 @@
 """Device selection and the run counters of the port.
 
-Takes the place of ``naf_tpu/parallel/mesh.py`` for one device: the port
-runs on the one device a caller names; the entry points name the current
-card by default.  The CPU is used only when asked for, and asking for CUDA
-without a card raises.
+An entry point runs on the one device a caller names (the current card by
+default), or over the blocks of a ``parallel/mesh.py:BlockMesh``, one
+device each, which the CLIs span over every visible card
+(``cuda_devices``).  The CPU is used only when asked for, and asking for
+CUDA without a card raises.
 
 ``LAUNCHES`` counts kernel launches, one entry per hand kernel; a wrapper
 adds one where it launches its kernel and nowhere else.  The fused paths
@@ -14,7 +15,11 @@ fused or two-pass device encode, the uniform or ragged device render, or a
 named host route.  A streamed encode (``tnaf --device`` on a pipe or a
 large file) counts ``encode_device:stream`` once, and each of its pieces
 ``stream_device``, ``stream_device:two_pass:<why>`` or
-``stream_host:<why>`` (``parallel/stream.py`` names the reasons).
+``stream_host:<why>`` (``parallel/stream.py`` names the reasons).  A
+render over a mesh of several blocks counts ``decode_device:ragged:mesh``;
+the multi-process encodes count ``encode_multihost``,
+``encode_multihost:parts`` or ``encode_multihost:extended``, or
+``multihost_host:<why>`` (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ ROUTES: dict[str, int] = {}
 
 
 def resolve(device) -> torch.device:
-    """The torch device a caller named; raises if it is CUDA and no card
-    is present, or if it is neither CUDA nor the CPU."""
+    """The torch device a caller named, with its index; raises if it is
+    CUDA and no card is present, or if it is neither CUDA nor the CPU."""
     if device is None:
         raise ValueError("naf_tpu_torch needs an explicit device ('cuda' or 'cpu')")
     dev = torch.device(device)
@@ -56,6 +61,15 @@ def resolve(device) -> torch.device:
 def cuda_device() -> torch.device:
     """The current CUDA device; raises when there is none."""
     return resolve("cuda")
+
+
+def cuda_devices() -> list[torch.device]:
+    """Every visible card, or the one ``cuda_device`` names when there are
+    fewer than two; raises when there is none."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return [cuda_device()]
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def count_route(name: str) -> None:

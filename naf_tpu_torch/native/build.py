@@ -9,7 +9,9 @@ with the same sources, reuses it.  A failed build raises with nvcc's output;
 there is no fallback.
 
 Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``; ``call`` raises when that is not 0.
+``cudaGetLastError()``; ``call`` runs it with the tensor's card current
+(the CUDA runtime launches on the current device, whatever the stream) and
+raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -131,9 +133,16 @@ def kernel_lib(t, lib: ct.CDLL | None = None) -> ct.CDLL:
     return library()
 
 
-def call(lib: ct.CDLL, name: str, *args) -> None:
-    """Call a C entry and raise on a CUDA error."""
-    err = getattr(lib, name)(*args)
+def call(lib: ct.CDLL, name: str, t, *args) -> None:
+    """Call a C entry that launches on ``t``'s device, with that card
+    current, and raise on a CUDA error; ``args`` are the entry's arguments."""
+    if t.is_cuda:
+        import torch
+
+        with torch.cuda.device(t.device):
+            err = getattr(lib, name)(*args)
+    else:
+        err = getattr(lib, name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -48,8 +48,8 @@ def compact_kernel(values: torch.Tensor, keep: torch.Tensor, *, dense: bool = Fa
     g = n_tiles(n, COMPACT_TILE)
     # a ticket, the count, and one u64 look-back status word per tile, all 0
     scratch = torch.zeros(2 + 2 * g, dtype=torch.int32, device=values.device)
-    build.call(lib, "naf_compact", values.data_ptr(), values.element_size(), keep.data_ptr(), n,
-               scratch.data_ptr(), out.data_ptr(), g, build.stream_of(values))
+    build.call(lib, "naf_compact", values, values.data_ptr(), values.element_size(),
+               keep.data_ptr(), n, scratch.data_ptr(), out.data_ptr(), g, build.stream_of(values))
     LAUNCHES["compact_dense" if dense else "compact"] += 1
     return out, scratch[1]
 

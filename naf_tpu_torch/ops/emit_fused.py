@@ -158,9 +158,10 @@ def emit_fasta_kernel(block: torch.Tensor, prev_byte: int, starts_in_seq: bool =
     scal = torch.empty(len(_F_SCALARS), dtype=torch.int32, device=dev)
     sv = torch.empty(g * TILE, dtype=torch.uint8, device=dev)
     sp_tv, sp_a = (torch.empty(g * CS_CAP, dtype=torch.int32, device=dev) for _ in range(2))
-    build.call(lib, "naf_emit_fasta", block.data_ptr(), n, pe0, st0, tabs["cls"].data_ptr(),
-               tabs["repl_seq"], tabs["repl_name"], CS_CAP, scratch.data_ptr(), scal.data_ptr(),
-               sv.data_ptr(), sp_tv.data_ptr(), sp_a.data_ptr(), g, build.stream_of(block))
+    build.call(lib, "naf_emit_fasta", block, block.data_ptr(), n, pe0, st0,
+               tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], CS_CAP,
+               scratch.data_ptr(), scal.data_ptr(), sv.data_ptr(), sp_tv.data_ptr(),
+               sp_a.data_ptr(), g, build.stream_of(block))
     LAUNCHES["emit_fasta"] += 1
     return dict(sv=sv, **_scalars(scal, _F_SCALARS), sp_tv=sp_tv, sp_a=sp_a)
 
@@ -240,10 +241,11 @@ def emit_fastq_kernel(block: torch.Tensor, prev_byte: int, *, seq_type: int = C.
     scal = torch.empty(len(_Q_SCALARS), dtype=torch.int32, device=dev)
     sv, qv, iv = (torch.empty(g * Q_TILE, dtype=torch.uint8, device=dev) for _ in range(3))
     sp = [torch.empty(g * CS_CAP, dtype=torch.int32, device=dev) for _ in range(4)]
-    build.call(lib, "naf_emit_fastq", block.data_ptr(), n, start_state(prev_byte, False)[0],
-               tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], tabs["repl_qual"],
-               CS_CAP, scratch.data_ptr(), scal.data_ptr(), sv.data_ptr(), qv.data_ptr(),
-               iv.data_ptr(), *(a.data_ptr() for a in sp), g, build.stream_of(block))
+    build.call(lib, "naf_emit_fastq", block, block.data_ptr(), n,
+               start_state(prev_byte, False)[0], tabs["cls"].data_ptr(), tabs["repl_seq"],
+               tabs["repl_name"], tabs["repl_qual"], CS_CAP, scratch.data_ptr(),
+               scal.data_ptr(), sv.data_ptr(), qv.data_ptr(), iv.data_ptr(),
+               *(a.data_ptr() for a in sp), g, build.stream_of(block))
     LAUNCHES["emit_fastq"] += 1
     return dict(sv=sv, qv=qv, iv=iv, **_scalars(scal, _Q_SCALARS), sp_tv=sp[0], sp_a=sp[1],
                 sp_b=sp[2], sp_c=sp[3])
@@ -296,8 +298,8 @@ def apply_mask_parity_kernel(chars: torch.Tensor, tog: torch.Tensor, *, lib=None
     # a ticket and a look-back status word per tile, zero on entry
     scratch = torch.zeros(1 + g, dtype=torch.int32, device=chars.device)
     out = torch.empty_like(chars)
-    build.call(lib, "naf_mask_parity", chars.data_ptr(), tog.data_ptr(), n, scratch.data_ptr(),
-               out.data_ptr(), g, build.stream_of(chars))
+    build.call(lib, "naf_mask_parity", chars, chars.data_ptr(), tog.data_ptr(), n,
+               scratch.data_ptr(), out.data_ptr(), g, build.stream_of(chars))
     LAUNCHES["apply_mask_parity"] += 1
     return out
 

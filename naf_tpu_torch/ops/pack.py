@@ -51,7 +51,7 @@ def pack_4bit_kernel(seq: torch.Tensor, *, shift: int = 0, out_len: int | None =
     n = seq.numel()
     out = torch.empty(out_len, dtype=torch.uint8, device=seq.device)
     if out_len:
-        build.call(lib, "naf_pack_4bit", seq.data_ptr(), n, shift % n if n else 0,
+        build.call(lib, "naf_pack_4bit", seq, seq.data_ptr(), n, shift % n if n else 0,
                    device_tables(0, seq.device)["nuc_code"].data_ptr(), out.data_ptr(),
                    out_len, build.stream_of(seq))
         LAUNCHES["pack_4bit"] += 1

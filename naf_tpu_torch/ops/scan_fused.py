@@ -105,7 +105,7 @@ def classify_fasta_kernel(block: torch.Tensor, prev_byte: int, starts_in_seq: bo
     scratch = torch.zeros(1 + g, dtype=torch.int32, device=block.device)
     flags = torch.empty_like(block)
     sval = torch.empty_like(block)
-    build.call(lib, "naf_classify_fasta", block.data_ptr(), n, pe0, st0,
+    build.call(lib, "naf_classify_fasta", block, block.data_ptr(), n, pe0, st0,
                tabs["cls"].data_ptr(), tabs["repl_seq"], tabs["repl_name"], scratch.data_ptr(),
                flags.data_ptr(), sval.data_ptr(), g, build.stream_of(block))
     LAUNCHES["classify_fasta"] += 1
@@ -202,7 +202,7 @@ def classify_fastq_kernel(block: torch.Tensor, prev_byte: int, *,
     scratch = torch.zeros(1 + g, dtype=torch.int32, device=block.device)
     flags = torch.empty_like(block)
     sval = torch.empty_like(block)
-    build.call(lib, "naf_classify_fastq", block.data_ptr(), n,
+    build.call(lib, "naf_classify_fastq", block, block.data_ptr(), n,
                start_state(prev_byte, False)[0], tabs["cls"].data_ptr(), tabs["repl_seq"],
                tabs["repl_name"], tabs["repl_qual"], scratch.data_ptr(), flags.data_ptr(),
                sval.data_ptr(), g, build.stream_of(block))
@@ -260,7 +260,7 @@ def scan_i32_kernel(x: torch.Tensor, op: str, *, lib=None) -> torch.Tensor:
         g = n_tiles(n, SCAN_TILE)
         # a ticket, a pad word and a u64 status word per tile, zero on entry
         scratch = torch.zeros(2 + 2 * g, dtype=torch.int32, device=x.device)
-        build.call(lib, "naf_scan_i32", x.data_ptr(), x.element_size(), n, code,
+        build.call(lib, "naf_scan_i32", x, x.data_ptr(), x.element_size(), n, code,
                    scratch.data_ptr(), out.data_ptr(), g, build.stream_of(x))
         LAUNCHES[counter] += 1
     return out
@@ -291,21 +291,14 @@ def _bit(flags: torch.Tensor, bit: int) -> torch.Tensor:
     return (flags & (1 << bit)) != 0
 
 
-def _hist_cond(mask: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """i32[256] histogram of the bytes ``b`` where ``mask``; the count runs
-    only when some byte is set (the clean case skips it, as the TPU
-    package's ``lax.cond`` does)."""
-    if not bool(mask.any()):
-        return torch.zeros(256, dtype=torch.int32, device=b.device)
-    return torch.bincount(b[mask].long(), minlength=256).to(torch.int32)
-
-
 def scan_fasta_fused(block: torch.Tensor, prev_byte: int, seq_type: int = C.SEQ_TYPE_DNA,
                      starts_in_seq: bool = False) -> dict:
     """The masks of a FASTA block (``naf_tpu/ops/scan_fused.py``'s dict of
     the same name): rec_start, stream_keep/val, seq_keep, is_eol, id_keep,
-    id_unex, com_keep, com_unex, com_val, and the unexpected-byte
-    histograms hist_id, hist_comment, hist_seq (i32[256])."""
+    id_unex, com_keep, com_unex, com_val, and seq_unex.  The reference's
+    unexpected-byte histograms are not here: ``parallel/block.py`` counts
+    them from the ``*_unex`` masks of the blocks that have such bytes, so
+    a clean block costs no host sync."""
     flags, sval = classify_fasta(block, prev_byte, starts_in_seq, seq_type=seq_type)
     seq_unex, seq_keep, id_unex = _bit(flags, 1), _bit(flags, 2), _bit(flags, 5)
     com_unex = _bit(flags, 7)
@@ -320,16 +313,14 @@ def scan_fasta_fused(block: torch.Tensor, prev_byte: int, seq_type: int = C.SEQ_
         com_keep=_bit(flags, 6),
         com_unex=com_unex,
         com_val=torch.where(com_unex, C.REPLACEMENT_NAME, block),
-        hist_id=_hist_cond(id_unex, block),
-        hist_comment=_hist_cond(com_unex, block),
-        hist_seq=_hist_cond(seq_unex, block),
+        seq_unex=seq_unex,
     )
 
 
 def scan_fastq_fused(block: torch.Tensor, prev_byte: int,
                      seq_type: int = C.SEQ_TYPE_DNA) -> dict:
     """The masks of a FASTQ block: those of ``scan_fasta_fused`` plus
-    qual_keep, qual_unex, qual_val and hist_qual."""
+    qual_keep, qual_unex and qual_val."""
     flags, sval = classify_fastq(block, prev_byte, seq_type=seq_type)
     b45, b5, com_keep, is_qual = _bit(flags, 4), _bit(flags, 5), _bit(flags, 6), _bit(flags, 7)
     seq_unex, seq_keep = _bit(flags, 1), _bit(flags, 2)
@@ -350,8 +341,5 @@ def scan_fastq_fused(block: torch.Tensor, prev_byte: int,
         qual_keep=b45 & is_qual,
         qual_unex=qual_unex,
         qual_val=torch.where(qual_unex, C.REPLACEMENT_QUAL, block),
-        hist_id=_hist_cond(id_unex, block),
-        hist_comment=_hist_cond(com_unex, block),
-        hist_seq=_hist_cond(seq_unex, block),
-        hist_qual=_hist_cond(qual_unex, block),
+        seq_unex=seq_unex,
     )

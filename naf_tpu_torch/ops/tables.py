@@ -16,14 +16,23 @@ from ..format import constants as C
 from .tables_np import CODE_TO_NUC_DNA, CODE_TO_NUC_RNA, NUC_CODE, class_table
 
 
-@functools.lru_cache(maxsize=None)
-def device_tables(seq_type: int, device: torch.device) -> dict:
-    """The tables for ``seq_type`` as tensors on ``device``.
+def device_tables(seq_type: int, device) -> dict:
+    """The tables for ``seq_type`` as tensors on ``device``, made once per
+    card: a CUDA device named without its index is the current card, so a
+    table is never taken from another card than the one asked for.
 
     cls u8[256] (class bits), nuc_code u8[256] (ASCII -> 4-bit code),
     code_to_nuc u8[16] (code -> ASCII, T or U by seq_type), and the ints
     repl_seq, repl_name and repl_qual (replacements of unexpected bytes).
     """
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _tables(seq_type, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(seq_type: int, device: torch.device) -> dict:
     code_to_nuc = CODE_TO_NUC_RNA if seq_type == C.SEQ_TYPE_RNA else CODE_TO_NUC_DNA
     return dict(
         cls=torch.from_numpy(class_table(seq_type)).to(device),

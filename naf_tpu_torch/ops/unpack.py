@@ -37,7 +37,7 @@ def unpack_4bit_kernel(packed: torch.Tensor, rna: bool = False, *, lib=None) -> 
     m = packed.numel()
     out = torch.empty(2 * m, dtype=torch.uint8, device=packed.device)
     if m:
-        build.call(lib, "naf_unpack_4bit", packed.data_ptr(), m,
+        build.call(lib, "naf_unpack_4bit", packed, packed.data_ptr(), m,
                    _table(packed, rna).data_ptr(), out.data_ptr(), build.stream_of(packed))
         LAUNCHES["unpack_4bit"] += 1
     return out

@@ -1,15 +1,30 @@
-"""Block splitting, the one-device fused and two-pass blocks, and the host
-stitch helpers.
+"""Block splitting, the fused and two-pass passes over the blocks of a
+mesh, and the host stitch helpers.
 
 The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
 (``make_blocks``, ``make_blocks_fastq``, ``stitch_packed``,
-``stitch_lengths``, ``stitch_runs``, ``blob_from_lens``), whose module
-imports jax at load time; the tests hold each copy against its original.
-``fused_block`` and ``fused_block_fastq`` are the one-device counterparts of
-``fused_blocks_sharded`` and ``fused_blocks_fastq_sharded`` with
-``_pack_block``; ``stats_block`` and ``emit_block`` those of the two-pass
-protocol's ``_stats_fn`` and ``_emit_fn``, each collective taken over its
-one block.
+``stitch_packed_range``, ``stitch_lengths``, ``stitch_runs``,
+``blob_from_lens``), whose module imports jax at load time; the tests hold
+each copy against its original.
+
+The sharded functions take one tensor a block, each on its own device (a
+``mesh.BlockMesh`` uploads them), and run a phase's launches on every block
+before the collective that ends it (``mesh.all_gather``), so the cards of
+a mesh overlap:
+
+- ``fused_blocks_sharded`` / ``fused_blocks_fastq_sharded``: every block's
+  fused emit, one gather of the char counts (``mesh.parities``), then every
+  block's pack at its parity (naf_tpu's ``fused_blocks*_sharded`` with
+  ``_pack_block``);
+- ``stats_blocks_sharded``: pass 1 (``_stats_fn``): every block's counts,
+  one gather of them, the prefix that gives each block's ``odd``, ``pmax``
+  of the longest line and ``psum`` of the unexpected-byte histograms;
+- ``emit_blocks_sharded``: pass 2 (``_emit_fn``), each block packed at its
+  ``odd``.
+
+``fused_block``, ``fused_block_fastq``, ``stats_block`` and ``emit_block``
+are the same on one block.  naf_tpu's packed-row layouts
+(``stats_blocks_packed``, ``emit_blocks_packed``) are not ported.
 """
 
 from __future__ import annotations
@@ -25,61 +40,85 @@ from ..ops.emit_fused import emit_fasta_fused, emit_fastq_fused
 from ..ops.pack import pack_4bit
 from ..ops.scan_fused import scan_fasta_fused, scan_fastq_fused
 from ..ops.tables import device_tables
+from .mesh import all_gather, parities, pmax, psum
 
 _GT = ord(">")
 _AT = ord("@")
 _LF = ord("\n")
 
+#: the scalars of a fused FASTA block, in the order of naf_tpu's scal rows
+FASTA_SCALARS = ("cnt", "cnt_seq", "n_sp", "sp_ok", "unex_id", "unex_com", "unex_seq", "longest",
+                 "first_lower", "first_sval")
+#: those of a fused FASTQ block
+FASTQ_SCALARS = FASTA_SCALARS + ("cnt_qual", "cnt_id", "unex_qual")
+
+
+def _scal(r: dict, names: tuple) -> torch.Tensor:
+    return torch.stack([r[k].to(torch.int32) for k in names])
+
+
+def _pack_blocks(rs: list, parity_base: int) -> list:
+    """Each block's stream packed at its nibble parity: ``parity_base``
+    plus the chars of the blocks before it (one gather of the counts).
+    The pack does the reference's roll by one byte on odd parity and its
+    ``_fit`` to B'//2+1 bytes, so no per-byte torch op runs between the
+    kernels."""
+    shifts = parities([r["cnt"] for r in rs], int(parity_base))
+    return [pack_4bit(r["sv"], shift=sh, out_len=r["sv"].numel() // 2 + 1)
+            for r, sh in zip(rs, shifts)]
+
+
+def fused_blocks_sharded(xs: list, prevs, siss, parity_base: int, *, seq_type: int) -> tuple:
+    """Fused FASTA emit + nibble pack of every block (nucleotide, plain
+    format), block k of ``xs`` (u8[B] tensors) on its own device, ``prevs``
+    the byte before each block and ``siss`` whether it starts inside a
+    record.  ``parity_base`` is the char count before block 0 (0 for a
+    whole input, the stream's count so far for a chunk of it).
+
+    Returns per-block lists (packed u8[B'//2+1], scal i32[10], sp_tv
+    i32[S], sp_a i32[S]), each tensor on its block's device; scal holds
+    ``FASTA_SCALARS``.
+    """
+    rs = [emit_fasta_fused(x, int(p), bool(s), seq_type=seq_type)
+          for x, p, s in zip(xs, prevs, siss)]
+    return (_pack_blocks(rs, parity_base), [_scal(r, FASTA_SCALARS) for r in rs],
+            [r["sp_tv"] for r in rs], [r["sp_a"] for r in rs])
+
+
+def fused_blocks_fastq_sharded(xs: list, prevs, parity_base: int, *, seq_type: int) -> tuple:
+    """Fused FASTQ emit + nibble pack of every block (nucleotide), as
+    ``fused_blocks_sharded``.
+
+    Returns per-block lists (packed u8[B'//2+1], qv u8[B'], iv u8[B'], scal
+    i32[13], sp_tv, sp_a, sp_b, sp_c i32[S]); scal holds ``FASTQ_SCALARS``.
+    """
+    rs = [emit_fastq_fused(x, int(p), seq_type=seq_type) for x, p in zip(xs, prevs)]
+    return (_pack_blocks(rs, parity_base), [r["qv"] for r in rs], [r["iv"] for r in rs],
+            [_scal(r, FASTQ_SCALARS) for r in rs],
+            *([r[k] for r in rs] for k in ("sp_tv", "sp_a", "sp_b", "sp_c")))
+
+
+def _one(outs: tuple) -> tuple:
+    """The one block of sharded outputs, each as a [1, ...] tensor."""
+    return tuple(o[0][None] for o in outs)
+
 
 def fused_block(block, prev: int, sis: bool, parity_base: int, *, seq_type: int,
                 device) -> tuple:
-    """Fused FASTA emit + nibble pack of one block (nucleotide, plain
-    format) on ``device``.
-
-    ``block`` is u8[B] (numpy, or a tensor already on the device), ``prev``
-    the byte before it and ``sis`` whether it starts inside a record.
-    ``parity_base`` is the global char count before this block.  The pack
-    does the reference's roll by one byte on odd parity and its ``_fit`` to
-    B'//2+1 bytes, so no per-byte torch op runs between the kernels.
-    Returns (packed u8[1, B'//2+1], scal i32[1, 10], sp_tv i32[1, S],
-    sp_a i32[1, S]); scal holds [cnt, cnt_seq, n_sp, sp_ok, unex_id,
-    unex_com, unex_seq, longest, first_lower, first_sval].
-    """
+    """``fused_blocks_sharded`` of one block (numpy, or a tensor already on
+    ``device``), as [1, ...] tensors on ``device``."""
     x = torch.as_tensor(block).to(device)
-    r = emit_fasta_fused(x, int(prev), bool(sis), seq_type=seq_type)
-    sv = r["sv"]
-    packed = pack_4bit(sv, shift=int(parity_base) % 2, out_len=sv.numel() // 2 + 1)
-    scal = torch.stack([
-        r["cnt"], r["cnt_seq"], r["n_sp"], r["sp_ok"].to(torch.int32),
-        r["unex_id"], r["unex_com"], r["unex_seq"], r["longest"],
-        r["first_lower"], r["first_sval"]]).to(torch.int32)
-    return packed[None], scal[None], r["sp_tv"][None], r["sp_a"][None]
+    return _one(fused_blocks_sharded([x], [prev], [sis], parity_base, seq_type=seq_type))
 
 
 def fused_block_fastq(block, prev: int, parity_base: int, *, seq_type: int, device) -> tuple:
-    """Fused FASTQ emit + nibble pack of one block (nucleotide) on
-    ``device``; ``block``, ``prev`` and ``parity_base`` as in ``fused_block``.
-
-    Returns (packed u8[1, B'//2+1], qv u8[1, B'], iv u8[1, B'],
-    scal i32[1, 13], sp_tv, sp_a, sp_b, sp_c i32[1, S]); scal holds [cnt,
-    cnt_seq, n_sp, sp_ok, unex_id, unex_com, unex_seq, longest, first_lower,
-    first_sval, cnt_qual, cnt_id, unex_qual].
-    """
+    """``fused_blocks_fastq_sharded`` of one block, as ``fused_block``."""
     x = torch.as_tensor(block).to(device)
-    r = emit_fastq_fused(x, int(prev), seq_type=seq_type)
-    sv = r["sv"]
-    packed = pack_4bit(sv, shift=int(parity_base) % 2, out_len=sv.numel() // 2 + 1)
-    scal = torch.stack([
-        r["cnt"], r["cnt_seq"], r["n_sp"], r["sp_ok"].to(torch.int32),
-        r["unex_id"], r["unex_com"], r["unex_seq"], r["longest"],
-        r["first_lower"], r["first_sval"], r["cnt_qual"], r["cnt_id"],
-        r["unex_qual"]]).to(torch.int32)
-    return (packed[None], r["qv"][None], r["iv"][None], scal[None], r["sp_tv"][None],
-            r["sp_a"][None], r["sp_b"][None], r["sp_c"][None])
+    return _one(fused_blocks_fastq_sharded([x], [prev], parity_base, seq_type=seq_type))
 
 
 # ---------------------------------------------------------------------------
-# the two-pass protocol on one block
+# the two-pass protocol
 # ---------------------------------------------------------------------------
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -159,58 +198,93 @@ def _scan_block(b: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_typ
     return scan_fasta_fused(b, prev_byte, seq_type=seq_type, starts_in_seq=starts_in_seq)
 
 
-#: pass 1's counts, in the order ``stats_block`` fetches them
+#: pass 1's counts, in the order of a block's row (then the unexpected
+#: bytes of each histogram, ``UNEX_KEYS``)
 STATS_KEYS = ("count", "id_bytes", "com_bytes", "qual_bytes", "n_rec", "n_runs", "first_lower",
               "longest")
+#: the masks of the id, comment, sequence and quality histograms
+UNEX_KEYS = ("id_unex", "com_unex", "seq_unex", "qual_unex")
+
+
+def _stats_row(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
+               fastq: bool) -> tuple:
+    """(i32[12] row on the block's device, masks): ``STATS_KEYS`` and the
+    count of each ``UNEX_KEYS`` mask; nothing is fetched."""
+    s = _scan_block(block, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
+    first_lower, n_runs = _run_stats_uncompacted(s["stream_keep"], s["stream_val"])
+    zero = torch.zeros((), dtype=torch.int32, device=block.device)
+
+    def count(key: str) -> torch.Tensor:
+        return s[key].sum(dtype=torch.int32) if key in s else zero
+
+    row = torch.stack([
+        count("stream_keep"), count("id_keep"), count("com_keep"), count("qual_keep"),
+        count("rec_start"), _i32(n_runs), _i32(first_lower),
+        _i32(S.longest_line_block(s["seq_keep"], s["is_eol"])), *map(count, UNEX_KEYS)])
+    return row, s
+
+
+def stats_rows(xs: list, prevs, siss, *, seq_type: int, fastq: bool) -> tuple:
+    """Pass 1 of every block, gathered: (rows i64[D, 12], hists u64[4, 257],
+    masks).  Every block's pass launches before the one gather of the rows;
+    the id, comment, sequence and quality histograms of unexpected bytes
+    are counted only on the blocks that have such bytes, and summed over
+    them (``psum``, a second fetch then).  ``masks`` is each block's
+    classify dict, which ``emit_blocks_sharded`` takes, so a block is
+    classified once."""
+    launched = [_stats_row(x, int(p), bool(s), seq_type=seq_type, fastq=fastq)
+                for x, p, s in zip(xs, prevs, siss)]
+    rows = all_gather([r for r, _ in launched]).astype(np.int64)
+    masks = [m for _, m in launched]
+    k = len(STATS_KEYS)
+    dirty = [torch.stack([torch.bincount(x[m[key]].long(), minlength=256) if row[k + j]
+                          else torch.zeros(256, dtype=torch.int64, device=x.device)
+                          for j, key in enumerate(UNEX_KEYS)])
+             for x, m, row in zip(xs, masks, rows) if row[k:].any()]
+    hists = np.zeros((4, 257), np.uint64)
+    if dirty:
+        hists[:, :256] = psum(dirty).astype(np.uint64)
+    return rows, hists, masks
+
+
+def block_stats(rows: np.ndarray, hists: np.ndarray, parity_base: int = 0) -> list:
+    """Each block's pass-1 dict from the gathered rows of every block:
+    ``STATS_KEYS`` as ints (first_lower a bool), ``odd`` (the parity of
+    ``parity_base`` plus the chars of the blocks before it), ``longest``
+    as the ``pmax`` over the blocks and ``hists`` the summed histograms,
+    each u64[257], the same in every block's dict."""
+    counts = rows[:, 0]
+    prefix = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    longest = pmax(rows[:, STATS_KEYS.index("longest")])
+    out = []
+    for row, pre in zip(rows, prefix):
+        st = {key: int(v) for key, v in zip(STATS_KEYS, row)}
+        st.update(first_lower=bool(st["first_lower"]), longest=longest,
+                  odd=bool((int(parity_base) + int(pre)) % 2), hists=list(hists))
+        out.append(st)
+    return out
+
+
+def stats_blocks_sharded(xs: list, prevs, siss, *, seq_type: int, fastq: bool,
+                         parity_base: int = 0) -> tuple:
+    """Pass 1 over the blocks (``_stats_fn`` with its collectives):
+    (per-block stats dicts of ``block_stats``, per-block masks)."""
+    rows, hists, masks = stats_rows(xs, prevs, siss, seq_type=seq_type, fastq=fastq)
+    return block_stats(rows, hists, parity_base), masks
 
 
 def stats_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
                 fastq: bool) -> tuple[dict, dict]:
-    """Pass 1 on one block: ``_stats_fn`` for one device.
-
-    Returns (stats, masks).  ``stats`` maps ``STATS_KEYS`` to ints
-    (first_lower to a bool) and ``hists`` to the id, comment, sequence and
-    quality histograms of unexpected bytes, each u64[257]; one fetch from
-    the device.  ``masks`` is the classify's mask dict, which
-    ``emit_block`` takes, so the block is classified once.
-    """
-    s = _scan_block(block, prev_byte, starts_in_seq, seq_type=seq_type, fastq=fastq)
-    first_lower, n_runs = _run_stats_uncompacted(s["stream_keep"], s["stream_val"])
-    zero = torch.zeros((), dtype=torch.int32, device=block.device)
-    row = torch.stack([
-        s["stream_keep"].sum(dtype=torch.int32),
-        s["id_keep"].sum(dtype=torch.int32), s["com_keep"].sum(dtype=torch.int32),
-        s["qual_keep"].sum(dtype=torch.int32) if fastq else zero,
-        s["rec_start"].sum(dtype=torch.int32), _i32(n_runs), _i32(first_lower),
-        _i32(S.longest_line_block(s["seq_keep"], s["is_eol"]))])
-    hist_qual = s["hist_qual"] if fastq else torch.zeros_like(s["hist_seq"])
-    h = torch.cat([row, s["hist_id"], s["hist_comment"], s["hist_seq"], hist_qual]).cpu().numpy()
-    stats = {k: int(v) for k, v in zip(STATS_KEYS, h)}
-    stats["first_lower"] = bool(stats["first_lower"])
-    hists = np.zeros((4, 257), np.uint64)
-    hists[:, :256] = h[len(STATS_KEYS):].reshape(4, 256)
-    stats["hists"] = list(hists)
-    return stats, s
+    """Pass 1 on one block: (stats, masks) of ``stats_blocks_sharded``."""
+    st, masks = stats_blocks_sharded([block], [prev_byte], [starts_in_seq], seq_type=seq_type,
+                                     fastq=fastq)
+    return st[0], masks[0]
 
 
-def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, fastq: bool,
-               pack_nibbles: bool, parity_base: int = 0) -> list:
-    """Pass 2 on one block: ``_emit_fn`` for one device.
-
-    ``masks`` and ``stats`` are what ``stats_block`` returned for this
-    block; the counts size every output exactly.  Nucleotide streams are
-    packed to nibbles (``pack_nibbles``) at the global nibble parity
-    ``parity_base`` (the char count before this block: 0 in memory, the
-    stream's count so far for a chunk of a stream): on odd parity the
-    block's first char pairs with the previous chunk's last, so chars[1:]
-    are packed and ``first_code`` is the code of chars[0].  Protein and
-    text keep the compacted bytes and store no mask.  Returns the ``em_np`` list that ``_stitch_and_build``
-    takes: [packed, first_code, cnt, id_vals, com_vals, qual_vals, seq_lens,
-    id_lens, com_lens, qual_lens, run_lens], host arrays with one row,
-    fetched from the device as one byte buffer and one i32 buffer holding
-    the used prefixes.
-    """
-    b, s = block, masks
+def _emit_launch(b: torch.Tensor, s: dict, stats: dict, *, seq_type: int, fastq: bool,
+                 pack_nibbles: bool, parity_base: int) -> tuple:
+    """Pass 2's device work on one block: (u8 parts, i32 parts), the used
+    prefix of each output, on the block's device; nothing is fetched."""
     cnt, n_rec = stats["count"], stats["n_rec"]
     seq_c, cnt_d = S.compact_best(s["stream_keep"], s["stream_val"], dense=True)
     if pack_nibbles:
@@ -234,8 +308,13 @@ def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, 
     else:
         qual_vals = b.new_zeros(1)
         lens.append(bnd.new_zeros(n_rec + 1))
-    u8 = [packed, first_code, id_vals, com_vals, qual_vals]
-    i32 = [cnt_d.reshape(1), *lens, run_lens]
+    return ([packed, first_code, id_vals, com_vals, qual_vals],
+            [cnt_d.reshape(1), *lens, run_lens])
+
+
+def _emit_fetch(u8: list, i32: list) -> list:
+    """One block's pass-2 parts as the one-row ``em_np`` list, fetched as
+    one byte buffer and one i32 buffer."""
     u8_np = torch.cat(u8).cpu().numpy()
     i32_np = torch.cat([_i32(t) for t in i32]).cpu().numpy()
     cuts_u8 = np.cumsum([t.numel() for t in u8])[:-1]
@@ -247,6 +326,53 @@ def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, 
             run_l.astype(np.int64)[None]]
 
 
+def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, fastq: bool,
+               pack_nibbles: bool, parity_base: int = 0) -> list:
+    """Pass 2 on one block: ``_emit_fn`` for one device.
+
+    ``masks`` and ``stats`` are what ``stats_block`` returned for this
+    block; the counts size every output exactly.  Nucleotide streams are
+    packed to nibbles (``pack_nibbles``) at the global nibble parity
+    ``parity_base`` (the char count before this block): on odd parity the
+    block's first char pairs with the previous block's last, so chars[1:]
+    are packed and ``first_code`` is the code of chars[0].  Protein and
+    text keep the compacted bytes and store no mask.  Returns the ``em_np``
+    list that ``_stitch_and_build`` takes: [packed, first_code, cnt,
+    id_vals, com_vals, qual_vals, seq_lens, id_lens, com_lens, qual_lens,
+    run_lens], host arrays with one row, fetched from the device as one
+    byte buffer and one i32 buffer holding the used prefixes.
+    """
+    return _emit_fetch(*_emit_launch(block, masks, stats, seq_type=seq_type, fastq=fastq,
+                                     pack_nibbles=pack_nibbles, parity_base=parity_base))
+
+
+def _merge_rows(per_block: list) -> list:
+    """Per-block ``em_np`` lists (one row each) as one list of D rows:
+    first_code and cnt concatenated, every other part zero-padded to its
+    widest block."""
+    out = []
+    for parts in zip(*per_block):
+        if parts[0].ndim == 1:
+            out.append(np.concatenate(parts))
+            continue
+        arr = np.zeros((len(parts), max(max(p.shape[1] for p in parts), 1)), parts[0].dtype)
+        for k, p in enumerate(parts):
+            arr[k, :p.shape[1]] = p[0]
+        out.append(arr)
+    return out
+
+
+def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fastq: bool,
+                        pack_nibbles: bool) -> list:
+    """Pass 2 over the blocks: each block's ``emit_block`` at its ``odd``
+    parity, every block's launches before the first fetch; the ``em_np``
+    list with one row a block (``_merge_rows``)."""
+    launched = [_emit_launch(x, m, st, seq_type=seq_type, fastq=fastq, pack_nibbles=pack_nibbles,
+                             parity_base=int(st["odd"]))
+                for x, m, st in zip(xs, masks, stats)]
+    return _merge_rows([_emit_fetch(*parts) for parts in launched])
+
+
 # ---------------------------------------------------------------------------
 # host-side block splitting (copy of naf_tpu.parallel.block)
 # ---------------------------------------------------------------------------
@@ -256,6 +382,20 @@ class Blocks:
     data: np.ndarray          # u8[D, B] '\n'-padded
     prev: np.ndarray          # u8[D] byte before each block
     starts_in_seq: np.ndarray  # bool[D] block cut mid-record (FASTA SP)
+
+
+def _line_start_from(data: np.ndarray, t: int) -> int:
+    """The first line start (a byte after an EOL, below ``data.size``) at or
+    after ``t``, or ``data.size``: the EOLs are looked for in windows that
+    double from ``t`` on, so a cut costs about one line, not the input."""
+    n = data.size
+    pos, w = max(t - 1, 0), 1 << 12
+    while pos < n - 1:
+        hit = np.flatnonzero(C.IS_EOL[:256][data[pos:min(pos + w, n - 1)]])
+        if hit.size:
+            return pos + int(hit[0]) + 1
+        pos, w = pos + w, 2 * w
+    return n
 
 
 def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
@@ -279,25 +419,19 @@ def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
         sis[0] = bool(sis0)
         return Blocks(blocks, prev, sis)
 
-    if n_blocks == 1:
-        # the whole input is the one block: the line-start search below
-        # would cost more than the rest of a device encode
-        cuts = [0, n]
-    else:
-        is_eol = C.IS_EOL[:256][data]
-        line_starts = np.flatnonzero(is_eol[:-1]) + 1     # n excluded
-
-        targets = (np.arange(1, n_blocks) * n) // n_blocks
-        idx = np.searchsorted(line_starts, targets)
-        cuts = [0]
-        for i in idx:
-            cut = int(line_starts[i]) if i < line_starts.size else n
-            if cut > cuts[-1]:
-                cuts.append(cut)
-        while len(cuts) < n_blocks + 1:
-            cuts.append(n)
-        cuts = cuts[: n_blocks + 1]
-        cuts[-1] = n
+    # each cut is the first line start at or after its target (n when
+    # there is none), the reference's search over every line start; a
+    # block count of one has no target
+    targets = (np.arange(1, n_blocks) * n) // n_blocks
+    cuts = [0]
+    for t in targets:
+        cut = _line_start_from(data, int(t))
+        if cut > cuts[-1]:
+            cuts.append(cut)
+    while len(cuts) < n_blocks + 1:
+        cuts.append(n)
+    cuts = cuts[: n_blocks + 1]
+    cuts[-1] = n
 
     B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
     B += B % 2
@@ -407,6 +541,62 @@ def stitch_packed(packed: np.ndarray, counts: np.ndarray,
         total += cnt
     if pending_low is not None:
         pieces.append(np.asarray([pending_low], dtype=np.uint8))
+    if not pieces:
+        return np.zeros(0, dtype=np.uint8)
+    return np.concatenate(pieces)
+
+
+def stitch_packed_range(rows: dict, counts: np.ndarray,
+                        first_codes: np.ndarray, k0: int, k1: int
+                        ) -> np.ndarray:
+    """``stitch_packed`` for blocks [k0, k1) only, using global carry state.
+
+    ``rows[d]`` is block d's even-aligned packed payload; ``counts`` and
+    ``first_codes`` are the GLOBAL per-block vectors (O(D) scalars every
+    process already holds).  Boundary nibble ownership: a byte straddling
+    two ranges is emitted by the EARLIER range (completed with the next
+    range's first code) and skipped by the later one, so concatenating
+    every range's output in block order reproduces ``stitch_packed`` byte
+    for byte.  This lets each process of a multi-process encode compress
+    its own packed bytes (parallel/multihost.py).
+    """
+    D = counts.shape[0]
+    pieces: list[np.ndarray] = []
+    total = int(counts[:k0].sum())
+    pending_low: int | None = None
+    for d in range(k0, k1):
+        cnt = int(counts[d])
+        if cnt == 0:
+            continue
+        odd = (total % 2) == 1
+        if odd:
+            if pending_low is not None:
+                pieces.append(np.asarray(
+                    [pending_low | (int(first_codes[d]) << 4)],
+                    dtype=np.uint8))
+                pending_low = None
+            # else: first char of this range completes the previous
+            # range's last byte, emitted there, skipped here
+            packed_chars = cnt - 1
+        else:
+            packed_chars = cnt
+        nbytes = packed_chars // 2
+        pieces.append(np.ascontiguousarray(rows[d][:nbytes]))
+        if packed_chars % 2:
+            pending_low = int(rows[d][nbytes]) & 0x0F
+        total += cnt
+    if pending_low is not None:
+        nxt = None
+        for j in range(k1, D):
+            if int(counts[j]) > 0:
+                nxt = j
+                break
+        if nxt is None:
+            pieces.append(np.asarray([pending_low], dtype=np.uint8))
+        else:
+            pieces.append(np.asarray(
+                [pending_low | (int(first_codes[nxt]) << 4)],
+                dtype=np.uint8))
     if not pieces:
         return np.zeros(0, dtype=np.uint8)
     return np.concatenate(pieces)

@@ -1,5 +1,5 @@
-"""Device FASTA and FASTQ render on one device: the uniform-group path and
-the ragged path of ``naf_tpu/parallel/decode.py``.
+"""Device FASTA and FASTQ render: the uniform-group path and the ragged
+path of ``naf_tpu/parallel/decode.py``, the latter also over a mesh.
 
 Uniform path (``regular_session``, ``render_regular``): the section bytes
 become chars on the device (``ops.unpack`` kernel, or the upper-case fold
@@ -15,7 +15,11 @@ output position is a function of the record it falls in, rendered in
 batches of at most ``OUT_BATCH`` bytes with i32 indices rebased per batch
 (``_render_step``, the gather-minimal ``_make_kernel``).  Its per-position
 record lookups are segment broadcasts by the max-scan kernel, and its mask
-parity a prefix sum by the add-scan kernel (``ops.scan``).
+parity a prefix sum by the add-scan kernel (``ops.scan``).  Over a mesh of
+D blocks (``render_mesh``, ``render_sharded`` proper) each batch is cut
+into D output chunks, each rendered on its own device, and the chunks are
+joined in order; the uniform path is for one device only, as in the
+reference.
 
 ``RenderPlan``, ``build_plan``, ``_next_seq_char`` and ``_next_qual_char``
 are the port's copies of the reference's render metadata (the tests hold
@@ -431,7 +435,8 @@ def _render_step(seq: torch.Tensor, qual: torch.Tensor, o0: int, c0: int, q0: in
 
 @dataclass
 class RenderBatch:
-    """One batch of a ragged render: host metadata, rebased to the batch."""
+    """One batch (or one chunk of a batch) of a ragged render: host
+    metadata, rebased to the batch."""
 
     p0: int                 # output positions [p0, p1)
     p1: int
@@ -447,6 +452,24 @@ class RenderBatch:
     H: np.ndarray
     hdr: np.ndarray         # u8 header bytes of the batch's records
     bounds: np.ndarray      # i32 rebased masked-span bounds
+    out_base: int           # the batch's first record's output and char start
+    char_base: int
+
+
+def _span(plan: RenderPlan, p0: int, p1: int, out_base: int, char_base: int) -> dict:
+    """Where the output positions [p0, p1) read the section and quality
+    bytes, rebased to a batch that starts at ``out_base`` / ``char_base``."""
+    seq_lo, seq_hi = _next_seq_char(plan, p0), _next_seq_char(plan, p1)
+    if plan.mode == MODE_FASTQ:
+        q_lo, q_hi = _next_qual_char(plan, p0), _next_qual_char(plan, p1)
+    else:
+        q_lo = q_hi = 0
+    if plan.packed:
+        b_lo, b_hi, c0 = seq_lo // 2, (seq_hi + 1) // 2, (seq_lo // 2) * 2
+    else:
+        b_lo, b_hi, c0 = seq_lo, seq_hi, seq_lo
+    return dict(p0=p0, p1=p1, o0=p0 - out_base, c0=c0 - char_base, q0=q_lo - char_base,
+                b_lo=b_lo, b_hi=b_hi, q_lo=q_lo, q_hi=q_hi)
 
 
 def plan_batches(plan: RenderPlan, out_batch: int = 0) -> list[RenderBatch]:
@@ -476,25 +499,36 @@ def plan_batches(plan: RenderPlan, out_batch: int = 0) -> list[RenderBatch]:
         lo = int(np.searchsorted(plan.bounds[1::2], char_base, side="right"))
         hi = int(np.searchsorted(plan.bounds[0::2], char_hi, side="left"))
         bounds = np.clip(plan.bounds[2 * lo:2 * hi] - char_base, 0, char_hi - char_base)
-        seq_lo, seq_hi = _next_seq_char(plan, p0), _next_seq_char(plan, p1)
-        if plan.mode == MODE_FASTQ:
-            q_lo, q_hi = _next_qual_char(plan, p0), _next_qual_char(plan, p1)
-        else:
-            q_lo = q_hi = 0
-        if plan.packed:
-            b_lo, b_hi, c0 = seq_lo // 2, (seq_hi + 1) // 2, (seq_lo // 2) * 2
-        else:
-            b_lo, b_hi, c0 = seq_lo, seq_hi, seq_lo
         batches.append(RenderBatch(
-            p0=p0, p1=p1, o0=p0 - out_base, c0=c0 - char_base, q0=q_lo - char_base,
-            b_lo=b_lo, b_hi=b_hi, q_lo=q_lo, q_hi=q_hi,
+            **_span(plan, p0, p1, out_base, char_base),
             E=(plan.E[r0:r1] - char_base).astype(np.int32),
             O=(plan.O[r0:r1] - out_base).astype(np.int32),
             H=(plan.H[r0:r1] - hdr_base).astype(np.int32),
             hdr=plan.hdr[hdr_base:int(plan.H[r1 - 1])],
-            bounds=bounds.astype(np.int32)))
+            bounds=bounds.astype(np.int32), out_base=out_base, char_base=char_base))
         p0 = p1
     return batches
+
+
+def split_batch(plan: RenderPlan, bt: RenderBatch, parts: int) -> list[RenderBatch]:
+    """A batch cut into ``parts`` output chunks of even length (the last
+    ones may be empty), each with the byte ranges its positions read; they
+    share the batch's records, headers and mask bounds
+    (``render_sharded``'s device chunks)."""
+    chunk = -(-(bt.p1 - bt.p0) // parts)
+    chunk += chunk % 2
+    out = []
+    for d in range(parts):
+        a = min(bt.p0 + d * chunk, bt.p1)
+        b = min(a + chunk, bt.p1)
+        out.append(RenderBatch(**_span(plan, a, b, bt.out_base, bt.char_base), E=bt.E, O=bt.O,
+                               H=bt.H, hdr=bt.hdr, bounds=bt.bounds, out_base=bt.out_base,
+                               char_base=bt.char_base))
+    return out
+
+
+def _up(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
 def ragged_session(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
@@ -507,21 +541,24 @@ def ragged_session(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.nd
     seq_d = torch.from_numpy(np.ascontiguousarray(seq_bytes, np.uint8).copy()).to(device)
     qual_d = (torch.from_numpy(np.ascontiguousarray(qual, np.uint8).copy()).to(device)
               if plan.mode == MODE_FASTQ and qual is not None else None)
-    masking = plan.bounds.size > 0
     one = torch.zeros(1, dtype=torch.uint8, device=seq_d.device)
-
-    def up(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(seq_d.device)
 
     def render(bt: RenderBatch) -> torch.Tensor:
         seq = seq_d[bt.b_lo:bt.b_hi] if bt.b_hi > bt.b_lo else one
         qsl = (qual_d[bt.q_lo:bt.q_hi] if qual_d is not None and bt.q_hi > bt.q_lo else one)
-        return _render_step(seq, qsl, bt.o0, bt.c0, bt.q0, up(bt.E), up(bt.O), up(bt.H),
-                            up(bt.hdr), up(bt.bounds), osz=bt.p1 - bt.p0, mode=plan.mode,
-                            line_len=plan.line_len, rna=plan.rna, packed=plan.packed,
-                            upper=plan.upper, masking=masking)
+        meta = [_up(a, seq_d.device) for a in (bt.E, bt.O, bt.H, bt.hdr, bt.bounds)]
+        return _render_chunk(plan, bt, seq, qsl, meta)
 
     return batches, render
+
+
+def _render_chunk(plan: RenderPlan, bt: RenderBatch, seq: torch.Tensor, qual: torch.Tensor,
+                  meta: list) -> torch.Tensor:
+    """``_render_step`` of one batch or chunk, from its uploaded section
+    and quality bytes and its uploaded E, O, H, headers and bounds."""
+    return _render_step(seq, qual, bt.o0, bt.c0, bt.q0, *meta, osz=bt.p1 - bt.p0,
+                        mode=plan.mode, line_len=plan.line_len, rna=plan.rna,
+                        packed=plan.packed, upper=plan.upper, masking=plan.bounds.size > 0)
 
 
 def render_batched(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
@@ -533,3 +570,30 @@ def render_batched(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.nd
         return b""
     batches, render = ragged_session(plan, seq_bytes, qual, device=device, out_batch=out_batch)
     return b"".join(render(bt).cpu().numpy().tobytes() for bt in batches)
+
+
+def render_mesh(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
+                *, mesh, out_batch: int = 0) -> bytes:
+    """The whole output of a ragged render over the devices of ``mesh``
+    (``render_sharded`` for D devices): each batch cut into one chunk a
+    device (``split_batch``), every chunk's bytes and metadata uploaded to
+    its device, then every chunk rendered, then the chunks fetched and
+    joined in order.  Raises RenderOverflow where the reference does."""
+    if plan.total_out == 0:
+        return b""
+    fastq = plan.mode == MODE_FASTQ and qual is not None
+    pieces = []
+    for bt in plan_batches(plan, out_batch):
+        chunks = [(dev, ch) for dev, ch in zip(mesh.devices, split_batch(plan, bt, mesh.size))
+                  if ch.p1 > ch.p0]
+        inputs = []
+        for dev, ch in chunks:
+            seq = _up(seq_bytes[ch.b_lo:ch.b_hi] if ch.b_hi > ch.b_lo else np.zeros(1, np.uint8),
+                      dev)
+            qsl = _up(qual[ch.q_lo:ch.q_hi] if fastq and ch.q_hi > ch.q_lo
+                      else np.zeros(1, np.uint8), dev)
+            meta = [_up(a, dev) for a in (ch.E, ch.O, ch.H, ch.hdr, ch.bounds)]
+            inputs.append((ch, seq, qsl, meta))
+        outs = [_render_chunk(plan, ch, seq, qsl, meta) for ch, seq, qsl, meta in inputs]
+        pieces.extend(o.cpu().numpy().tobytes() for o in outs)
+    return b"".join(pieces)

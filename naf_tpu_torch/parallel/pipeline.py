@@ -1,16 +1,20 @@
-"""Device FASTA and FASTQ encode on one device: bytes -> block -> NAF
+"""Device FASTA and FASTQ encode: bytes -> blocks over a mesh -> NAF
 archive.
 
-``encode_device`` is the one-device counterpart of
-``naf_tpu/parallel/pipeline.py:encode_sharded``.  A nucleotide block first
-takes the fused path (``_try_encode_fused``, ``_try_encode_fused_fastq``):
-one emit kernel classifies, compacts and packs it.  Where that path cannot
-finish (a tile past the sparse cap, or unexpected characters, whose
-histograms only the stats pass gives) and for protein and text, the same
-uploaded block takes the two-pass protocol: ``stats_block`` counts, then
-``emit_block`` compacts every section to the counted sizes.  The host
-stitches the sections and writes the container through the shared
-``build_archive``, so the archive is byte-identical to host ``encode()``.
+``encode_device`` is the port's ``naf_tpu/parallel/pipeline.py:
+encode_sharded``.  It cuts the input into one line-aligned block a mesh
+device (``make_blocks``; record-aligned for FASTQ), one block on the named
+device when no mesh is given.  Nucleotide blocks first take the fused path
+(``_try_encode_fused``, ``_try_encode_fused_fastq``): one emit kernel a
+block classifies and compacts it, one gather of the counts sets each
+block's nibble parity, and the pack follows.  Where that path cannot
+finish in any block (a tile past the sparse cap, or unexpected characters,
+whose histograms only the stats pass gives), and for protein and text, the
+same uploaded blocks take the two-pass protocol: ``stats_blocks_sharded``
+counts, then ``emit_blocks_sharded`` compacts every section to the counted
+sizes.  The host stitches the blocks' sections and writes the container
+through the shared ``build_archive``, so the archive is byte-identical to
+host ``encode()`` whatever the number of blocks.
 
 Each way is a route counted in ``device.ROUTES``: ``encode_device`` (fused),
 ``encode_device:two_pass:<why>`` (``text_like``, ``sparse_overflow``,
@@ -31,22 +35,26 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
-from ..device import count_route, resolve
+from ..device import count_route
 from ..format import constants as C
 from ..ops.mask import runs_to_units
 from ..ops.tables_np import NUC_CODE
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
-from .block import (STATS_KEYS, blob_from_lens, emit_block, fused_block, fused_block_fastq,
-                    make_blocks, make_blocks_fastq, stats_block, stitch_lengths, stitch_packed,
-                    stitch_runs)
+from .block import (STATS_KEYS, blob_from_lens, emit_blocks_sharded, fused_blocks_fastq_sharded,
+                    fused_blocks_sharded, make_blocks, make_blocks_fastq, stats_blocks_sharded,
+                    stitch_lengths, stitch_packed, stitch_runs)
+from .mesh import BlockMesh, all_gather, block_mesh
 
 
-def _host(a) -> np.ndarray:
-    """A tensor (any device) or array as a host numpy array."""
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+def _rows(rows, used: int) -> np.ndarray:
+    """The first ``used`` columns of per-block rows as one host array
+    [D, used]: from a 2-D array, or a 2-D tensor or a list of per-block
+    tensors on their blocks' devices (one gather)."""
+    if isinstance(rows, np.ndarray):
+        return rows[:, :used]
+    return all_gather([r[:used] for r in rows])
 
 
 def _host_route(reason: str, data: bytes, opts: EncodeOptions):
@@ -54,12 +62,13 @@ def _host_route(reason: str, data: bytes, opts: EncodeOptions):
     return encode(data, opts)
 
 
-def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="cuda"
-                  ) -> tuple[bytes, EncodeStats]:
-    """FASTA or FASTQ encode with the kernels on ``device`` (the current
-    card by default; 'cpu', asked for explicitly, runs the plain versions);
-    archive bytes equal host ``encode(data, opts)``."""
-    dev = resolve(device)
+def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="cuda",
+                  mesh: Optional[BlockMesh] = None) -> tuple[bytes, EncodeStats]:
+    """FASTA or FASTQ encode with the kernels, one block on each device of
+    ``mesh``, or one block on ``device`` (the current card by default;
+    'cpu', asked for explicitly, runs the plain versions) when no mesh is
+    given; archive bytes equal host ``encode(data, opts)``."""
+    mesh = mesh if mesh is not None else block_mesh(devices=[device])
     opts = opts or EncodeOptions()
     fmt, marker = P.detect_format(data)
     if (opts.in_format != C.IN_FORMAT_UNKNOWN and fmt != C.IN_FORMAT_UNKNOWN
@@ -73,15 +82,14 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
     if opts.well_formed and not _wf_device_safe(body, fastq):
         return _host_route("well_formed_unsafe", data, opts)
     if fastq:
-        mb = make_blocks_fastq(body, 1)
+        mb = make_blocks_fastq(body, mesh.size)
         if mb is None:
             return _host_route("fastq_irregular", data, opts)
         blocks = mb[0]
     else:
-        blocks = make_blocks(body, 1)
+        blocks = make_blocks(body, mesh.size)
     # one upload, shared by the fused attempt and the two-pass protocol
-    x = torch.from_numpy(blocks.data[0]).to(dev)
-    prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
+    xs = mesh.upload(blocks.data)
     mismatch = []
 
     def fallback():
@@ -91,72 +99,77 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
     if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
         why = "text_like"
     else:
-        why, out = (_encode_fused_fastq if fastq else _encode_fused)(x, prev, sis, fmt, opts,
+        why, out = (_encode_fused_fastq if fastq else _encode_fused)(xs, blocks, fmt, opts,
                                                                      fallback)
         if why is None:
             if not mismatch:
                 count_route("encode_device")
             return out
-    out = _encode_two_pass(x, prev, sis, fmt, opts, fallback)
+    out = _encode_two_pass(xs, blocks, fmt, opts, fallback)
     if out is not None and not mismatch:
         count_route(f"encode_device:two_pass:{why}")
     return out if out is not None else _host_route("strict_unexpected", data, opts)
 
 
-def _encode_fused(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
+def _encode_fused(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
     """The fused FASTA path (``_try_encode_fused``): (None, archive), or
-    (why, None) when the two-pass protocol must take the block."""
-    packed_d, scal_d, tv_d, a_d = fused_block(x, prev, sis, 0, seq_type=opts.seq_type,
-                                              device=x.device)
-    scal = _host(scal_d)
+    (why, None) when the two-pass protocol must take the blocks."""
+    D = len(xs)
+    packed, scal_d, tv, a = fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq, 0,
+                                                 seq_type=opts.seq_type)
+    scal = all_gather(scal_d)
     if not scal[:, 3].all():
         return "sparse_overflow", None
     if scal[:, 4:7].any():
         return "unexpected_chars", None
-    parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
+    parsed = parse_fused_fasta(D, scal, packed, tv, a)
     zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
     return None, _stitch_and_build(
-        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
-        np.zeros(1, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
+        D, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
+        np.zeros(D, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
         parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
 
 
-def _encode_fused_fastq(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
+def _encode_fused_fastq(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
     """The fused FASTQ path (``_try_encode_fused_fastq``), as
     ``_encode_fused``."""
-    outs = fused_block_fastq(x, prev, 0, seq_type=opts.seq_type, device=x.device)
-    scal = _host(outs[3])
+    D = len(xs)
+    outs = fused_blocks_fastq_sharded(xs, blocks.prev, 0, seq_type=opts.seq_type)
+    scal = all_gather(outs[3])
     if not scal[:, 3].all():
         return "sparse_overflow", None
     if scal[:, 4:7].any() or scal[:, 12].any():
         return "unexpected_chars", None
-    parsed = parse_fused_fastq(1, scal, outs)
+    parsed = parse_fused_fastq(D, scal, outs)
     zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
     return None, _stitch_and_build(
-        1, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
+        D, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
         parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
 
 
-def _encode_two_pass(x, prev: int, sis: bool, fmt: int, opts: EncodeOptions, fallback):
-    """The two-pass protocol on the uploaded block (``encode_sharded``
+def _encode_two_pass(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
+    """The two-pass protocol on the uploaded blocks (``encode_sharded``
     after its fused attempt); None when ``--strict`` meets an unexpected
     character, whose exact message only the host parser gives."""
     fastq = fmt == C.IN_FORMAT_FASTQ
-    stats, masks = stats_block(x, prev, sis, seq_type=opts.seq_type, fastq=fastq)
-    if opts.strict and any(h.any() for h in stats["hists"]):
+    stats, masks = stats_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
+                                        seq_type=opts.seq_type, fastq=fastq)
+    if opts.strict and any(h.any() for h in stats[0]["hists"]):
         return None
-    em_np = emit_block(x, masks, stats, seq_type=opts.seq_type, fastq=fastq,
-                       pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN)
+    em_np = emit_blocks_sharded(xs, masks, stats, seq_type=opts.seq_type, fastq=fastq,
+                                pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN)
     del masks
     return build_two_pass(fmt, opts, stats, em_np, fallback=fallback)
 
 
-def build_two_pass(fmt: int, opts: EncodeOptions, stats: dict, em_np: list, fallback):
-    """``_stitch_and_build`` of one block's ``stats_block`` and
-    ``emit_block`` results."""
-    one = [np.asarray([stats[k]]) for k in STATS_KEYS]
-    return _stitch_and_build(1, fmt, opts, *one, stats["hists"], em_np, fallback=fallback)
+def build_two_pass(fmt: int, opts: EncodeOptions, stats: list, em_np: list, fallback,
+                   prebuilt: Optional[dict] = None):
+    """``_stitch_and_build`` of the blocks' ``stats_blocks_sharded`` dicts
+    and ``emit_blocks_sharded`` rows."""
+    cols = [np.asarray([st[k] for st in stats]) for k in STATS_KEYS]
+    return _stitch_and_build(len(stats), fmt, opts, *cols, stats[0]["hists"], em_np,
+                             fallback=fallback, prebuilt=prebuilt)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +214,10 @@ def _pad2d(D, rows, dtype=np.int32):
 
 def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
     """Host parse of the fused FASTA outputs -> the em_np layout of the
-    two-pass protocol.  The device arrays may be tensors on any device or
-    numpy arrays; only their used prefixes are fetched.  Returns None when
-    a tile overflowed the sparse cap or unexpected characters exist."""
+    two-pass protocol.  The per-block outputs may be 2-D numpy arrays or
+    tensors, or lists of per-block tensors on any devices; only their used
+    prefixes are fetched.  Returns None when a tile overflowed the sparse
+    cap or unexpected characters exist."""
     if not scal[:, 3].all() or scal[:, 4:7].any():
         return None
 
@@ -216,10 +230,10 @@ def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
 
     # sliced fetches: only used prefixes cross the host<->device link
     p_used = max(int((counts.max(initial=1) + 1) // 2) + 1, 1)
-    packed = _host(packed_d[:, :p_used])
+    packed = _rows(packed_d, p_used)
     m_sp = max(int(n_sp.max(initial=1)), 1)
-    tv = _host(tv_d[:, :m_sp])
-    av = _host(a_d[:, :m_sp])
+    tv = _rows(tv_d, m_sp)
+    av = _rows(a_d, m_sp)
 
     # host-side sparse parse: O(records + runs + header bytes)
     id_vals_l, com_vals_l = [], []
@@ -263,8 +277,8 @@ def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
 
 
 def parse_fused_fastq(D, scal, outs):
-    """Host parse of the fused FASTQ outputs (tensors on any device or numpy
-    arrays; only their used prefixes are fetched); None on sparse-cap
+    """Host parse of the fused FASTQ outputs (as ``parse_fused_fasta``
+    takes them; only their used prefixes are fetched); None on sparse-cap
     overflow or unexpected characters."""
     packed_d, qv_d, iv_d, _scal_d, tv_d, a_d, b_d, c_d = outs
     if not scal[:, 3].all() or scal[:, 4:7].any() or scal[:, 12].any():
@@ -280,14 +294,14 @@ def parse_fused_fastq(D, scal, outs):
     id_bytes = scal[:, 11].astype(np.int64)
 
     p_used = max(int((counts.max(initial=1) + 1) // 2) + 1, 1)
-    packed = _host(packed_d[:, :p_used])
-    qual_vals = _host(qv_d[:, :max(int(qual_bytes.max(initial=1)), 1)])
-    id_vals = _host(iv_d[:, :max(int(id_bytes.max(initial=1)), 1)])
+    packed = _rows(packed_d, p_used)
+    qual_vals = _rows(qv_d, max(int(qual_bytes.max(initial=1)), 1))
+    id_vals = _rows(iv_d, max(int(id_bytes.max(initial=1)), 1))
     m_sp = max(int(n_sp.max(initial=1)), 1)
-    tv = _host(tv_d[:, :m_sp])
-    av = _host(a_d[:, :m_sp])
-    bv = _host(b_d[:, :m_sp])
-    cv = _host(c_d[:, :m_sp])
+    tv = _rows(tv_d, m_sp)
+    av = _rows(a_d, m_sp)
+    bv = _rows(b_d, m_sp)
+    cv = _rows(c_d, m_sp)
 
     com_vals_l = []
     seq_lens_l, qual_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], [], []
@@ -326,10 +340,15 @@ def parse_fused_fastq(D, scal, outs):
 
 def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
                       n_rec, n_runs, first_lower, longest, hists, em_np,
-                      fallback):
+                      fallback, prebuilt=None):
     """Host carry stitching (O(blocks + records + runs)) + container;
     ``hists`` are the id, comment, sequence and quality histograms of
-    unexpected bytes, each u64[257]."""
+    unexpected bytes, each u64[257].
+
+    ``prebuilt`` injects ready SEQ/QUAL sections (the multi-process
+    compressed-traffic paths: payloads were compressed by the processes
+    that own them; em_np then carries zero-width packed/qual arrays).
+    """
     fastq = fmt == C.IN_FORMAT_FASTQ
     (packed, first_codes, cnt2, id_vals, com_vals, qual_vals,
      seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
@@ -373,7 +392,10 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
         res.packed = None
     else:
         res.seq = np.zeros(total_chars, np.uint8)    # only .size is used
-        res.packed = stitch_packed(packed, counts, first_codes)
+        if prebuilt is None:
+            res.packed = stitch_packed(packed, counts, first_codes)
+        else:
+            res.packed = np.zeros(0, np.uint8)   # payload arrives prebuilt
 
     if not opts.no_mask and not text_like:
         runs, state_first = stitch_runs(
@@ -383,9 +405,11 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
             runs = np.concatenate([[0], runs])   # leading masked run
         res.mask_units = runs_to_units(runs)
 
-    if fastq:
+    if fastq and prebuilt is None:
         res.qual = np.concatenate(
             [qual_vals[k, : int(qual_bytes[k])] for k in range(D)])
+    elif fastq:
+        res.qual = np.zeros(int(counts.sum()), np.uint8)   # size only
 
     (res.unexpected_id, res.unexpected_comment, res.unexpected_seq,
      res.unexpected_qual) = hists
@@ -399,4 +423,4 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
         unexpected_qual=res.unexpected_qual,
         in_format=fmt,
     )
-    return build_archive(res, opts, stats)
+    return build_archive(res, opts, stats, prebuilt=prebuilt)

@@ -1,4 +1,4 @@
-"""Chunked (bounded-memory) device encode: the one-device encode as a
+"""Chunked (bounded-memory) device encode: the device encode as a
 streaming scan engine.
 
 The port's copy of ``naf_tpu/parallel/stream.py``.  ``DeviceScanEngine.scan``
@@ -23,10 +23,15 @@ mid-line), ``no_full_record`` (a FASTQ piece without a complete record),
 ``qual_length_mismatch`` (the native scanner raises the reference's text).
 Both scanners share the carry algebra, so they interleave within a stream.
 
+Each piece is split over the blocks of the engine's mesh
+(``mesh.BlockMesh``; one block on the named device by default), as
+naf_tpu's engine splits it over its mesh: the pieces' nibble parity and
+open mask run carry across the blocks of a piece and from piece to piece.
+
 Unlike naf_tpu's engine, a fault on the card is never requeued to the
 host scanner: an exception of a piece, fused or two-pass, propagates.
 The TPU's recompile guards (power-of-two column and capacity buckets, LF
-padding) and its mesh are not copied: one card, one block a piece.
+padding) are not copied.
 """
 
 from __future__ import annotations
@@ -34,14 +39,15 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
-from ..device import count_route, resolve
+from ..device import count_route
 from ..format import constants as C
 from ..native import host as native
 from ..ops.mask import runs_to_units
-from .block import (STATS_KEYS, blob_from_lens, emit_block, fused_block, fused_block_fastq,
-                    make_blocks, make_blocks_fastq, stats_block, stitch_lengths, stitch_runs)
+from .block import (STATS_KEYS, blob_from_lens, emit_blocks_sharded, fused_blocks_fastq_sharded,
+                    fused_blocks_sharded, make_blocks, make_blocks_fastq, stats_blocks_sharded,
+                    stitch_lengths, stitch_runs)
+from .mesh import BlockMesh, all_gather, block_mesh
 from .pipeline import parse_fused_fasta, parse_fused_fastq
 
 _GT = ord(">")
@@ -116,10 +122,12 @@ def _merge_mask(runs: np.ndarray, state_first: bool, mask_on: bool,
 
 
 class DeviceScanEngine:
-    """One-card scan engine, plug-compatible with ``native.host.scan``.
+    """Scan engine over a block mesh, plug-compatible with
+    ``native.host.scan``.
 
-    ``device`` names the card (the current one by default); the CPU runs
-    the kernels' plain versions and is used only when asked for.
+    ``mesh`` gives one block of each piece to each of its devices; without
+    it, ``device`` names the one card (the current one by default).  The
+    CPU runs the kernels' plain versions and is used only when asked for.
     ``device_chunks`` and ``native_chunks`` count the pieces each scanner
     took; ``device.ROUTES`` names each piece's way.
     """
@@ -128,8 +136,9 @@ class DeviceScanEngine:
     #: engine with this flag, so a block never resumes mid-line
     line_aligned = True
 
-    def __init__(self, device="cuda"):
-        self.device = resolve(device)
+    def __init__(self, device="cuda", mesh: Optional[BlockMesh] = None):
+        self.mesh = mesh if mesh is not None else block_mesh(devices=[device])
+        self.device = self.mesh.devices[0]
         self.device_chunks = 0
         self.native_chunks = 0
 
@@ -174,49 +183,54 @@ class DeviceScanEngine:
     # -- device passes ----------------------------------------------------
 
     def _passes(self, blocks, *, fastq: bool, seq_type: int, parity_odd_in: bool):
-        """The block's fused encode, else its two-pass encode, fetched to
+        """The blocks' fused encode, else their two-pass encode, fetched to
         the host: (None or the two-pass reason, the ``_build`` tuple)."""
-        x = torch.from_numpy(blocks.data[0]).to(self.device)
-        prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
+        D = self.mesh.size
+        xs = self.mesh.upload(blocks.data)
         parity = int(parity_odd_in)
         zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
         if fastq:
-            outs = fused_block_fastq(x, prev, parity, seq_type=seq_type, device=self.device)
-            scal = outs[3].cpu().numpy()
-            parsed = parse_fused_fastq(1, scal, outs)
+            outs = fused_blocks_fastq_sharded(xs, blocks.prev, parity, seq_type=seq_type)
+            scal = all_gather(outs[3])
+            parsed = parse_fused_fastq(D, scal, outs)
         else:
-            packed_d, scal_d, tv_d, a_d = fused_block(x, prev, sis, parity, seq_type=seq_type,
-                                                      device=self.device)
-            scal = scal_d.cpu().numpy()
-            parsed = parse_fused_fasta(1, scal, packed_d, tv_d, a_d)
+            packed, scal_d, tv, a = fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
+                                                         parity, seq_type=seq_type)
+            scal = all_gather(scal_d)
+            parsed = parse_fused_fasta(D, scal, packed, tv, a)
         if parsed is not None:
             return None, (parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
-                          parsed.get("qual_bytes", np.zeros(1, np.int64)), parsed["n_rec"],
+                          parsed.get("qual_bytes", np.zeros(D, np.int64)), parsed["n_rec"],
                           parsed["n_runs"], parsed["first_lower"], parsed["longest"],
                           zero_hists, parsed["em_np"])
         why = "sparse_overflow" if not scal[:, 3].all() else "unexpected_chars"
-        stats, masks = stats_block(x, prev, sis, seq_type=seq_type, fastq=fastq)
-        em_np = emit_block(x, masks, stats, seq_type=seq_type, fastq=fastq, pack_nibbles=True,
-                           parity_base=parity)
+        stats, masks = stats_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
+                                            seq_type=seq_type, fastq=fastq, parity_base=parity)
+        em_np = emit_blocks_sharded(xs, masks, stats, seq_type=seq_type, fastq=fastq,
+                                    pack_nibbles=True)
         del masks
-        one = [np.asarray([stats[k]]) for k in STATS_KEYS]
-        return why, (*one, stats["hists"], em_np)
+        cols = [np.asarray([st[k] for st in stats]) for k in STATS_KEYS]
+        return why, (*cols, stats[0]["hists"], em_np)
 
     # -- stitching into a NativeScan-shaped result ---------------------------
 
     @staticmethod
     def _build(res, *, fastq: bool, cont: bool, do_mask: bool, len_carry: int,
                mask_on: bool, mask_run: int, pack_carry: Optional[int], consumed: int):
-        """The ``NativeScan`` of one piece, or None when a FASTQ record's
-        quality length differs from its sequence length (the native
-        scanner raises the reference's text for it)."""
+        """The ``NativeScan`` of one piece from its blocks' rows, or None
+        when a FASTQ record's quality length differs from its sequence
+        length (the native scanner raises the reference's text for it)."""
         (counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
          first_lower, longest, hists, em_np) = res
         (packed, first_codes, _cnt2, id_vals, com_vals, qual_vals,
          seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
+        D = counts.shape[0]
 
         def trim(arr2d):
-            return [arr2d[0, : int(n_rec[0]) + 1]]
+            return [arr2d[k, : int(n_rec[k]) + 1] for k in range(D)]
+
+        def cat(vals, sizes):
+            return np.concatenate([vals[k, : int(sizes[k])] for k in range(D)])
 
         g_seq_lens = stitch_lengths(trim(seq_lens)).astype(np.uint64)
         if cont and g_seq_lens.size:
@@ -236,19 +250,19 @@ class DeviceScanEngine:
         out = native.NativeScan()
         out.seq = _Chars(int(counts.sum()))
         out.packed = _stitch_packed_stream(packed, counts, first_codes, pack_carry)
-        out.ids_blob = blob_from_lens(id_vals[0, : int(id_bytes[0])], g_id_lens)
-        out.comments_blob = blob_from_lens(com_vals[0, : int(com_bytes[0])], g_com_lens)
+        out.ids_blob = blob_from_lens(cat(id_vals, id_bytes), g_id_lens)
+        out.comments_blob = blob_from_lens(cat(com_vals, com_bytes), g_com_lens)
         out.lengths = g_seq_lens
         out.n_sequences = int(g_seq_lens.size)
         if fastq:
-            out.qual = np.ascontiguousarray(qual_vals[0, : int(qual_bytes[0])])
+            out.qual = cat(qual_vals, qual_bytes)
             out.longest_line = int(g_seq_lens.max(initial=0))
         else:
             out.qual = np.zeros(0, np.uint8)
             out.longest_line = int(longest[0])
         if do_mask:
-            runs, state_first = stitch_runs([run_lens[0, : int(n_runs[0])]],
-                                            [bool(first_lower[0])])
+            runs, state_first = stitch_runs([run_lens[k, : int(n_runs[k])] for k in range(D)],
+                                            [bool(first_lower[k]) for k in range(D)])
             units, tail_on, tail_run = _merge_mask(runs, state_first, mask_on, mask_run)
         else:
             units, tail_on, tail_run = np.zeros(0, np.uint8), mask_on, mask_run
@@ -270,7 +284,7 @@ class DeviceScanEngine:
             # the piece ends mid-line: the open line's length must carry
             # (end_line_len), which only the native scanner reports
             return "open_line", None
-        blocks = make_blocks(body, 1, prev0=(_LF if cont else _GT), sis0=cont)
+        blocks = make_blocks(body, self.mesh.size, prev0=(_LF if cont else _GT), sis0=cont)
         why, res = self._passes(blocks, fastq=False, seq_type=seq_type,
                                 parity_odd_in=pack_carry is not None)
         return why, self._build(res, fastq=False, cont=cont, do_mask=do_mask,
@@ -291,7 +305,7 @@ class DeviceScanEngine:
         else:
             consumed = int(body.size)
             sub = body
-        mb = make_blocks_fastq(sub, 1)
+        mb = make_blocks_fastq(sub, self.mesh.size)
         if mb is None:
             return "fastq_irregular", None
         why, res = self._passes(mb[0], fastq=True, seq_type=seq_type,

@@ -16,9 +16,12 @@ native library is off.
 the device through ``parallel.decode``: the uniform-group render
 (``decode_device``), or, where ``parallel.decode.decline_reason`` says it
 does not take the archive, the ragged render
-(``decode_device:ragged:<reason>``).  Routes counted in ``device.ROUTES``
-send the rest to ``fasta()`` / ``fastq()``: spill quirks (chars beyond the
-sum of the lengths), as the reference does, and a record too large for the
+(``decode_device:ragged:<reason>``).  Over a mesh of several devices the
+render is the ragged one, each batch cut into one chunk a device
+(``decode_device:ragged:mesh``): the uniform render is for one device
+only, as in the reference.  Routes counted in ``device.ROUTES`` send the
+rest to ``fasta()`` / ``fastq()``: spill quirks (chars beyond the sum of
+the lengths), as the reference does, and a record too large for the
 ragged render's i32 batches (``render_overflow``).
 
 Importing this module, and every host output, load no torch: the device
@@ -869,25 +872,30 @@ class Decoder:
         return self._plan(MODE_FASTA, masking)
 
 
-#: decline reasons of the uniform render that the ragged render takes
-_RAGGED = ("too_many_groups", "too_large", "spill")
+#: decline reasons of the uniform render that the ragged render takes, and
+#: "mesh": a render over several devices
+_RAGGED = ("too_many_groups", "too_large", "spill", "mesh")
 
 
-def _render(plan, raw, qual, dev, host) -> bytes:
+def _render(plan, raw, qual, mesh, host) -> bytes:
     """The device render of a plan: uniform, ragged, or ``host()`` by a
-    named route."""
+    named route; over several devices, the ragged render of every batch
+    in one chunk a device."""
     from ..device import count_route
     from ..parallel import decode as DV
 
     reason = DV.decline_reason(plan)
-    if reason is None:
+    if mesh.size > 1 and reason != "empty":
+        reason = "mesh"
+    elif reason is None:
         count_route("decode_device")
-        return DV.render_regular(plan, raw, qual, device=dev)
+        return DV.render_regular(plan, raw, qual, device=mesh.devices[0])
     if reason not in _RAGGED:
         count_route(f"decode_host:{reason}")
         return host()
     try:
-        out = DV.render_batched(plan, raw, qual, device=dev)
+        out = (DV.render_mesh(plan, raw, qual, mesh=mesh) if reason == "mesh"
+               else DV.render_batched(plan, raw, qual, device=mesh.devices[0]))
     except DV.RenderOverflow:
         count_route("decode_host:render_overflow")
         return host()
@@ -895,12 +903,21 @@ def _render(plan, raw, qual, dev, host) -> bytes:
     return out
 
 
-def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device="cuda") -> bytes:
-    """FASTA output of an open archive, rendered on ``device`` (the current
-    card by default); the same bytes as ``decoder.fasta(masking)``."""
-    from ..device import count_route, resolve
+def _mesh(device, mesh):
+    """The caller's mesh, or one block on ``device``."""
+    from ..parallel.mesh import block_mesh
 
-    dev = resolve(device)
+    return mesh if mesh is not None else block_mesh(devices=[device])
+
+
+def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device="cuda",
+                 mesh=None) -> bytes:
+    """FASTA output of an open archive, rendered on ``device`` (the current
+    card by default) or over the devices of ``mesh``; the same bytes as
+    ``decoder.fasta(masking)``."""
+    from ..device import count_route
+
+    mesh = _mesh(device, mesh)
     if not decoder.h.has_sequence:
         count_route("decode_host:no_sequence")
         return b""
@@ -910,16 +927,17 @@ def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device="cu
         count_route("decode_host:spill_quirk")
         return decoder.fasta(masking)
     plan, raw = built
-    return _render(plan, raw, None, dev, lambda: decoder.fasta(masking))
+    return _render(plan, raw, None, mesh, lambda: decoder.fasta(masking))
 
 
-def fastq_device(decoder: Decoder, *, device="cuda") -> bytes:
+def fastq_device(decoder: Decoder, *, device="cuda", mesh=None) -> bytes:
     """FASTQ output of an open archive, rendered on ``device`` (the current
-    card by default); the same bytes as ``decoder.fastq()``.  The mask is never applied (unnaf.c:443)."""
-    from ..device import count_route, resolve
+    card by default) or over the devices of ``mesh``; the same bytes as
+    ``decoder.fastq()``.  The mask is never applied (unnaf.c:443)."""
+    from ..device import count_route
     from ..parallel.decode import MODE_FASTQ
 
-    dev = resolve(device)
+    mesh = _mesh(device, mesh)
     if not decoder.h.has_sequence or decoder.r.n_sequences == 0:
         count_route("decode_host:no_sequence")
         return b""
@@ -930,4 +948,4 @@ def fastq_device(decoder: Decoder, *, device="cuda") -> bytes:
         count_route("decode_host:spill_quirk")
         return decoder.fastq()
     plan, raw = built
-    return _render(plan, raw, decoder._load_qual(), dev, decoder.fastq)
+    return _render(plan, raw, decoder._load_qual(), mesh, decoder.fastq)

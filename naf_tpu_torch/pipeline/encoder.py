@@ -126,12 +126,16 @@ def encode(data: bytes, opts: EncodeOptions) -> tuple[bytes, EncodeStats]:
 
 
 def build_archive(res: "P.ParseResult", opts: EncodeOptions,
-                  stats: EncodeStats) -> tuple[bytes, EncodeStats]:
+                  stats: EncodeStats, *,
+                  prebuilt: "Optional[dict]" = None) -> tuple[bytes, EncodeStats]:
     """Sections + container from a parse result (host or device produced).
 
     Shared tail of the host pipeline and the device pipeline
     (parallel/pipeline.py); both produce byte-identical archives for
     the same input because section payload construction is identical.
+    ``prebuilt`` maps section names to ready ``Section`` objects (the
+    multi-process paths of parallel/multihost.py compress SEQ/QUAL on the
+    processes that own the blocks and inject the assembled payloads here).
     """
     check_engine(opts.engine)
     is_fastq = stats.in_format == C.IN_FORMAT_FASTQ
@@ -211,6 +215,10 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                     block_bytes=opts.block_bytes, engine=opts.engine))
         else:
             jobs["quality"] = lambda: compress_bytes(res.qual.tobytes())
+
+    if prebuilt:
+        for name, sec in prebuilt.items():
+            jobs[name] = (lambda s=sec: s)
 
     sections: dict[str, Section] = {}
     big = sum(s for s in (res.seq.size, res.qual.size) if s) > (1 << 22)

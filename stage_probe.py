@@ -120,7 +120,7 @@ def main() -> int:
         em = emit()
         del masks
         fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
-        st["stitch_and_build"] = med(lambda: PP.build_two_pass(fmt, o, stats, em, fallback=None))
+        st["stitch_and_build"] = med(lambda: PP.build_two_pass(fmt, o, [stats], em, fallback=None))
         st["encode_device"] = med(lambda: PP.encode_device(data, o, device=dev))
         st["host_encode"] = med(lambda: encode(data, o))
         enc_busy = busy_share(lambda: PP.encode_device(data, o, device=dev))
@@ -210,7 +210,8 @@ def main() -> int:
         zstd = (ZB.SectionCompressor, "write", "zstd_write_behind", False)
         dev_st = staged(device_stream, [
             (PS, "make_blocks_fastq" if fastq else "make_blocks", "make_blocks", True),
-            (PS, "fused_block_fastq" if fastq else "fused_block", "kernels", True),
+            (PS, "fused_blocks_fastq_sharded" if fastq else "fused_blocks_sharded", "kernels",
+             True),
             (PS, "parse_fused_fastq" if fastq else "parse_fused_fasta", "fetch_and_parse", True),
             (PS.DeviceScanEngine, "_passes", "passes", True),
             (PS.DeviceScanEngine, "_build", "build", True),

@@ -463,3 +463,142 @@ def test_stream_engine_many_chunks_on_card(card, name):
     if name == "reads_fasta":
         assert any(k.startswith("stream_device:two_pass:") for k in D.ROUTES)
         assert D.LAUNCHES["classify_fasta"] >= 1 and D.LAUNCHES["compact_dense"] >= 1
+
+
+# ---- the block mesh (parallel/mesh.py) on the card ---------------------------
+
+@pytest.fixture(scope="module")
+def last_card(card) -> torch.device:
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", n - 1)
+
+
+def test_every_kernel_on_the_last_card(card, last_card):
+    """Each kernel launched on the last card while the first one is current
+    (``build.call`` makes the tensor's card current for its launch) equals
+    its plain version there, and its output stays on that card."""
+    torch.cuda.set_device(card)
+    body, prev, sis, seq_type = emit_case("structured")
+    x = _on(body, last_card)
+    r = EF.emit_fasta_kernel(x, prev, sis, seq_type=seq_type)
+    _assert_dicts_equal(r, EF.emit_fasta_plain(x, prev, sis, seq_type=seq_type))
+    assert r["sv"].device == last_card
+    flags, sval = SF.classify_fasta_kernel(x, prev, sis, seq_type=seq_type)
+    f_ref, v_ref = SF.classify_fasta_plain(x, prev, sis, seq_type=seq_type)
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+    sv = r["sv"]
+    for shift in (0, 1):
+        assert torch.equal(PK.pack_4bit_kernel(sv, shift=shift, out_len=sv.numel() // 2 + 1),
+                           PK.pack_4bit_plain(sv, shift=shift, out_len=sv.numel() // 2 + 1))
+    packed = PK.pack_4bit_kernel(sv)
+    assert torch.equal(UP.unpack_4bit_kernel(packed, False), UP.unpack_4bit_plain(packed, False))
+    chars, tog = (_on(a, last_card) for a in mask_parity_input("tile_span"))
+    assert torch.equal(EF.apply_mask_parity_kernel(chars, tog),
+                       EF.apply_mask_parity_plain(chars, tog))
+    q = _on(fastq_case("masked"), last_card)
+    _assert_dicts_equal(EF.emit_fastq_kernel(q, ord("@")), EF.emit_fastq_plain(q, ord("@")))
+    flags, sval = SF.classify_fastq_kernel(q, ord("@"))
+    f_ref, v_ref = SF.classify_fastq_plain(q, ord("@"))
+    assert torch.equal(flags, f_ref) and torch.equal(sval, v_ref)
+    s = _on(scan_input(3 * SCAN_TILE + 17, "i32"), last_card)
+    assert torch.equal(SF.scan_i32_kernel(s, "add"), SF.cumsum_i32_plain(s))
+    assert torch.equal(SF.scan_i32_kernel(s, "max"), SF.maxscan_i32_plain(s))
+    v, keep = (_on(a, last_card) for a in compact_case(7 * SCAN_TILE - 5, "u8"))
+    want, want_cnt = CP.compact_plain(v, keep)
+    for dense in (False, True):
+        out, cnt = CP.compact_kernel(v, keep, dense=dense)
+        assert torch.equal(out, want) and int(cnt) == int(want_cnt)
+    assert torch.cuda.current_device() == card.index
+
+
+def _mesh_cases() -> dict:
+    """(input, options, encode route) of the mesh tests on the card."""
+    rng = np.random.default_rng(44)
+    return {
+        "records": (_records(4, 12, 150_000), EncodeOptions(), "encode_device"),
+        "one_record": (_records(5, 1, 2_000_000), EncodeOptions(), "encode_device"),
+        "fastq": (b"@" + fastq_masked_reads(rng, n_reads=20_000).tobytes(), EncodeOptions(),
+                  "encode_device"),
+        "protein": (typed_fasta(rng, C.SEQ_TYPE_PROTEIN, n_rec=3000),
+                    EncodeOptions(seq_type=C.SEQ_TYPE_PROTEIN),
+                    "encode_device:two_pass:text_like"),
+        "reads_fasta": (reads_fasta(rng, 20_000), EncodeOptions(),
+                        "encode_device:two_pass:sparse_overflow"),
+        "sra_fastq": (sra_fastq(rng, 8000), EncodeOptions(),
+                      "encode_device:two_pass:sparse_overflow"),
+    }
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("name", list(_mesh_cases()))
+def test_mesh_on_one_card(card, name, blocks):
+    """The encode over a mesh listing the card ``blocks`` times equals host
+    encode() by the one-block route, and the mesh render equals the host
+    Decoder."""
+    from naf_tpu_torch.parallel.mesh import block_mesh
+
+    data, opts, route = _mesh_cases()[name]
+    mesh = block_mesh(devices=[card] * blocks)
+    D.reset_counts()
+    blob = encode_device(data, opts, mesh=mesh)[0]
+    assert blob == encode(data, opts)[0]
+    assert D.ROUTES == {route: 1}
+    fastq = data[:1] == b"@"
+    assert D.LAUNCHES["emit_fastq" if fastq else "emit_fasta"] >= (
+        blocks if opts.seq_type < C.SEQ_TYPE_PROTEIN else 0)
+    host = Decoder(io.BytesIO(blob), DecodeOptions())
+    D.reset_counts()
+    d = Decoder(io.BytesIO(blob), DecodeOptions())
+    got = fastq_device(d, mesh=mesh) if fastq else fasta_device(d, mesh=mesh)
+    assert got == (host.fastq() if fastq else host.fasta())
+    assert D.ROUTES == {"decode_device:ragged:mesh": 1}
+    assert D.LAUNCHES["maxscan_i32"] >= blocks
+
+
+def test_mesh_over_every_card(card, last_card):
+    """``block_mesh()`` spans every visible card; the encode and the render
+    over it equal the host's."""
+    from naf_tpu_torch.parallel.mesh import block_mesh
+
+    mesh = block_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    for data, opts, route in _mesh_cases().values():
+        D.reset_counts()
+        blob = encode_device(data, opts, mesh=mesh)[0]
+        assert blob == encode(data, opts)[0] and D.ROUTES == {route: 1}
+        fastq = data[:1] == b"@"
+        host = Decoder(io.BytesIO(blob), DecodeOptions())
+        d = Decoder(io.BytesIO(blob), DecodeOptions())
+        got = fastq_device(d, mesh=mesh) if fastq else fasta_device(d, mesh=mesh)
+        assert got == (host.fastq() if fastq else host.fasta())
+
+
+@pytest.mark.parametrize("name", ["giant_record", "odd_masked_fasta", "odd_masked_fastq"])
+def test_stream_engine_mesh_on_one_card(card, name):
+    """The stream engine over four blocks of the card, in 1 MiB chunks,
+    gives host encode()'s archive, every piece on the card."""
+    from naf_tpu_torch.parallel.mesh import block_mesh
+    from naf_tpu_torch.parallel.stream import DeviceScanEngine
+    from torch_cases import stream_odd_masked_fasta, stream_odd_masked_fastq
+
+    rng = np.random.default_rng(45)
+    data = {
+        "giant_record": lambda: b">chr\n" + b"".join(
+            rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=80).tobytes()
+            + (b"acgt\n" if i % 1000 < 7 else b"\n") for i in range(40_000)),
+        "odd_masked_fasta": lambda: stream_odd_masked_fasta(seed=46, n_rec=4000),
+        "odd_masked_fastq": lambda: stream_odd_masked_fastq(seed=47, n_rec=12_000),
+    }[name]()
+    opts = EncodeOptions()
+    eng = DeviceScanEngine(mesh=block_mesh(devices=[card] * 4))
+    assert _stream(data, opts, 1 << 20, eng) == encode(data, opts)[0]
+    assert eng.device_chunks >= 2 and eng.native_chunks == 0
+
+
+def test_dryrun_multichip_on_one_card(card):
+    from naf_tpu_torch.parallel.mesh import dryrun_multichip
+
+    out = dryrun_multichip(4, [card] * 4)
+    assert out["fasta"]["routes"] == {"encode_device": 1}

@@ -295,12 +295,13 @@ def test_fasta_device_without_mask_option():
 # ---------------------------------------------------------------------------
 
 def _port_sources() -> list[Path]:
-    return sorted((REPO / "naf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "naf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                            REPO / "mesh_probe.py"]
 
 
 def test_port_never_imports_naf_tpu_statically():
-    """No import or from line of the port, or of chip_smoke.py, names
-    naf_tpu (or jax)."""
+    """No import or from line of the port, or of chip_smoke.py and
+    mesh_probe.py, names naf_tpu (or jax)."""
     import ast
 
     for path in _port_sources():

@@ -195,11 +195,12 @@ def _boom(*a, **k):
 
 
 @pytest.mark.parametrize("target,data", [
-    ("fused_block", stream_fasta(np.random.default_rng(60), 40)),
-    ("fused_block_fastq", b"".join(b"@r%d c\nACGT\n+\nIIII\n" % i for i in range(40))),
-    # unexpected characters decline the fused path, so stats_block runs
-    ("stats_block", b"".join(b">r%d\nACGTJJ\n" % i for i in range(40))),
-    ("emit_block", b"".join(b">r%d\nACGTJJ\n" % i for i in range(40))),
+    ("fused_blocks_sharded", stream_fasta(np.random.default_rng(60), 40)),
+    ("fused_blocks_fastq_sharded",
+     b"".join(b"@r%d c\nACGT\n+\nIIII\n" % i for i in range(40))),
+    # unexpected characters decline the fused path, so the stats pass runs
+    ("stats_blocks_sharded", b"".join(b">r%d\nACGTJJ\n" % i for i in range(40))),
+    ("emit_blocks_sharded", b"".join(b">r%d\nACGTJJ\n" % i for i in range(40))),
 ])
 def test_device_fault_propagates(target, data, monkeypatch):
     monkeypatch.setattr(PS, target, _boom)
@@ -214,7 +215,7 @@ def test_device_fault_propagates(target, data, monkeypatch):
 def test_fault_on_a_later_chunk_propagates(monkeypatch):
     """The first pieces succeed; the failing one is not requeued."""
     calls = {"n": 0}
-    real = PS.fused_block
+    real = PS.fused_blocks_sharded
 
     def flaky(*a, **k):
         calls["n"] += 1
@@ -222,7 +223,7 @@ def test_fault_on_a_later_chunk_propagates(monkeypatch):
             raise RuntimeError("injected device fault")
         return real(*a, **k)
 
-    monkeypatch.setattr(PS, "fused_block", flaky)
+    monkeypatch.setattr(PS, "fused_blocks_sharded", flaky)
     eng = DeviceScanEngine("cpu")
     with pytest.raises(RuntimeError, match="injected device fault"):
         stream_bytes(stream_fasta(np.random.default_rng(61), 60), chunk_size=400, engine=eng)
@@ -288,7 +289,7 @@ def test_tnaf_device_streams_on_the_engine(how, cpu_card, monkeypatch, tmp_path)
 
 @pytest.mark.parametrize("how", ["file", "pipe"])
 def test_tnaf_device_stream_fault_ends_with_an_error(how, cpu_card, monkeypatch, tmp_path):
-    monkeypatch.setattr(PS, "fused_block", _boom)
+    monkeypatch.setattr(PS, "fused_blocks_sharded", _boom)
     data = stream_fasta(np.random.default_rng(6), 300)
     out_path = tmp_path / "o.naf"
     if how == "file":

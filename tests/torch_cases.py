@@ -929,3 +929,48 @@ STREAM_CASES = {
     "odd_masked_fastq": (stream_odd_masked_fastq, {}, (64, 257, 5000), True,
                          ("no_full_record",)),
 }
+
+
+# ---- inputs of the block mesh (tests/test_torch_mesh.py) ------------------------
+
+def mesh_giant_fasta(seed: int = 50, n_lines: int = 601, line: int = 61) -> bytes:
+    """One record over every block of a mesh: ``n_lines`` lines of an odd
+    width, so blocks cut at line starts begin at odd nibble parity, under
+    lowercase runs of 40-700 chars that cross lines, and so block edges;
+    then two short records."""
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(np.frombuffer(b"ACGTNRY", np.uint8), size=n_lines * line)
+    pos = 0
+    while pos < seq.size:
+        ln = int(rng.integers(40, 700))
+        seq[pos:pos + ln] |= 32
+        pos += ln + int(rng.integers(40, 700))
+    body = seq.tobytes()
+    return (b">giant spans every block\n"
+            + b"".join(body[j:j + line] + b"\n" for j in range(0, len(body), line))
+            + b">tail1 c\nACGTacgt\n>tail2\nNNNN\n")
+
+
+#: the block counts of the mesh tests
+MESH_SIZES = [2, 3, 8]
+
+#: name -> (input, options as keywords, the route at every block count):
+#: the FASTA inputs of tests/test_torch_mesh.py
+MESH_FASTA_CASES = {
+    "fused_fasta": (lambda: mixed_fasta(seed=80, n_rec=24, max_len=2500), {}, "encode_device"),
+    "unexpected_chars": (lambda: b">r1 ok\nACGT@home\nACGT\n>r2\nNNNN!!\nacgt\n" * 9, {},
+                         "encode_device:two_pass:unexpected_chars"),
+    "strict": (lambda: typed_fasta(np.random.default_rng(84), C.SEQ_TYPE_DNA).upper(),
+               {"strict": True}, "encode_device"),
+    "giant_record": (mesh_giant_fasta, {}, "encode_device"),
+}
+#: those of tests/test_torch_mesh_two_pass.py: FASTQ and the two-pass inputs
+MESH_TWO_PASS_CASES = {
+    "fused_fastq": (lambda: mixed_fastq(seed=81, n_rec=120), {}, "encode_device"),
+    "protein": (lambda: typed_fasta(np.random.default_rng(82), C.SEQ_TYPE_PROTEIN),
+                {"seq_type": C.SEQ_TYPE_PROTEIN}, "encode_device:two_pass:text_like"),
+    "sparse_overflow": (lambda: reads_fasta(np.random.default_rng(83), 500, read_len=40), {},
+                        "encode_device:two_pass:sparse_overflow"),
+    "sparse_overflow_fastq": (lambda: sra_fastq(np.random.default_rng(85), 420, read_len=40),
+                              {}, "encode_device:two_pass:sparse_overflow"),
+}
