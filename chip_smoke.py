@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive naf_tpu_torch's device encodes and decodes once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mesh]
 
 Phases, each printing JSON lines:
   1. environment: card, power limit, CUDA and nvcc versions, kernel build;
@@ -63,26 +63,30 @@ Phases, each printing JSON lines:
      start under 738,199,040 bytes (the in-memory encode's of a 4x smaller
      input), both rates printed;
   8. the mesh: four blocks, all on the card (``block_mesh(devices=[card]
-     * 4)``): ``encode_device`` on gen_fasta_single(128), gen_fastq(500_000,
-     read_len=150), swissprot_like(160) and illumina_reads_fasta(750_000),
-     each archive equal to host encode()'s by its route, its wall time and
-     peak device memory beside the one-block encode's; the mesh render of
-     the FASTQ and the protein archive (``decode_device:ragged:mesh``)
-     equal to the host Decoder; ``DeviceScanEngine`` over the four blocks
+     * 4)``), or one block a card when several cards are visible
+     (``block_mesh()``): ``encode_device`` on gen_fasta_single(128),
+     gen_fastq(500_000, read_len=150), swissprot_like(160) and
+     illumina_reads_fasta(750_000), each archive equal to host encode()'s
+     by its route, its wall time, device-resident time (the passes on
+     blocks already uploaded) and peak memory on each card beside the
+     one-block encode's; the mesh render of the FASTQ and the protein
+     archive (``decode_device:ragged:mesh``) equal to the host Decoder,
+     beside the one-block render's time; ``DeviceScanEngine`` over the mesh
      on gen_fasta_single(1024) equal to the host stream; the multihost
      encodes (plain, parts, extended) on gen_fasta(64) and
      gen_fastq(250_000), first NCCL in this process (world size 1, four
-     blocks), then two processes on gloo sharing the card, two blocks each
-     (NCCL takes one rank a card): the plain archive equal to host
-     encode()'s, the others decoding to its decode, both ranks' archives
+     blocks on the first card), then two processes on gloo, two blocks
+     each, which share the card when there is one (NCCL takes one rank a
+     card), and with several cards one NCCL process a card: the plain archive equal to host
+     encode()'s, the others decoding to its decode, the ranks' archives
      the same, each with its bytes gathered and wall time; and
-     ``dryrun_multichip(4)``, the checks of ``__graft_entry__.py``'s dry
-     run over the four blocks.
+     ``dryrun_multichip``, the checks of ``__graft_entry__.py``'s dry run
+     over the mesh.  ``--mesh`` runs phase 1 and this phase only.
 Seven paths run with the launch counts set to 0 just before and read just
 after each: the fused FASTA path and the fused FASTQ path (phases 3-4 on
 their inputs), the two-pass encodes, the ragged decodes, the CLI (its
 in-process calls and the pipe's two processes), the stream and the mesh
-(the gloo ranks' launches added).  Every kernel of a path must have
+(the spawned ranks' launches added).  Every kernel of a path must have
 launched in it; the kernels line sums the seven.  The
 classifies launch standalone on the two-pass path and as device code inside
 each fused emit: a classify's row counts its standalone launches and gives
@@ -107,7 +111,7 @@ HBM_BYTES_PER_S = 3.35e12
 SECTOR_BYTES = 32
 #: the chunk of the streamed device encode, as ``tnaf --device`` streams
 STREAM_CHUNK = 64 << 20
-#: the blocks of the mesh phase, all on the one card
+#: the blocks of the mesh phase on a one-card machine, all on that card
 MESH_BLOCKS = 4
 #: seconds a rank of the two-process multihost run may take, rendezvous
 #: included
@@ -323,8 +327,9 @@ def two_pass_device_ms(data: bytes, o, blob: bytes, fastq: bool, dev, reps: int 
 
     from naf_tpu_torch.format import constants as C
     from naf_tpu_torch.parallel import decode as PD
-    from naf_tpu_torch.parallel.block import (emit_block, make_blocks, make_blocks_fastq,
-                                              stats_block)
+    from naf_tpu_torch.parallel.block import (emit_blocks_sharded, make_blocks, make_blocks_fastq,
+                                              stats_blocks_sharded)
+    from naf_tpu_torch.parallel.mesh import block_mesh
     from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder
 
     body = np.frombuffer(data, np.uint8)[1:]
@@ -333,15 +338,17 @@ def two_pass_device_ms(data: bytes, o, blob: bytes, fastq: bool, dev, reps: int 
     prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
 
     def passes():
-        stats, masks = stats_block(xb, prev, sis, seq_type=o.seq_type, fastq=fastq)
-        emit_block(xb, masks, stats, seq_type=o.seq_type, fastq=fastq,
-                   pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
+        stats, masks = stats_blocks_sharded([xb], [prev], [sis], seq_type=o.seq_type,
+                                            fastq=fastq)
+        emit_blocks_sharded([xb], masks, stats, seq_type=o.seq_type, fastq=fastq,
+                            pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
 
     passes_ms = cuda_time(passes, reps)
     del xb
     d = Decoder(io.BytesIO(blob), DecodeOptions())
     plan, raw = d._plan(PD.MODE_FASTQ, False) if fastq else d._fasta_plan(d.masking)
-    batches, render = PD.ragged_session(plan, raw, d._load_qual() if fastq else None, device=dev)
+    batches, render = PD.ragged_session(plan, raw, d._load_qual() if fastq else None,
+                                        mesh=block_mesh(devices=[dev]))
     batch_ms = cuda_time(lambda: render(batches[0]), reps)
     out = {"stats_emit_device_resident_ms": passes_ms, "ragged_batches": len(batches),
            "ragged_batch_bytes": batches[0].p1 - batches[0].p0, "ragged_batch_ms": batch_ms}
@@ -924,7 +931,8 @@ def spawn_ranks(world: int, backend: str, blocks: int) -> tuple[list, float]:
     """(each rank's ``multihost_rank`` result, wall seconds) of ``world``
     processes of this script's multihost worker, each under
     ``MULTIHOST_TIMEOUT``; raises when one fails or the ranks' archives
-    differ."""
+    differ.  Each rank writes its output and errors to files, so no rank
+    blocks on a full pipe while another waits for it in a collective."""
     import shutil
     import tempfile
 
@@ -933,18 +941,21 @@ def spawn_ranks(world: int, backend: str, blocks: int) -> tuple[list, float]:
     work = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=os.path.join(here, "build"))
     port = free_port()
     outs = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    logs = [open(os.path.join(work, f"rank{r}.log"), "wb") for r in range(world)]
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", _MULTIHOST_WORKER, str(r), str(world),
                                str(port), outs[r], backend, str(blocks)], env=env, cwd=here,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                              stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(world)]
     try:
-        for p in procs:
-            _, err_b = p.communicate(timeout=MULTIHOST_TIMEOUT)
-            if p.returncode != 0:
-                raise AssertionError(f"a {backend} rank exited {p.returncode}: "
-                                     f"{err_b.decode(errors='replace')[-3000:]}")
+        for r, p in enumerate(procs):
+            rc = p.wait(timeout=max(MULTIHOST_TIMEOUT - (time.perf_counter() - t0), 1))
+            if rc != 0:
+                logs[r].close()
+                with open(logs[r].name, "rb") as f:
+                    log = f.read().decode(errors="replace")
+                raise AssertionError(f"{backend} rank {r} exited {rc}: {log[-3000:]}")
         secs = time.perf_counter() - t0
         results = []
         for o in outs:
@@ -955,6 +966,8 @@ def spawn_ranks(world: int, backend: str, blocks: int) -> tuple[list, float]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for f in logs:
+            f.close()
         shutil.rmtree(work, ignore_errors=True)
     for r in results[1:]:
         if r["rows"].keys() != results[0]["rows"].keys() or any(
@@ -963,9 +976,65 @@ def spawn_ranks(world: int, backend: str, blocks: int) -> tuple[list, float]:
     return results, secs
 
 
-def mesh_phase(card: str, dev, opts, protein) -> dict:
-    """Phase 8 (see the module docstring); returns the mesh path's launch
-    counts, counted from 0, the gloo ranks' added in."""
+def resident_seconds(mesh, data: bytes, o, route: str, reps: int = 3) -> float:
+    """The best of ``reps`` wall seconds of an encode's device passes on
+    blocks already on their devices: the fused passes and the gather of
+    their scalars, or the two-pass stats and emit with their fetches; every
+    card of the mesh synchronised at both ends.  What the cards' overlap
+    can give, without the host's cut, upload and archive build."""
+    import numpy as np
+    import torch
+
+    from naf_tpu_torch.format import constants as C
+    from naf_tpu_torch.parallel.block import (emit_blocks_sharded, fused_blocks_fastq_sharded,
+                                              fused_blocks_sharded, make_blocks,
+                                              make_blocks_fastq, stats_blocks_sharded)
+    from naf_tpu_torch.parallel.mesh import all_gather
+
+    fastq = data[:1] == b"@"
+    body = np.frombuffer(data, np.uint8)[1:]
+    blocks = make_blocks_fastq(body, mesh.size)[0] if fastq else make_blocks(body, mesh.size)
+    xs = mesh.upload(blocks.data)
+    cards = sorted(set(mesh.devices), key=str)
+
+    def run():
+        if route == "encode_device" and fastq:
+            all_gather(fused_blocks_fastq_sharded(xs, blocks.prev, 0, seq_type=0)[3])
+        elif route == "encode_device":
+            all_gather(fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq, 0,
+                                            seq_type=0)[1])
+        else:
+            stats, masks = stats_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
+                                                seq_type=o.seq_type, fastq=fastq)
+            emit_blocks_sharded(xs, masks, stats, seq_type=o.seq_type, fastq=fastq,
+                                pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
+
+    run()
+    times = []
+    for _ in range(reps):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t = time.perf_counter()
+        run()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append(time.perf_counter() - t)
+    return min(times)
+
+
+def phase_mesh(n_cards: int):
+    """The mesh of phase 8: ``MESH_BLOCKS`` blocks on the one card, or one
+    block a card when several are visible."""
+    from naf_tpu_torch.device import cuda_device
+    from naf_tpu_torch.parallel.mesh import block_mesh
+
+    return block_mesh() if n_cards > 1 else block_mesh(devices=[cuda_device()] * MESH_BLOCKS)
+
+
+def mesh_phase(card: str, mesh, opts, protein) -> dict:
+    """Phase 8 (see the module docstring) over ``mesh``; returns the mesh
+    path's launch counts, counted from 0, the spawned ranks' added in, and
+    raises when a kernel of the path was not launched."""
     import torch
 
     import bench
@@ -977,7 +1046,10 @@ def mesh_phase(card: str, dev, opts, protein) -> dict:
     from naf_tpu_torch.pipeline.encoder import encode
     from naf_tpu_torch.pipeline.stream import encode_stream
 
-    mesh = block_mesh(devices=[dev] * MESH_BLOCKS)
+    cards = sorted(set(mesh.devices), key=str)
+    for c in cards:                 # each card's allocator, for its memory stats
+        torch.empty(1, device=c)
+    one = block_mesh(devices=[mesh.devices[0]])
     t0 = time.perf_counter()
     # (name, input, options, FASTQ, encode route)
     cases = [("gen_fasta_single(128)", bench.gen_fasta_single(128), opts, False, "encode_device"),
@@ -992,15 +1064,35 @@ def mesh_phase(card: str, dev, opts, protein) -> dict:
     emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
           "bytes": {c[0]: len(c[1]) for c in cases + [stream_input] + mh_inputs}})
 
-    # the references, and the one-block encode of each input beside the mesh's
-    host, one_block = [], []
-    for name, data, o, _, _ in cases:
-        host.append(encode(data, o)[0])
+    def encode_peak(data, o, m) -> tuple:
+        """(archive, wall seconds, peak bytes above the start on each card)."""
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        secs = wall_time(lambda: encode_device(data, o, device=dev), 1)
-        one_block.append((secs, torch.cuda.max_memory_allocated() - base))
+        base = [torch.cuda.memory_allocated(c) for c in cards]
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        t0 = time.perf_counter()
+        blob = encode_device(data, o, mesh=m)[0]
+        for c in cards:
+            torch.cuda.synchronize(c)
+        secs = time.perf_counter() - t0
+        return blob, secs, [torch.cuda.max_memory_allocated(c) - b for c, b in zip(cards, base)]
+
+    def decode(blob: bytes, fastq: bool, m) -> tuple:
+        d = Decoder(io.BytesIO(blob), DecodeOptions())
+        t0 = time.perf_counter()
+        out = fastq_device(d, mesh=m) if fastq else fasta_device(d, mesh=m)
+        return out, time.perf_counter() - t0
+
+    # the references, the one-block encode and decode of each input beside
+    # the mesh's, and the device-resident passes, none of them counted
+    host, one_block = [], []
+    for name, data, o, fastq, route in cases:
+        host.append(encode(data, o)[0])
+        _, secs, peak = encode_peak(data, o, one)
+        one_block.append({"one_block_seconds": secs, "one_block_peak_above_start_bytes": peak,
+                          "resident_seconds": resident_seconds(mesh, data, o, route),
+                          "one_block_resident_seconds": resident_seconds(one, data, o, route),
+                          "one_block_decode_seconds": decode(host[-1], fastq, one)[1]})
     host_stream = io.BytesIO()
     encode_stream(io.BytesIO(stream_input[1]), host_stream, opts)
 
@@ -1008,18 +1100,11 @@ def mesh_phase(card: str, dev, opts, protein) -> dict:
         return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
     D.reset_counts()
-    # encode over 4 blocks of the card
+    # encode over the mesh
     archives = []
-    for (name, data, o, fastq, route), want, (one_s, one_peak) in zip(cases, host, one_block):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
+    for (name, data, o, fastq, route), want, beside in zip(cases, host, one_block):
         routes_before = dict(D.ROUTES)
-        t0 = time.perf_counter()
-        blob = encode_device(data, o, mesh=mesh)[0]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+        blob, secs, peak = encode_peak(data, o, mesh)
         routes = delta(routes_before, D.ROUTES)
         if blob != want:
             raise AssertionError(f"{name}: the {mesh.size}-block archive != host encode()'s")
@@ -1027,29 +1112,27 @@ def mesh_phase(card: str, dev, opts, protein) -> dict:
             raise AssertionError(f"{name}: the {mesh.size}-block encode took route {routes}")
         archives.append(blob)
         emit({"phase": "mesh_encode", "input": name, "card": card, "blocks": mesh.size,
-              "bytes": len(data), "equal_host": True, "routes": routes, "seconds": secs,
-              "one_block_seconds": one_s, "peak_device_bytes": peak,
-              "peak_above_start_bytes": peak - base,
-              "one_block_peak_above_start_bytes": one_peak})
+              "cards": len(cards), "bytes": len(data), "equal_host": True, "routes": routes,
+              "seconds": secs, "peak_above_start_bytes": peak,
+              **{k: v for k, v in beside.items() if k != "one_block_decode_seconds"}})
     # the mesh render of the FASTQ and the protein archive
     for i in (1, 2):
         name, _, _, fastq, _ = cases[i]
         hd = Decoder(io.BytesIO(archives[i]), DecodeOptions())
         want = hd.fastq() if fastq else hd.fasta()
         routes_before = dict(D.ROUTES)
-        d = Decoder(io.BytesIO(archives[i]), DecodeOptions())
-        t0 = time.perf_counter()
-        out = fastq_device(d, mesh=mesh) if fastq else fasta_device(d, mesh=mesh)
-        secs = time.perf_counter() - t0
+        out, secs = decode(archives[i], fastq, mesh)
         routes = delta(routes_before, D.ROUTES)
         if out != want:
             raise AssertionError(f"{name}: the mesh decode != host Decoder's")
         if routes != {"decode_device:ragged:mesh": 1}:
             raise AssertionError(f"{name}: the mesh decode took route {routes}")
         emit({"phase": "mesh_decode", "input": name, "card": card, "blocks": mesh.size,
-              "equal_host": True, "routes": routes, "seconds": secs, "output_bytes": len(out)})
+              "cards": len(cards), "equal_host": True, "routes": routes, "seconds": secs,
+              "one_block_seconds": one_block[i]["one_block_decode_seconds"],
+              "output_bytes": len(out)})
     del cases, host, archives
-    # the stream engine over the 4 blocks
+    # the stream engine over the mesh
     name, data = stream_input
     eng = DeviceScanEngine(mesh=mesh)
     routes_before = dict(D.ROUTES)
@@ -1063,35 +1146,58 @@ def mesh_phase(card: str, dev, opts, protein) -> dict:
     if eng.native_chunks or routes != {"stream_device": eng.device_chunks}:
         raise AssertionError(f"{name}: the {mesh.size}-block stream took routes {routes}")
     emit({"phase": "mesh_stream", "input": name, "card": card, "blocks": mesh.size,
-          "bytes": len(data), "equal_host_stream": True, "routes": routes, "seconds": secs,
-          "MBps": len(data) / 1e6 / secs})
+          "cards": len(cards), "bytes": len(data), "equal_host_stream": True, "routes": routes,
+          "seconds": secs, "MBps": len(data) / 1e6 / secs})
     del stream_input, data, out, host_stream
-    # multihost: NCCL in this process (NCCL takes one rank a card), then
-    # two processes on gloo sharing the card
+    # multihost: NCCL in this process, four blocks on the first card (NCCL
+    # takes one rank a card); then two processes on gloo (sharing the card
+    # when there is one); and, with several cards, one NCCL rank a card
     got = multihost_rank(0, 1, free_port(), backend="nccl", blocks=MESH_BLOCKS,
                          inputs=mh_inputs)
     emit({"phase": "mesh_multihost", "card": card, "backend": "nccl", "world": 1,
           "blocks": got["blocks"], "rows": got["rows"]})
-    results, gloo_s = spawn_ranks(2, "gloo", 2)
+    spawned = []
+    results, secs = spawn_ranks(2, "gloo", 2)
+    spawned += results
     emit({"phase": "mesh_multihost", "card": card, "backend": "gloo", "world": 2,
-          "blocks": results[0]["blocks"], "note": "two ranks share the one card over gloo: "
-          "NCCL refuses two ranks on one card", "seconds_with_process_start": gloo_s,
+          "blocks": results[0]["blocks"], "note": "two ranks over gloo, rank r on card r mod "
+          "the cards: with one card both share it, which NCCL refuses", "seconds_with_process_start": secs,
           "rows": results[0]["rows"], "routes": [r["routes"] for r in results]})
+    if len(cards) > 1:
+        results, secs = spawn_ranks(len(cards), "nccl", 1)
+        spawned += results
+        emit({"phase": "mesh_multihost", "card": card, "backend": "nccl", "world": len(cards),
+              "blocks": results[0]["blocks"], "note": "one rank a card",
+              "seconds_with_process_start": secs, "rows": results[0]["rows"],
+              "routes": [r["routes"] for r in results]})
     # the dry run of __graft_entry__.py
     t0 = time.perf_counter()
-    dry = dryrun_multichip(MESH_BLOCKS, [dev] * MESH_BLOCKS)
-    emit({"phase": "mesh_dryrun", "card": card, "blocks": MESH_BLOCKS, "cases": dry,
-          "seconds": time.perf_counter() - t0})
+    dry = dryrun_multichip(mesh.size, list(mesh.devices))
+    emit({"phase": "mesh_dryrun", "card": card, "blocks": mesh.size, "cards": len(cards),
+          "cases": dry, "seconds": time.perf_counter() - t0})
     launches = dict(D.LAUNCHES)
-    for r in results:
+    for r in spawned:
         for k, v in r["launches"].items():
             launches[k] += v
+    emit({"phase": "launches", "mesh_path": launches})
+    for k in ("emit_fasta", "emit_fastq", "pack_4bit", "classify_fasta", "classify_fastq",
+              "cumsum_i32", "maxscan_i32", "compact", "compact_dense"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the mesh path")
     return launches
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive naf_tpu_torch on the card (see the module "
+                                 "docstring).")
+    ap.add_argument("--mesh", action="store_true",
+                    help="phase 1 and the mesh phase only, over every visible card when there "
+                         "are several")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1107,8 +1213,8 @@ def main() -> int:
     from naf_tpu_torch.ops import scan_fused as SF
     from naf_tpu_torch.ops import unpack as UP
     from naf_tpu_torch.parallel import decode as PD
-    from naf_tpu_torch.parallel.block import (fused_block, fused_block_fastq, make_blocks,
-                                              make_blocks_fastq)
+    from naf_tpu_torch.parallel.block import (fused_blocks_fastq_sharded, fused_blocks_sharded,
+                                              make_blocks, make_blocks_fastq)
     from naf_tpu_torch.parallel.pipeline import encode_device
     from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
     from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
@@ -1132,6 +1238,15 @@ def main() -> int:
     emit({"phase": "env", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc, "build_s": build_s,
           "zstandard_package": zstd_pkg, "library": build.BUILD_INFO["path"]})
+    opts = EncodeOptions(level=1, threads=os.cpu_count() or 0)
+    protein = EncodeOptions(level=1, threads=os.cpu_count() or 0, seq_type=C.SEQ_TYPE_PROTEIN)
+    ok_line = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}})
+    if args.mesh:
+        mesh_phase(card, phase_mesh(torch.cuda.device_count()), opts, protein)
+        print(card)
+        print(ok_line)
+        return 0
 
     # ---- inputs (bench.py generators, and those made here) -----------------
     t0 = time.perf_counter()
@@ -1141,8 +1256,6 @@ def main() -> int:
     fastq_inputs = [("gen_fastq(250000)", bench.gen_fastq(250_000)),
                     ("gen_fastq(500000,read_len=150)", bench.gen_fastq(500_000, read_len=150)),
                     ("masked_fastq(106000)", masked_fastq())]
-    opts = EncodeOptions(level=1, threads=os.cpu_count() or 0)
-    protein = EncodeOptions(level=1, threads=os.cpu_count() or 0, seq_type=C.SEQ_TYPE_PROTEIN)
     # (name, data, options, why the fused path does not take it, FASTQ)
     two_pass_inputs = [
         ("swissprot_like(160)", swissprot_like(160), protein, "text_like", False),
@@ -1455,16 +1568,16 @@ def main() -> int:
         if fastq:
             blocks, _ = make_blocks_fastq(np.frombuffer(data, np.uint8)[1:], 1)
             xb = torch.from_numpy(blocks.data[0].copy()).to(dev)
-            enc_ms = cuda_time(lambda: fused_block_fastq(xb, int(blocks.prev[0]), 0, seq_type=0,
-                                                         device=dev), 5)
+            enc_ms = cuda_time(lambda: fused_blocks_fastq_sharded([xb], blocks.prev, 0,
+                                                                  seq_type=0), 5)
             d = Decoder(io.BytesIO(blob), DecodeOptions())
             plan, raw = d._plan(PD.MODE_FASTQ, False)
             run = PD.regular_session(plan, raw, d._load_qual(), device=dev)
         else:
             blk = make_blocks(np.frombuffer(data, np.uint8)[data.index(b">") + 1:], 1)
             xb = torch.from_numpy(blk.data[0].copy()).to(dev)
-            enc_ms = cuda_time(lambda: fused_block(xb, int(blk.prev[0]), False, 0, seq_type=0,
-                                                   device=dev), 5)
+            enc_ms = cuda_time(lambda: fused_blocks_sharded([xb], blk.prev, [False], 0,
+                                                            seq_type=0), 5)
             d = Decoder(io.BytesIO(blob), DecodeOptions())
             plan, raw = d._fasta_plan(d.masking)
             run = PD.regular_session(plan, raw, device=dev)
@@ -1535,12 +1648,8 @@ def main() -> int:
             raise AssertionError(f"{k} was not launched on the stream path")
 
     # ---- 8. the mesh -------------------------------------------------------
-    path_launches["mesh"] = mesh_phase(card, dev, opts, protein)
-    emit({"phase": "launches", "mesh_path": path_launches["mesh"]})
-    for k in ("emit_fasta", "emit_fastq", "pack_4bit", "classify_fasta", "classify_fastq",
-              "cumsum_i32", "maxscan_i32", "compact", "compact_dense"):
-        if path_launches["mesh"][k] <= 0:
-            raise AssertionError(f"{k} was not launched on the mesh path")
+    path_launches["mesh"] = mesh_phase(card, phase_mesh(torch.cuda.device_count()), opts,
+                                       protein)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
     if bad:
@@ -1570,8 +1679,7 @@ def main() -> int:
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    print(ok_line)
     return 0
 
 

@@ -2,7 +2,8 @@
 """Time the port's kernels in several checkouts on one CUDA card, in the
 order given and then in reverse (A B B A).
 
-    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10] [--only fastq|scans|classify|mask]
+    python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10]
+                         [--only fastq|scans|classify|mask|ragged]
 
 Each DIR is the root of a checkout (the directory that holds
 ``naf_tpu_torch/``), for example an older commit unpacked with
@@ -22,8 +23,8 @@ the CUDA-event mean over --reps calls after a warm-up.
 emit, FASTA emit, scan or compaction call (torch.profiler, mean over --reps
 calls; the wrapper's zeroing of its scratch as "scratch memset" or as
 torch's fill kernel, any other torch op as "torch ops" or by its name).
-``two_pass_ms`` gives the device-resident two-pass encode (stats_block +
-emit_block) and one ragged render batch of swissprot_like(160),
+``two_pass_ms`` gives the device-resident two-pass encode (the two passes
+on one block) and one ragged render batch of swissprot_like(160),
 illumina_reads_fasta(750_000) and sra_fastq(400_000), whose archives each
 checkout's host encode() writes (chip_smoke.py's two_pass_device_ms).
 --only fastq times the FASTQ emit and classify alone; --only scans the two
@@ -42,7 +43,10 @@ chip_smoke.py's dense_toggles), each with its launch split and the
 host's time a call when nothing waits for the card (``host_enqueue_ms``),
 beside a pass that reads two bytes and writes one (``copy_2to1_ms``:
 torch's bitwise_xor of chars and toggles, what moving the bytes costs
-without a parity).  One JSON line per timing, then the card's name and
+without a parity); --only ragged the one-card device decode
+(``fasta_device`` / ``fastq_device``, which both render ragged) of the three
+two-pass inputs' archives, end to end, the best wall seconds of --reps
+calls with the routes and launches of one call.  One JSON line per timing, then the card's name and
 power limit as nvidia-smi gives them.
 """
 
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -134,6 +139,42 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
             row[f"{key}_ms"] = cuda_time(call)
             row["scan_launches_ms"][key] = CS.launch_split(call, reps)
         return row
+
+    def two_pass_inputs(protein: bytes) -> list:
+        return [("swissprot_like(160)", protein, C.SEQ_TYPE_PROTEIN, False),
+                ("illumina_reads_fasta(750000)", CS.illumina_reads_fasta(750_000),
+                 C.SEQ_TYPE_DNA, False),
+                ("sra_fastq(400000)", CS.sra_fastq(400_000), C.SEQ_TYPE_DNA, True)]
+
+    if only == "ragged":
+        from naf_tpu_torch import device as D
+        from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
+
+        row = {"root": root, "ragged_decode": {}}
+        for name, data, seq_type, fastq in two_pass_inputs(CS.swissprot_like(160)):
+            o = EncodeOptions(level=1, threads=os.cpu_count() or 0, seq_type=seq_type)
+            blob = encode(data, o)[0]
+
+            def decode():
+                d = Decoder(io.BytesIO(blob))
+                out = fastq_device(d, device="cuda") if fastq else fasta_device(d, device="cuda")
+                torch.cuda.synchronize()
+                return out
+
+            decode()
+            D.reset_counts()
+            n_out = len(decode())
+            counted = {"routes": dict(D.ROUTES),
+                       "launches": {k: v for k, v in D.LAUNCHES.items() if v}}
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                decode()
+                times.append(time.perf_counter() - t)
+            row["ragged_decode"][name] = {"seconds": min(times), "output_bytes": n_out,
+                                          **counted}
+        print(json.dumps(row), flush=True)
+        return
 
     if only == "classify":
         row = {"root": root}
@@ -220,11 +261,7 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
     del xp, sm, pos
     torch.cuda.empty_cache()
     row["two_pass_ms"] = {}
-    for name, data, seq_type, fastq in (
-            ("swissprot_like(160)", protein, C.SEQ_TYPE_PROTEIN, False),
-            ("illumina_reads_fasta(750000)", CS.illumina_reads_fasta(750_000), C.SEQ_TYPE_DNA,
-             False),
-            ("sra_fastq(400000)", CS.sra_fastq(400_000), C.SEQ_TYPE_DNA, True)):
+    for name, data, seq_type, fastq in two_pass_inputs(protein):
         o = EncodeOptions(level=1, threads=os.cpu_count() or 0, seq_type=seq_type)
         row["two_pass_ms"][name] = CS.two_pass_device_ms(data, o, encode(data, o)[0], fastq,
                                                          "cuda", reps)
@@ -235,7 +272,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("fastq", "scans", "classify", "mask"))
+    ap.add_argument("--only", choices=("fastq", "scans", "classify", "mask", "ragged"))
     ap.add_argument("--child", choices=("build", "time"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -22,8 +22,7 @@ a mesh overlap:
 - ``emit_blocks_sharded``: pass 2 (``_emit_fn``), each block packed at its
   ``odd``.
 
-``fused_block``, ``fused_block_fastq``, ``stats_block`` and ``emit_block``
-are the same on one block.  naf_tpu's packed-row layouts
+One block is a mesh of one.  naf_tpu's packed-row layouts
 (``stats_blocks_packed``, ``emit_blocks_packed``) are not ported.
 """
 
@@ -96,25 +95,6 @@ def fused_blocks_fastq_sharded(xs: list, prevs, parity_base: int, *, seq_type: i
     return (_pack_blocks(rs, parity_base), [r["qv"] for r in rs], [r["iv"] for r in rs],
             [_scal(r, FASTQ_SCALARS) for r in rs],
             *([r[k] for r in rs] for k in ("sp_tv", "sp_a", "sp_b", "sp_c")))
-
-
-def _one(outs: tuple) -> tuple:
-    """The one block of sharded outputs, each as a [1, ...] tensor."""
-    return tuple(o[0][None] for o in outs)
-
-
-def fused_block(block, prev: int, sis: bool, parity_base: int, *, seq_type: int,
-                device) -> tuple:
-    """``fused_blocks_sharded`` of one block (numpy, or a tensor already on
-    ``device``), as [1, ...] tensors on ``device``."""
-    x = torch.as_tensor(block).to(device)
-    return _one(fused_blocks_sharded([x], [prev], [sis], parity_base, seq_type=seq_type))
-
-
-def fused_block_fastq(block, prev: int, parity_base: int, *, seq_type: int, device) -> tuple:
-    """``fused_blocks_fastq_sharded`` of one block, as ``fused_block``."""
-    x = torch.as_tensor(block).to(device)
-    return _one(fused_blocks_fastq_sharded([x], [prev], parity_base, seq_type=seq_type))
 
 
 # ---------------------------------------------------------------------------
@@ -273,14 +253,6 @@ def stats_blocks_sharded(xs: list, prevs, siss, *, seq_type: int, fastq: bool,
     return block_stats(rows, hists, parity_base), masks
 
 
-def stats_block(block: torch.Tensor, prev_byte: int, starts_in_seq: bool, *, seq_type: int,
-                fastq: bool) -> tuple[dict, dict]:
-    """Pass 1 on one block: (stats, masks) of ``stats_blocks_sharded``."""
-    st, masks = stats_blocks_sharded([block], [prev_byte], [starts_in_seq], seq_type=seq_type,
-                                     fastq=fastq)
-    return st[0], masks[0]
-
-
 def _emit_launch(b: torch.Tensor, s: dict, stats: dict, *, seq_type: int, fastq: bool,
                  pack_nibbles: bool, parity_base: int) -> tuple:
     """Pass 2's device work on one block: (u8 parts, i32 parts), the used
@@ -326,26 +298,6 @@ def _emit_fetch(u8: list, i32: list) -> list:
             run_l.astype(np.int64)[None]]
 
 
-def emit_block(block: torch.Tensor, masks: dict, stats: dict, *, seq_type: int, fastq: bool,
-               pack_nibbles: bool, parity_base: int = 0) -> list:
-    """Pass 2 on one block: ``_emit_fn`` for one device.
-
-    ``masks`` and ``stats`` are what ``stats_block`` returned for this
-    block; the counts size every output exactly.  Nucleotide streams are
-    packed to nibbles (``pack_nibbles``) at the global nibble parity
-    ``parity_base`` (the char count before this block): on odd parity the
-    block's first char pairs with the previous block's last, so chars[1:]
-    are packed and ``first_code`` is the code of chars[0].  Protein and
-    text keep the compacted bytes and store no mask.  Returns the ``em_np``
-    list that ``_stitch_and_build`` takes: [packed, first_code, cnt,
-    id_vals, com_vals, qual_vals, seq_lens, id_lens, com_lens, qual_lens,
-    run_lens], host arrays with one row, fetched from the device as one
-    byte buffer and one i32 buffer holding the used prefixes.
-    """
-    return _emit_fetch(*_emit_launch(block, masks, stats, seq_type=seq_type, fastq=fastq,
-                                     pack_nibbles=pack_nibbles, parity_base=parity_base))
-
-
 def _merge_rows(per_block: list) -> list:
     """Per-block ``em_np`` lists (one row each) as one list of D rows:
     first_code and cnt concatenated, every other part zero-padded to its
@@ -364,9 +316,20 @@ def _merge_rows(per_block: list) -> list:
 
 def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fastq: bool,
                         pack_nibbles: bool) -> list:
-    """Pass 2 over the blocks: each block's ``emit_block`` at its ``odd``
-    parity, every block's launches before the first fetch; the ``em_np``
-    list with one row a block (``_merge_rows``)."""
+    """Pass 2 over the blocks (``_emit_fn``), every block's launches before
+    the first fetch.
+
+    ``masks`` and ``stats`` are what ``stats_blocks_sharded`` returned; the
+    counts size every output exactly.  Nucleotide streams are packed to
+    nibbles (``pack_nibbles``) at each block's ``odd`` parity: on odd
+    parity the block's first char pairs with the previous block's last, so
+    chars[1:] are packed and ``first_code`` is the code of chars[0].
+    Protein and text keep the compacted bytes and store no mask.  Returns
+    the ``em_np`` list that ``_stitch_and_build`` takes, one row a block
+    (``_merge_rows``): [packed, first_code, cnt, id_vals, com_vals,
+    qual_vals, seq_lens, id_lens, com_lens, qual_lens, run_lens], each
+    block fetched as one byte buffer and one i32 buffer holding the used
+    prefixes."""
     launched = [_emit_launch(x, m, st, seq_type=seq_type, fastq=fastq, pack_nibbles=pack_nibbles,
                              parity_base=int(st["odd"]))
                 for x, m, st in zip(xs, masks, stats)]

@@ -10,16 +10,15 @@ strided copies into one output tensor.  A FASTA record is its header, its
 full lines plus a newline column, and its tail line; a FASTQ record is
 ``[header, sequence, "\\n+\\n", quality, "\\n"]``.
 
-Ragged path (``render_batched``, the one-device ``render_sharded``): every
-output position is a function of the record it falls in, rendered in
-batches of at most ``OUT_BATCH`` bytes with i32 indices rebased per batch
+Ragged path (``render_batched``, ``render_sharded``): every output
+position is a function of the record it falls in, rendered in batches of
+at most ``OUT_BATCH`` bytes with i32 indices rebased per batch
 (``_render_step``, the gather-minimal ``_make_kernel``).  Its per-position
 record lookups are segment broadcasts by the max-scan kernel, and its mask
 parity a prefix sum by the add-scan kernel (``ops.scan``).  Over a mesh of
-D blocks (``render_mesh``, ``render_sharded`` proper) each batch is cut
-into D output chunks, each rendered on its own device, and the chunks are
-joined in order; the uniform path is for one device only, as in the
-reference.
+D devices each batch is cut into D output chunks, each rendered on its own
+device, and the chunks are joined in order; one device renders the whole
+batch.  The uniform path is for one device only, as in the reference.
 
 ``RenderPlan``, ``build_plan``, ``_next_seq_char`` and ``_next_qual_char``
 are the port's copies of the reference's render metadata (the tests hold
@@ -532,68 +531,46 @@ def _up(a: np.ndarray, device) -> torch.Tensor:
 
 
 def ragged_session(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
-                   *, device, out_batch: int = 0):
-    """(batches, render): the batches of a ragged render, and a function
-    that renders one of them to a u8 tensor on ``device``.  The section
-    and quality bytes are uploaded once; each batch uploads its own
-    record-sized metadata."""
+                   *, mesh, out_batch: int = 0):
+    """(batches, render): the batches of a ragged render over the devices
+    of ``mesh``, and a function that renders one of them as its u8 chunks
+    in output order, one a device (``split_batch``; one device renders the
+    whole batch).  The section and quality bytes each chunk reads are
+    uploaded here, once, to its device, so each device holds only its
+    chunks' bytes; each device uploads a batch's record-sized metadata
+    once.  Every chunk of a batch launches before any is fetched, so the
+    devices overlap."""
     batches = plan_batches(plan, out_batch)
-    seq_d = torch.from_numpy(np.ascontiguousarray(seq_bytes, np.uint8).copy()).to(device)
-    qual_d = (torch.from_numpy(np.ascontiguousarray(qual, np.uint8).copy()).to(device)
-              if plan.mode == MODE_FASTQ and qual is not None else None)
-    one = torch.zeros(1, dtype=torch.uint8, device=seq_d.device)
+    fastq = plan.mode == MODE_FASTQ and qual is not None
+    seq_bytes = np.asarray(seq_bytes, np.uint8)
+    qual = np.asarray(qual, np.uint8) if fastq else None
+    none = np.zeros(1, np.uint8)
+    chunks = {bt.p0: [(dev, ch, _up(seq_bytes[ch.b_lo:ch.b_hi] if ch.b_hi > ch.b_lo else none, dev),
+                       _up(qual[ch.q_lo:ch.q_hi] if fastq and ch.q_hi > ch.q_lo else none, dev))
+                      for dev, ch in zip(mesh.devices, split_batch(plan, bt, mesh.size))
+                      if ch.p1 > ch.p0]
+              for bt in batches}
 
-    def render(bt: RenderBatch) -> torch.Tensor:
-        seq = seq_d[bt.b_lo:bt.b_hi] if bt.b_hi > bt.b_lo else one
-        qsl = (qual_d[bt.q_lo:bt.q_hi] if qual_d is not None and bt.q_hi > bt.q_lo else one)
-        meta = [_up(a, seq_d.device) for a in (bt.E, bt.O, bt.H, bt.hdr, bt.bounds)]
-        return _render_chunk(plan, bt, seq, qsl, meta)
+    def render(bt: RenderBatch) -> list[torch.Tensor]:
+        meta, outs = {}, []
+        for dev, ch, seq, qsl in chunks[bt.p0]:
+            if dev not in meta:
+                meta[dev] = [_up(a, dev) for a in (bt.E, bt.O, bt.H, bt.hdr, bt.bounds)]
+            outs.append(_render_step(seq, qsl, ch.o0, ch.c0, ch.q0, *meta[dev], osz=ch.p1 - ch.p0,
+                                     mode=plan.mode, line_len=plan.line_len, rna=plan.rna,
+                                     packed=plan.packed, upper=plan.upper,
+                                     masking=plan.bounds.size > 0))
+        return outs
 
     return batches, render
 
 
-def _render_chunk(plan: RenderPlan, bt: RenderBatch, seq: torch.Tensor, qual: torch.Tensor,
-                  meta: list) -> torch.Tensor:
-    """``_render_step`` of one batch or chunk, from its uploaded section
-    and quality bytes and its uploaded E, O, H, headers and bounds."""
-    return _render_step(seq, qual, bt.o0, bt.c0, bt.q0, *meta, osz=bt.p1 - bt.p0,
-                        mode=plan.mode, line_len=plan.line_len, rna=plan.rna,
-                        packed=plan.packed, upper=plan.upper, masking=plan.bounds.size > 0)
-
-
 def render_batched(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
-                   *, device, out_batch: int = 0) -> bytes:
-    """The whole output of a ragged render on ``device``, batch by batch
-    (``render_sharded`` on one device); raises RenderOverflow where the
-    reference does."""
-    if plan.total_out == 0:
-        return b""
-    batches, render = ragged_session(plan, seq_bytes, qual, device=device, out_batch=out_batch)
-    return b"".join(render(bt).cpu().numpy().tobytes() for bt in batches)
-
-
-def render_mesh(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
-                *, mesh, out_batch: int = 0) -> bytes:
+                   *, mesh, out_batch: int = 0) -> bytes:
     """The whole output of a ragged render over the devices of ``mesh``
-    (``render_sharded`` for D devices): each batch cut into one chunk a
-    device (``split_batch``), every chunk's bytes and metadata uploaded to
-    its device, then every chunk rendered, then the chunks fetched and
-    joined in order.  Raises RenderOverflow where the reference does."""
+    (``render_sharded``), batch by batch, each batch in one chunk a device
+    joined in order; raises RenderOverflow where the reference does."""
     if plan.total_out == 0:
         return b""
-    fastq = plan.mode == MODE_FASTQ and qual is not None
-    pieces = []
-    for bt in plan_batches(plan, out_batch):
-        chunks = [(dev, ch) for dev, ch in zip(mesh.devices, split_batch(plan, bt, mesh.size))
-                  if ch.p1 > ch.p0]
-        inputs = []
-        for dev, ch in chunks:
-            seq = _up(seq_bytes[ch.b_lo:ch.b_hi] if ch.b_hi > ch.b_lo else np.zeros(1, np.uint8),
-                      dev)
-            qsl = _up(qual[ch.q_lo:ch.q_hi] if fastq and ch.q_hi > ch.q_lo
-                      else np.zeros(1, np.uint8), dev)
-            meta = [_up(a, dev) for a in (ch.E, ch.O, ch.H, ch.hdr, ch.bounds)]
-            inputs.append((ch, seq, qsl, meta))
-        outs = [_render_chunk(plan, ch, seq, qsl, meta) for ch, seq, qsl, meta in inputs]
-        pieces.extend(o.cpu().numpy().tobytes() for o in outs)
-    return b"".join(pieces)
+    batches, render = ragged_session(plan, seq_bytes, qual, mesh=mesh, out_batch=out_batch)
+    return b"".join(o.cpu().numpy().tobytes() for bt in batches for o in render(bt))

@@ -9,11 +9,12 @@ record's length, ``F_CONT_SEQ`` and ``F_ALLOW_PARTIAL``.  So
 host path while each piece's per-byte work (classify, compaction, pack,
 mask runs) runs on the card, at O(chunk) host and device memory.
 
-Each piece takes the fused path first (``fused_block`` /
-``fused_block_fastq``); where that declines (``sparse_overflow``,
-``unexpected_chars``) the same uploaded block takes the two-pass protocol
-(``stats_block`` + ``emit_block``).  Everything is fetched to host numpy
-before ``scan`` returns, so no device tensor outlives its piece.  Pieces
+Each piece takes the fused path first (``fused_blocks_sharded`` /
+``fused_blocks_fastq_sharded``); where that declines (``sparse_overflow``,
+``unexpected_chars``) the same uploaded blocks take the two-pass protocol
+(``stats_blocks_sharded`` + ``emit_blocks_sharded``).  Everything is
+fetched to host numpy before ``scan`` returns, so no device tensor
+outlives its piece.  Pieces
 the device path does not take go to the native host scanner, each for a
 named reason, as naf_tpu's engine decides: ``host_mode`` (``--strict``,
 ``--well-formed``, upper-casing, protein or text), ``mid_line`` (a

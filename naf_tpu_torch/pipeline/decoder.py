@@ -894,8 +894,7 @@ def _render(plan, raw, qual, mesh, host) -> bytes:
         count_route(f"decode_host:{reason}")
         return host()
     try:
-        out = (DV.render_mesh(plan, raw, qual, mesh=mesh) if reason == "mesh"
-               else DV.render_batched(plan, raw, qual, device=mesh.devices[0]))
+        out = DV.render_batched(plan, raw, qual, mesh=mesh)
     except DV.RenderOverflow:
         count_route("decode_host:render_overflow")
         return host()

@@ -53,8 +53,10 @@ def main() -> int:
     from naf_tpu_torch.format import constants as C
     from naf_tpu_torch.parallel import decode as PD
     from naf_tpu_torch.parallel import pipeline as PP
-    from naf_tpu_torch.parallel.block import (emit_block, fused_block, fused_block_fastq,
-                                              make_blocks, make_blocks_fastq, stats_block)
+    from naf_tpu_torch.parallel.block import (emit_blocks_sharded, fused_blocks_fastq_sharded,
+                                              fused_blocks_sharded, make_blocks,
+                                              make_blocks_fastq, stats_blocks_sharded)
+    from naf_tpu_torch.parallel.mesh import all_gather, block_mesh
     from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device, fastq_device
     from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 
@@ -106,21 +108,23 @@ def main() -> int:
         prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
         if o.seq_type < C.SEQ_TYPE_PROTEIN:
             st["fused_attempt"] = med(
-                (lambda: fused_block_fastq(x, prev, 0, seq_type=0, device=dev)[3].cpu())
-                if fastq else (lambda: fused_block(x, prev, sis, 0, seq_type=0,
-                                                   device=dev)[1].cpu()))
-        st["stats_block"] = med(lambda: stats_block(x, prev, sis, seq_type=o.seq_type,
-                                                    fastq=fastq))
-        stats, masks = stats_block(x, prev, sis, seq_type=o.seq_type, fastq=fastq)
+                (lambda: all_gather(fused_blocks_fastq_sharded([x], [prev], 0, seq_type=0)[3]))
+                if fastq else (lambda: all_gather(fused_blocks_sharded([x], [prev], [sis], 0,
+                                                                       seq_type=0)[1])))
+
+        def stats_pass():
+            return stats_blocks_sharded([x], [prev], [sis], seq_type=o.seq_type, fastq=fastq)
+        st["stats_block"] = med(stats_pass)
+        stats, masks = stats_pass()
 
         def emit():
-            return emit_block(x, masks, stats, seq_type=o.seq_type, fastq=fastq,
-                              pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
+            return emit_blocks_sharded([x], masks, stats, seq_type=o.seq_type, fastq=fastq,
+                                       pack_nibbles=o.seq_type < C.SEQ_TYPE_PROTEIN)
         st["emit_block_with_fetch"] = med(emit)
         em = emit()
         del masks
         fmt = C.IN_FORMAT_FASTQ if fastq else C.IN_FORMAT_FASTA
-        st["stitch_and_build"] = med(lambda: PP.build_two_pass(fmt, o, [stats], em, fallback=None))
+        st["stitch_and_build"] = med(lambda: PP.build_two_pass(fmt, o, stats, em, fallback=None))
         st["encode_device"] = med(lambda: PP.encode_device(data, o, device=dev))
         st["host_encode"] = med(lambda: encode(data, o))
         enc_busy = busy_share(lambda: PP.encode_device(data, o, device=dev))
@@ -139,10 +143,11 @@ def main() -> int:
             return d._fasta_plan(d.masking) + (None,)
         sd["container_zstd_plan"] = med(plan)
         pl, raw, qual = plan()
-        sd["batches_and_upload"] = med(lambda: PD.ragged_session(pl, raw, qual, device=dev))
-        batches, render = PD.ragged_session(pl, raw, qual, device=dev)
+        one = block_mesh(devices=[dev])
+        sd["batches_and_upload"] = med(lambda: PD.ragged_session(pl, raw, qual, mesh=one))
+        batches, render = PD.ragged_session(pl, raw, qual, mesh=one)
         sd["render_on_card"] = med(lambda: [render(b) for b in batches])
-        outs = [render(b) for b in batches]
+        outs = [t for b in batches for t in render(b)]
         sd["fetch_output"] = med(lambda: b"".join(t.cpu().numpy().tobytes() for t in outs))
         device_decode = ((lambda: fastq_device(Decoder(io.BytesIO(blob)), device=dev)) if fastq
                          else (lambda: fasta_device(Decoder(io.BytesIO(blob)), device=dev)))
@@ -268,20 +273,20 @@ def main() -> int:
         st["upload"] = med(lambda: torch.from_numpy(host_block).to(dev))
         x = torch.from_numpy(host_block).to(dev)
         if fastq:
-            st["kernels"] = med(lambda: fused_block_fastq(x, int(blocks.prev[0]), 0, seq_type=0,
-                                                          device=dev))
-            outs = fused_block_fastq(x, int(blocks.prev[0]), 0, seq_type=0, device=dev)
+            st["kernels"] = med(lambda: fused_blocks_fastq_sharded([x], blocks.prev, 0,
+                                                                   seq_type=0))
+            outs = fused_blocks_fastq_sharded([x], blocks.prev, 0, seq_type=0)
 
             def parse():
-                return PP.parse_fused_fastq(1, outs[3].cpu().numpy(), outs)
+                return PP.parse_fused_fastq(1, all_gather(outs[3]), outs)
         else:
-            st["kernels"] = med(lambda: fused_block(x, int(blocks.prev[0]), False, 0, seq_type=0,
-                                                    device=dev))
-            outs = fused_block(x, int(blocks.prev[0]), False, 0, seq_type=0, device=dev)
+            st["kernels"] = med(lambda: fused_blocks_sharded([x], blocks.prev, [False], 0,
+                                                             seq_type=0))
+            outs = fused_blocks_sharded([x], blocks.prev, [False], 0, seq_type=0)
 
             def parse():
                 packed, scal, tv, a = outs
-                return PP.parse_fused_fasta(1, scal.cpu().numpy(), packed, tv, a)
+                return PP.parse_fused_fasta(1, all_gather(scal), packed, tv, a)
         st["fetch_and_parse"] = med(parse)
         p = parse()
         zero = [np.zeros(257, np.uint64) for _ in range(4)]

@@ -6,8 +6,8 @@
     cases of test_emit_fused.py, and the scan oracle of that file where the
     port departs from the reference on purpose (a case change at a tile's
     first kept byte behind the tile's first byte);
-  * make_blocks_fastq, fused_block_fastq and parse_fused_fastq equal their
-    originals;
+  * make_blocks_fastq, fused_blocks_fastq_sharded on one block and
+    parse_fused_fastq equal their originals;
   * encode_device(device="cpu") on FASTQ equals naf_tpu's host encode(),
     fastq_device(device="cpu") equals naf_tpu's Decoder.fastq(), and every
     route, device or host, is taken by name.
@@ -171,8 +171,8 @@ def test_fused_block_fastq_and_parse_match():
         jax.device_put(jnp.asarray(blocks.data), sh),
         jax.device_put(jnp.asarray(blocks.prev), sh),
         jnp.zeros(1, jnp.int32), seq_type=0, mesh=mesh, interpret=True)]
-    got = PB.fused_block_fastq(blocks.data[0], int(blocks.prev[0]), 0, seq_type=0,
-                               device="cpu")
+    x = torch.from_numpy(blocks.data[0].copy())
+    got = [torch.stack(o) for o in PB.fused_blocks_fastq_sharded([x], blocks.prev, 0, seq_type=0)]
     for x, y in zip(got, ref):
         assert np.array_equal(x.numpy(), y)
     want = RP.parse_fused_fastq(1, ref[3], ref)

@@ -168,7 +168,7 @@ def test_mesh_render_in_small_batches(out_batch):
                             False if fastq else d.masking)
         qual = d._load_qual() if fastq else None
         assert len(PD.plan_batches(plan, out_batch)) > 2
-        got = PD.render_mesh(plan, raw, qual, mesh=_cpu_mesh(3), out_batch=out_batch)
+        got = PD.render_batched(plan, raw, qual, mesh=_cpu_mesh(3), out_batch=out_batch)
         assert got == _host_render(blob, fastq)
 
 

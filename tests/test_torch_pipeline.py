@@ -2,8 +2,8 @@
 
   * the jax-free host helpers in naf_tpu_torch.parallel give the same
     output as their naf_tpu.parallel originals;
-  * fused_block on the CPU equals fused_blocks_sharded on a 1-device CPU
-    mesh (interpret mode);
+  * fused_blocks_sharded on one CPU block equals naf_tpu's on a 1-device
+    CPU mesh (interpret mode);
   * encode_device(device="cpu") archives equal naf_tpu's host encode(), on
     the fused and two-pass device paths and on every named host route;
   * fasta_device(device="cpu") gives back the input bytes and equals
@@ -126,9 +126,9 @@ def test_fused_block_and_parse_match():
     body = _body(data)
     packed_r, scal_r, tv_r, a_r = _fused_ref(body)
     blocks = PB.make_blocks(body, 1)
-    packed, scal, tv, a = PB.fused_block(blocks.data[0], int(blocks.prev[0]),
-                                         bool(blocks.starts_in_seq[0]), 0,
-                                         seq_type=C.SEQ_TYPE_DNA, device="cpu")
+    x = torch.from_numpy(blocks.data[0].copy())
+    packed, scal, tv, a = (torch.stack(o) for o in PB.fused_blocks_sharded(
+        [x], blocks.prev, blocks.starts_in_seq, 0, seq_type=C.SEQ_TYPE_DNA))
     assert np.array_equal(packed.numpy(), packed_r)
     assert np.array_equal(scal.numpy(), scal_r)
     n_sp = int(scal_r[0, 2])
@@ -295,13 +295,12 @@ def test_fasta_device_without_mask_option():
 # ---------------------------------------------------------------------------
 
 def _port_sources() -> list[Path]:
-    return sorted((REPO / "naf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                            REPO / "mesh_probe.py"]
+    return sorted((REPO / "naf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def test_port_never_imports_naf_tpu_statically():
-    """No import or from line of the port, or of chip_smoke.py and
-    mesh_probe.py, names naf_tpu (or jax)."""
+    """No import or from line of the port, or of chip_smoke.py, names
+    naf_tpu (or jax)."""
     import ast
 
     for path in _port_sources():

@@ -4,9 +4,9 @@
     oracle) and _make_kernel on random record layouts, FASTA and FASTQ,
     wrapped and not, masked and not, on whole ranges and on windows that
     start inside a record;
-  * render_batched (CPU) equals naf_tpu's render_sharded with the uniform
-    path off (NAF_TPU_NO_REGULAR=1) on a one-device CPU mesh, and the
-    port's host Decoder, on the plans of real archives: masked IUPAC, RNA,
+  * render_batched over one CPU device equals naf_tpu's render_sharded
+    with the uniform path off (NAF_TPU_NO_REGULAR=1) on a one-device CPU
+    mesh, and the port's host Decoder, on the plans of real archives: masked IUPAC, RNA,
     text with and without upper case, line lengths 0, 7 and 60, FASTQ with
     empty reads, several batches;
   * fasta_device / fastq_device(device="cpu") take the ragged route by name
@@ -31,6 +31,7 @@ from naf_tpu.parallel.mesh import block_mesh
 from naf_tpu_torch import device as D
 from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.parallel import decode as PD
+from naf_tpu_torch.parallel.mesh import block_mesh as torch_mesh
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
 from naf_tpu_torch.pipeline.parser import ParseResult
@@ -145,7 +146,8 @@ def test_render_batched_matches_render_sharded(name, out_batch, monkeypatch):
         plan, raw = d._fasta_plan(d.masking)
         qual = None
         want = _dec(blob, **kw).fasta()
-    got = PD.render_batched(plan, raw, qual, device="cpu", out_batch=out_batch)
+    got = PD.render_batched(plan, raw, qual, mesh=torch_mesh(devices=["cpu"]),
+                            out_batch=out_batch)
     assert got == want
     monkeypatch.setenv("NAF_TPU_NO_REGULAR", "1")
     assert got == RD.render_sharded(plan, raw, qual, mesh=block_mesh(1), out_batch=out_batch)
@@ -187,7 +189,7 @@ def test_render_overflow_guard_giant_record():
                          ids_blob=b"a\0b\0c\0", comments_blob=None, name_sep=b" ",
                          mask_spans=None)
     with pytest.raises(PD.RenderOverflow):
-        PD.render_batched(plan, np.zeros(8, np.uint8), device="cpu")
+        PD.render_batched(plan, np.zeros(8, np.uint8), mesh=torch_mesh(devices=["cpu"]))
     with pytest.raises(RD.RenderOverflow):
         RD.render_sharded(plan, np.zeros(8, np.uint8), None, mesh=block_mesh(1))
 

@@ -110,8 +110,9 @@ def test_stream_archive_matches_naf_tpu_engine(name, references):
 
 @pytest.mark.parametrize("fastq", [False, True])
 def test_emit_block_at_odd_parity_matches_naf_tpu(fastq):
-    """emit_block(parity_base=1) packs chars[1:] and gives chars[0]'s code,
-    as naf_tpu's two-pass emit with ``odd`` set on a one-device mesh."""
+    """A block's two-pass emit at parity base 1 packs chars[1:] and gives
+    chars[0]'s code, as naf_tpu's two-pass emit with ``odd`` set on a
+    one-device mesh."""
     import jax
     import jax.numpy as jnp
 
@@ -139,15 +140,15 @@ def test_emit_block_at_odd_parity_matches_naf_tpu(fastq):
     em_r = [np.asarray(o) for o in RB.emit_blocks_sharded(*args, odd, seq_type=0, fastq=fastq,
                                                            mesh=mesh, **caps)]
     x = torch.from_numpy(blocks.data[0].copy())
-    stats, masks = PB.stats_block(x, int(blocks.prev[0]), bool(blocks.starts_in_seq[0]),
-                                  seq_type=0, fastq=fastq)
-    em = PB.emit_block(x, masks, stats, seq_type=0, fastq=fastq, pack_nibbles=True,
-                       parity_base=1)
-    cnt = stats["count"]
+    stats, masks = PB.stats_blocks_sharded([x], blocks.prev, blocks.starts_in_seq, seq_type=0,
+                                           fastq=fastq, parity_base=1)
+    em = PB.emit_blocks_sharded([x], masks, stats, seq_type=0, fastq=fastq, pack_nibbles=True)
+    cnt = stats[0]["count"]
     assert cnt == int(counts[0]) > 1
     assert np.array_equal(em[0][:, :(cnt + 1) // 2], em_r[0][:, :(cnt + 1) // 2])
     assert int(em[1][0]) == int(em_r[1][0])
-    even = PB.emit_block(x, masks, stats, seq_type=0, fastq=fastq, pack_nibbles=True)
+    even = PB.emit_blocks_sharded([x], masks, [{**stats[0], "odd": False}], seq_type=0,
+                                  fastq=fastq, pack_nibbles=True)
     assert not np.array_equal(even[0][:, :cnt // 2], em[0][:, :cnt // 2])
 
 

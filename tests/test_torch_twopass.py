@@ -5,8 +5,8 @@
     compact_u8_dense) in interpret mode, on u8/bool and i32 streams,
     ragged lengths, the max scan's floor of -2^30 and the keep densities of
     test_compact_kernel.py;
-  * stats_block and emit_block on the CPU equal stats_blocks_sharded and
-    emit_blocks_sharded on a one-device CPU mesh (XLA formulations), for
+  * stats_blocks_sharded and emit_blocks_sharded on one CPU block equal
+    naf_tpu's on a one-device CPU mesh (XLA formulations), for
     FASTA DNA, RNA, protein and text, and FASTQ;
   * encode_device(device="cpu") archives and EncodeStats equal naf_tpu's
     encode_sharded (which takes the two-pass on a CPU mesh) and the port's
@@ -87,7 +87,7 @@ def test_compaction_matches_pallas(n, p_keep, kind):
 
 
 # ---------------------------------------------------------------------------
-# stats_block / emit_block against the sharded passes on one device
+# the two passes on one block against naf_tpu's on one device
 # ---------------------------------------------------------------------------
 
 def _block_case(name: str):
@@ -132,7 +132,8 @@ def test_stats_and_emit_block_match_sharded(name):
     blocks, st, em_r = _sharded_passes(body, seq_type, fastq)
     x = torch.from_numpy(blocks.data[0].copy())
     prev, sis = int(blocks.prev[0]), bool(blocks.starts_in_seq[0])
-    stats, masks = PB.stats_block(x, prev, sis, seq_type=seq_type, fastq=fastq)
+    stats, masks = PB.stats_blocks_sharded([x], [prev], [sis], seq_type=seq_type, fastq=fastq)
+    stats = stats[0]
     assert not st[1].any()                    # odd: no chars before the one block
     for k, key in zip((0, 2, 3, 4, 5, 6, 7, 8), PB.STATS_KEYS):
         assert stats[key] == st[k][0], key
@@ -141,8 +142,8 @@ def test_stats_and_emit_block_match_sharded(name):
     counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs = (
         stats[k] for k in PB.STATS_KEYS[:6])
     text_like = seq_type >= C.SEQ_TYPE_PROTEIN
-    em = PB.emit_block(x, masks, stats, seq_type=seq_type, fastq=fastq,
-                       pack_nibbles=not text_like)
+    em = PB.emit_blocks_sharded([x], masks, [stats], seq_type=seq_type, fastq=fastq,
+                                pack_nibbles=not text_like)
     used = [counts if text_like else (counts + 1) // 2 + 1, None, None, id_bytes, com_bytes,
             qual_bytes if fastq else 0, n_rec + 1, n_rec + 1, n_rec + 1,
             n_rec + 1 if fastq else 0, 0 if text_like else n_runs]
@@ -224,10 +225,10 @@ def test_header_dense_inputs_overflow_the_fused_emit():
         blocks = PB.make_blocks_fastq(body, 1)[0] if fastq else PB.make_blocks(body, 1)
         x = torch.from_numpy(blocks.data[0].copy())
         if fastq:
-            scal = PB.fused_block_fastq(x, int(blocks.prev[0]), 0, seq_type=0, device="cpu")[3]
+            scal = PB.fused_blocks_fastq_sharded([x], blocks.prev, 0, seq_type=0)[3]
         else:
-            scal = PB.fused_block(x, int(blocks.prev[0]), False, 0, seq_type=0, device="cpu")[1]
-        assert not bool(scal[0, 3])           # sp_ok
+            scal = PB.fused_blocks_sharded([x], blocks.prev, [False], 0, seq_type=0)[1]
+        assert not bool(scal[0][3])           # sp_ok
 
 
 def test_strict_dirty_raises_as_host():
