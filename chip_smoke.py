@@ -53,7 +53,23 @@ Phases, each printing JSON lines:
      streams on the card (its archive equal to the host ``tnaf``'s, its
      peak device memory printed); and ``tnaf --device --engine native`` /
      ``untnaf --device --engine native`` on gen_fasta_single(128), equal to
-     the host CLI with the same engine and to the input, host times beside;
+     the host CLI with the same engine and to the input, host times beside.
+     Traced, each in a process of its own: ``tnaf --device`` and ``untnaf
+     --device`` on gen_fasta_single(128) and gen_fastq(500_000,
+     read_len=150) under NAF_TPU_TRACE=1, and the host ``untnaf`` of the
+     FASTQ archive (whole-buffer), each giving the untraced bytes and
+     exactly naf_tpu's spans of its path (none on the in-memory encode,
+     ``seq-unzstd`` on a device decode, ``seq+qual-unzstd`` and ``render``
+     on the host FASTQ decode), their times printed; ``tnaf --device`` on
+     gen_fasta(300), one ``scan`` span a streamed piece; ``tnaf --device``
+     and ``untnaf --device`` on gen_fasta_single(128) under
+     NAF_TPU_PROFILE=build/profile, one torch.profiler trace a process
+     holding a CUDA kernel event of every kernel its run launched, with the
+     device busy share the trace gives beside ``stage_probe.busy_share``'s
+     of the same calls in a process of its own; and the host ``untnaf`` of the
+     FASTQ archive in this process with the two-thread decompress and with
+     the serial loads, in turns.  The traced and profiled processes'
+     launches join the CLI path's counts;
   7. the stream: ``encode_stream`` with ``DeviceScanEngine`` on the card in
      64 MiB chunks against the host ``encode_stream`` (its default chunk),
      on gen_fasta_single(1024) (1.07 GB, one record continued across
@@ -200,6 +216,11 @@ def value_sectors(vals, keep) -> int:
     return int(k.view(-1, per).any(1).sum())
 
 
+def kernel_name(event_name: str) -> str:
+    """A profiler's kernel name, template arguments and parameters cut."""
+    return event_name.split("(")[0].split("<")[0].removeprefix("void ")
+
+
 def launch_split(fn, reps: int) -> dict:
     """Device ms of each launch (by kernel name, template arguments cut)
     within one call of fn: torch.profiler's device events over `reps`
@@ -216,7 +237,7 @@ def launch_split(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("(")[0].split("<")[0].removeprefix("void ")
+            name = kernel_name(e.name)
             split[name] = split.get(name, 0.0) + e.device_time_total / 1e3 / reps
     return dict(sorted(split.items()))
 
@@ -557,6 +578,73 @@ sys.exit(rc)
 """
 
 
+#: the CUDA kernel of each launch count of ``device.LAUNCHES``, as a profiler
+#: trace names it (``kernel_name``: template arguments and parameters cut)
+KERNEL_NAMES = {k: f"naf::{v}_kernel" for k, v in (
+    ("emit_fasta", "emit_fasta"), ("classify_fasta", "classify_fasta"), ("pack_4bit", "pack"),
+    ("unpack_4bit", "unpack"), ("apply_mask_parity", "mask_parity"),
+    ("emit_fastq", "emit_fastq"), ("classify_fastq", "classify_fastq"),
+    ("cumsum_i32", "scan"), ("maxscan_i32", "scan"), ("compact", "compact"),
+    ("compact_dense", "compact"))}
+
+
+def span_rows(stderr: bytes) -> list:
+    """Each ``[naf-trace]`` line of ``stderr``: its stage, ms and fields."""
+    rows = []
+    for line in stderr.decode().splitlines():
+        if line.startswith("[naf-trace] "):
+            parts = line.split()
+            rows.append({"stage": parts[1], "ms": float(parts[2]),
+                         **dict(f.split("=", 1) for f in parts[4:] if "=" in f)})
+    return rows
+
+
+def trace_summary(path: str, launches: dict) -> dict:
+    """The kernel events by name and the device busy share of one
+    torch.profiler trace: kernels, copies and memsets summed over the span
+    of every event, as ``stage_probe.busy_share`` sums them over a call's
+    wall time.  Raises unless every kernel ``launches`` counts has an
+    event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels: dict = {}
+    busy_us = 0.0
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if cat == "kernel":
+            name = kernel_name(e["name"])
+            kernels[name] = kernels.get(name, 0) + 1
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += e.get("dur", 0)
+    span_us = max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)
+    ours = {KERNEL_NAMES[k] for k, v in launches.items() if v}
+    missing = sorted(n for n in ours if not kernels.get(n))
+    if missing:
+        raise AssertionError(f"{path}: no CUDA kernel event of {missing}; kernels {kernels}")
+    return {"kernel_events": {n: kernels[n] for n in sorted(ours)},
+            "launches": {k: v for k, v in launches.items() if v},
+            "trace_bytes": os.path.getsize(path), "events": len(events),
+            "device_busy_s": busy_us / 1e6, "trace_span_s": span_us / 1e6,
+            "idle_share": max(0.0, 1 - busy_us / span_us)}
+
+
+#: ``stage_probe.busy_share`` of ``encode_device`` on the FASTA file argv[1]
+#: and of ``fasta_device`` on its archive argv[2], in a process of its own
+#: (in this one, after the earlier phases' profiles, it found no device event)
+_BUSY_SHARE = """import io, json, os, sys
+from stage_probe import busy_share
+from naf_tpu_torch.device import cuda_device
+from naf_tpu_torch.parallel.pipeline import encode_device
+from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device
+from naf_tpu_torch.pipeline.encoder import EncodeOptions
+data, blob = open(sys.argv[1], "rb").read(), open(sys.argv[2], "rb").read()
+dev, o = cuda_device(), EncodeOptions(level=1, threads=os.cpu_count() or 0)
+print(json.dumps({"encode": busy_share(lambda: encode_device(data, o, device=dev)),
+                  "decode": busy_share(lambda: fasta_device(Decoder(io.BytesIO(blob)),
+                                                            device=dev))}))
+"""
+
+
 def stream_routes_ok(routes: dict) -> bool:
     """One streamed ``tnaf --device`` whose every piece took the fused
     device path."""
@@ -601,10 +689,120 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
                 and (next(iter(got)).startswith(route) if route.endswith(":")
                      else route in got))
 
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    sub_launches = dict.fromkeys(D.LAUNCHES, 0)
+
+    def counted(tool: str, argv: list, **env_extra) -> dict:
+        """The port's ``tool`` in a process of its own under ``env_extra``:
+        its seconds (the process start included), stderr, pid and counts,
+        whose launches join ``sub_launches``; raises when it exits
+        non-zero."""
+        t0 = time.perf_counter()
+        with open(path("counted.err"), "wb") as err:
+            p = subprocess.Popen([sys.executable, "-c", _COUNTED_CLI.format(tool=tool),
+                                  path("counted.json"), *argv], stdout=subprocess.DEVNULL,
+                                 stderr=err, env=dict(env, **env_extra), cwd=here)
+            rc = p.wait(timeout=600)
+        seconds = time.perf_counter() - t0
+        stderr = read("counted.err")
+        if rc != 0:
+            raise AssertionError(f"{tool} {' '.join(argv)} exited {rc}: {stderr[-2000:]!r}")
+        with open(path("counted.json")) as f:
+            counts = json.load(f)
+        for k, v in counts["launches"].items():
+            sub_launches[k] += v
+        return {"seconds": seconds, "stderr": stderr, "pid": p.pid, **counts}
+
+    def spans_of(run: dict, stages: list) -> dict:
+        """A traced run's seconds and spans; raises unless its stderr holds
+        exactly the trace lines of ``stages``."""
+        spans = span_rows(run["stderr"])
+        lines = run["stderr"].splitlines()
+        if [sp["stage"] for sp in spans] != stages or len(lines) != len(spans):
+            raise AssertionError(f"spans {[sp['stage'] for sp in spans]} != {stages}; "
+                                 f"stderr {run['stderr'][-2000:]!r}")
+        return {"seconds": run["seconds"], "spans": spans}
+
+    def traced(src: str, data: bytes, fastq: bool) -> dict:
+        """``tnaf --device`` and ``untnaf --device``, and on FASTQ the host
+        ``untnaf`` (whole-buffer: the archive is over the stream threshold's
+        quarter), under NAF_TPU_TRACE=1: the untraced bytes, naf_tpu's spans
+        of each path (none on an in-memory encode)."""
+        out = {"tnaf_device": spans_of(counted(
+            "tnaf", ["--device", "-o", path("traced.naf"), src], NAF_TPU_TRACE="1"), [])}
+        if read("traced.naf") != read("dev.naf"):
+            raise AssertionError("traced tnaf --device archive != untraced")
+        out["untnaf_device"] = spans_of(counted(
+            "untnaf", ["--device", "-o", path("traced.out"), path("traced.naf")],
+            NAF_TPU_TRACE="1"), ["seq-unzstd"])
+        if read("traced.out") != data:
+            raise AssertionError("traced untnaf --device output != the input")
+        if fastq:
+            out["untnaf_host"] = spans_of(counted(
+                "untnaf", ["-o", path("traced.out"), path("traced.naf")], NAF_TPU_TRACE="1",
+                NAF_TPU_STREAM_THRESHOLD=str(1 << 40)), ["seq+qual-unzstd", "render"])
+            if read("traced.out") != data:
+                raise AssertionError("traced host untnaf output != the input")
+        return out
+
+    def profiled(src: str, data: bytes) -> dict:
+        """``tnaf --device`` and ``untnaf --device`` under
+        NAF_TPU_PROFILE=build/profile: one trace a process holding a CUDA
+        kernel event of every kernel its run launched; then
+        ``stage_probe.busy_share`` of the same encode and decode."""
+        prof = os.path.join(here, "build", "profile")
+        shutil.rmtree(prof, ignore_errors=True)
+        out = {}
+        for tool, argv, result, want in (
+                ("tnaf", ["--device", "-o", path("prof.naf"), src], "prof.naf", read("dev.naf")),
+                ("untnaf", ["--device", "-o", path("prof.out"), path("prof.naf")], "prof.out",
+                 data)):
+            before = set(os.listdir(prof)) if os.path.isdir(prof) else set()
+            run = counted(tool, argv, NAF_TPU_PROFILE=prof)
+            if read(result) != want:
+                raise AssertionError(f"profiled {tool} --device output != untraced")
+            new = sorted(set(os.listdir(prof)) - before)
+            if len(new) != 1 or str(run["pid"]) not in new[0]:
+                raise AssertionError(f"profiled {tool} --device wrote {new}")
+            out[tool] = {"seconds": run["seconds"], "trace": os.path.join("build", "profile",
+                                                                          new[0]),
+                         **trace_summary(os.path.join(prof, new[0]), run["launches"])}
+        r = subprocess.run([sys.executable, "-c", _BUSY_SHARE, src, path("dev.naf")],
+                           capture_output=True, env=env, cwd=here, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"busy share exited {r.returncode}: {r.stderr[-2000:]!r}")
+        out["stage_probe_busy"] = json.loads(r.stdout.splitlines()[-1])
+        return out
+
+    def host_fastq_untnaf(archive: str, data: bytes) -> dict:
+        """Best wall seconds of 2 host ``untnaf`` runs of a FASTQ archive in
+        this process, whole-buffer, with the two-thread decompress and with
+        serial loads, the sequence then the quality (``_load_seq_and_qual``
+        replaced by the sequence load alone), in turns serial, two threads,
+        two threads, serial."""
+        two_threads = Decoder._load_seq_and_qual
+        threshold = os.environ.get("NAF_TPU_STREAM_THRESHOLD")
+        os.environ["NAF_TPU_STREAM_THRESHOLD"] = str(1 << 40)
+        times: dict = {"serial": [], "two_threads": []}
+        try:
+            for how in ("serial", "two_threads", "two_threads", "serial"):
+                Decoder._load_seq_and_qual = (two_threads if how == "two_threads"
+                                              else Decoder._load_seq_raw)
+                times[how].append(run_cli("untnaf", ["-o", path("host_fq.out"), archive]))
+                if read("host_fq.out") != data:
+                    raise AssertionError(f"host untnaf ({how}) output != the input")
+        finally:
+            Decoder._load_seq_and_qual = two_threads
+            if threshold is None:
+                del os.environ["NAF_TPU_STREAM_THRESHOLD"]
+            else:
+                os.environ["NAF_TPU_STREAM_THRESHOLD"] = threshold
+        return {f"{k}_s": min(v) for k, v in times.items()} | {"runs": times}
+
     try:
         D.reset_counts()
         rows = []
-        for name, data, flags, _, fastq, enc_route, dec_route in cases:
+        for i, (name, data, flags, _, fastq, enc_route, dec_route) in enumerate(cases):
             src = path("in.fq" if fastq else "in.fa")
             with open(src, "wb") as f:
                 f.write(data)
@@ -632,6 +830,12 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
                 raise AssertionError(f"{name}: untnaf --device output != the input")
             row.update(archive=os.path.getsize(path("dev.naf")), equal_host=True,
                        equal_input=True)
+            if i < 2:               # the fused FASTA and FASTQ cases
+                row["traced"] = traced(src, data, fastq)
+            if i == 0:
+                row["profile"] = profiled(src, data)
+            if fastq:
+                row["host_fastq_untnaf"] = host_fastq_untnaf(path("dev.naf"), data)
             rows.append(row)
 
         # a file over the in-memory threshold: tnaf --device streams it on the card
@@ -654,11 +858,18 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
             raise AssertionError(f"{name}: streamed tnaf --device archive != host tnaf archive")
         if peak >= PEAK_LIMIT:
             raise AssertionError(f"{name}: peak device memory {peak} is not under {PEAK_LIMIT}")
+        run = counted("tnaf", ["--device", "-o", path("stream_traced.naf"), path("stream.fa")],
+                      NAF_TPU_TRACE="1")
+        if not stream_routes_ok(run["routes"]):
+            raise AssertionError(f"{name}: traced tnaf --device took route {run['routes']}")
+        if read("stream_traced.naf") != read("stream_host.naf"):
+            raise AssertionError(f"{name}: traced streamed tnaf --device archive != host's")
+        traced_stream = spans_of(run, ["scan"] * run["routes"]["stream_device"])
         emit({"phase": "cli_stream", "input": name, "card": card, "bytes": len(data),
               "tnaf_device_s": seconds[0], "tnaf_host_s": host_s, "routes": got,
               "archive": os.path.getsize(path("stream_dev.naf")), "equal_host": True,
-              "peak_above_start_bytes": peak})
-        for f in ("stream.fa", "stream_dev.naf", "stream_host.naf"):
+              "peak_above_start_bytes": peak, "traced": traced_stream})
+        for f in ("stream.fa", "stream_dev.naf", "stream_host.naf", "stream_traced.naf"):
             os.unlink(path(f))
 
         # the native entropy engine, with and without --device
@@ -696,7 +907,7 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
             raise AssertionError(f"{name}: untnaf --engine native output != host's or input")
         row.update(archive=os.path.getsize(path("ndev.naf")), equal_host=True, equal_input=True)
         emit(row)
-        launches = dict(D.LAUNCHES)
+        launches = {k: v + sub_launches[k] for k, v in D.LAUNCHES.items()}
 
         # the same work in this process, outside the counted path
         for row, (name, data, _, o, fastq, _, _) in zip(rows, cases):
@@ -715,7 +926,6 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
         name, data = pipe_input
         with open(path("pipe.fa"), "wb") as f:
             f.write(data)
-        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
         with open(path("pipe.fa"), "rb") as fin, open(path("pipe.err1"), "wb") as e1, \
                 open(path("pipe.err2"), "wb") as e2, open(path("pipe.out"), "wb") as fout:

@@ -14,7 +14,9 @@ larger file through ``encode_stream`` with the device scan engine
 ``NAF_TPU_DEVICE_CHUNK`` (64 MiB), counted in ``device.ROUTES`` as
 ``encode_device:stream``.  ``--extended`` and an ``--engine`` other than
 ``zstd`` always encode in memory.  A failure on the card ends the CLI with
-an error.  ``--engine native`` compresses with the package's own RFC 8878
+an error.  Under ``NAF_TPU_PROFILE=dir`` the ``--device`` work runs in
+``utils.trace.device_profile``, which writes one torch.profiler trace into
+``dir``.  ``--engine native`` compresses with the package's own RFC 8878
 encoder; ``--engine device`` is demoted to it, as in the reference CLI.
 Without ``--device`` nothing here loads torch.
 """
@@ -478,17 +480,19 @@ def _encode_device(inf, outf, opts: EncodeOptions, in_memory: bool):
     from ..parallel.mesh import block_mesh
     from ..parallel.pipeline import encode_device
     from ..parallel.stream import DeviceScanEngine
+    from ..utils.trace import device_profile
 
     try:
-        mesh = block_mesh()
-        if in_memory:
-            blob, stats = encode_device(inf.read(), opts, mesh=mesh)
-            outf.write(blob)
-            return stats
-        count_route("encode_device:stream")
-        chunk = int(os.environ.get("NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
-        return encode_stream(inf, outf, opts, chunk_size=chunk,
-                             engine=DeviceScanEngine(mesh=mesh))
+        with device_profile():
+            mesh = block_mesh()
+            if in_memory:
+                blob, stats = encode_device(inf.read(), opts, mesh=mesh)
+                outf.write(blob)
+                return stats
+            count_route("encode_device:stream")
+            chunk = int(os.environ.get("NAF_TPU_DEVICE_CHUNK", str(64 << 20)))
+            return encode_stream(inf, outf, opts, chunk_size=chunk,
+                                 engine=DeviceScanEngine(mesh=mesh))
     except (RuntimeError, OSError) as e:
         raise _DeviceError(f"device encode failed: {e}") from None
 

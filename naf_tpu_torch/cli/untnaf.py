@@ -7,7 +7,9 @@ every output type, but for the version line.  ``--device`` renders FASTA
 and FASTQ with the port's CUDA kernels (``fasta_device``,
 ``fastq_device`` over every visible card); a failure there ends the CLI
 with an error,
-it never carries on on the host.  ``--engine native`` decompresses with the
+it never carries on on the host; under ``NAF_TPU_PROFILE=dir`` the render
+runs in ``utils.trace.device_profile``, which writes one torch.profiler
+trace into ``dir``.  ``--engine native`` decompresses with the
 package's own RFC 8878 decoder (``codec.set_decode_engine``), also under
 ``--device``, whose render then takes what it decompressed.  Without
 ``--device`` nothing here loads torch.
@@ -288,12 +290,14 @@ def _render_device(dec: Decoder, out_type: int) -> bytes:
     """FASTA or FASTQ rendered by the CUDA kernels over every visible card;
     a missing card, a kernel build or a launch that fails ends the CLI."""
     from ..parallel.mesh import block_mesh
+    from ..utils.trace import device_profile
 
     try:
-        mesh = block_mesh()
-        if out_type == FASTQ:
-            return fastq_device(dec, mesh=mesh)
-        return fasta_device(dec, None if out_type != UNMASKED_FASTA else False, mesh=mesh)
+        with device_profile():
+            mesh = block_mesh()
+            if out_type == FASTQ:
+                return fastq_device(dec, mesh=mesh)
+            return fasta_device(dec, None if out_type != UNMASKED_FASTA else False, mesh=mesh)
     except (RuntimeError, OSError) as e:
         _die(f"device decode failed: {e}")
 

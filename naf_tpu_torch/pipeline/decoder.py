@@ -10,7 +10,11 @@ bounded-memory ``stream_fasta`` / ``stream_fastq``, which render record
 batches while a background thread decompresses ahead (``_Prefetcher``).
 Every render goes through the native one-thread render (the original's
 multithreaded render, F1 in ROADMAP.md, is not copied), or numpy where the
-native library is off.
+native library is off.  A FASTQ render that finds neither the sequence nor
+the quality loaded decompresses the two sections on two threads
+(``_load_seq_and_qual``), as the original does.  ``NAF_TPU_TRACE`` times
+the original's three spans here (``utils/trace.py``): ``seq-unzstd``,
+``seq+qual-unzstd`` and ``render``.
 
 ``fasta_device`` and ``fastq_device`` render the sequence (and qualities) on
 the device through ``parallel.decode``: the uniform-group render
@@ -48,6 +52,7 @@ from ..ops.histogram_np import charcount_np, format_charcount
 from ..ops.mask import apply_mask_np, expand_mask_np, merge_units, runs_to_units
 from ..ops.nibble_np import unpack_4bit_np
 from ..ops.render import body_length, wrap_records_np
+from ..utils.trace import trace_span
 
 
 class DecodeError(ValueError):
@@ -278,7 +283,8 @@ class Decoder:
             total, payload = self.r.load_section("sequence")
             self._total_seq_len = total
             expect = (total + 1) // 2 if self.is_nucleotide else total
-            self._seq_raw = np.frombuffer(self._decode_payload(payload, expect), np.uint8)
+            with trace_span("seq-unzstd", bytes=expect):
+                self._seq_raw = np.frombuffer(self._decode_payload(payload, expect), np.uint8)
         return self._total_seq_len, self._seq_raw  # type: ignore[return-value]
 
     def _load_qual(self) -> np.ndarray:
@@ -342,17 +348,37 @@ class Decoder:
                 merged = (np.resize(merged, n) if merged.size
                           else np.zeros(n, np.uint64))
         mask_units = self._load_mask_units() if masking else None
+        if with_qual and self._seq_raw is None and self._qual is None:
+            self._load_seq_and_qual()
         total, raw = self._load_seq_raw()
         qual = self._load_qual() if with_qual else None
         nuc = self.is_nucleotide
         do_upper = (not nuc) and (not self.opts.use_mask) and mode != native.MODE_FASTQ
-        return native.render(
-            mode, seq_data=raw, total_chars=total, is_packed=nuc,
-            is_rna=h.seq_type == C.SEQ_TYPE_RNA, do_upper=do_upper,
-            mask_units=mask_units, lengths=merged,
-            ids_blob=ids_blob, comments_blob=com_blob, qual=qual,
-            name_sep=ord(h.name_separator), line_len=line_len,
-            out_capacity=total + 64)
+        with trace_span("render", bytes=total, mode=mode):
+            return native.render(
+                mode, seq_data=raw, total_chars=total, is_packed=nuc,
+                is_rna=h.seq_type == C.SEQ_TYPE_RNA, do_upper=do_upper,
+                mask_units=mask_units, lengths=merged,
+                ids_blob=ids_blob, comments_blob=com_blob, qual=qual,
+                name_sep=ord(h.name_separator), line_len=line_len,
+                out_capacity=total + 64)
+
+    def _load_seq_and_qual(self) -> None:
+        """Fill both section caches: the sequence and quality payloads read
+        in container order, then decompressed on two threads (they are
+        independent zstd frames, and zstd releases the GIL)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        total, spayload = self.r.load_section("sequence")
+        self._total_seq_len = total
+        qu, qpayload = self.r.load_section("quality")
+        expect = (total + 1) // 2 if self.is_nucleotide else total
+        with trace_span("seq+qual-unzstd", bytes=expect + qu):
+            with ThreadPoolExecutor(2) as ex:
+                f_seq = ex.submit(self._decode_payload, spayload, expect)
+                f_qual = ex.submit(self._decode_payload, qpayload, qu)
+                self._seq_raw = np.frombuffer(f_seq.result(), np.uint8)
+                self._qual = np.frombuffer(f_qual.result(), np.uint8)
 
     def _load_seq_chars(self, masking: bool, text_toupper: bool | None = None) -> np.ndarray:
         """Decode the sequence section to rendered characters.

@@ -19,6 +19,7 @@ Produces archives byte-identical to ``encoder.encode`` for the same input
 and options.  ``tnaf`` takes this path for pipes and for files of
 ``NAF_TPU_STREAM_THRESHOLD`` (256 MiB) or more; with ``--device`` the
 pieces go through ``parallel.stream.DeviceScanEngine`` (``engine=``).
+Under ``NAF_TPU_TRACE`` each piece's scan prints a ``scan`` span.
 
 Reference parity: ennaf/src/process.c 1 MB parse buffers; compressor.c
 2 MB section buffers + temp-file spill.
@@ -35,6 +36,7 @@ from ..codec import SectionCompressor, SpillingSectionCompressor
 from ..format import constants as C
 from ..format.container import NafArchive, NafHeader, Section, write_naf
 from ..native import host as native
+from ..utils.trace import trace_span
 from . import parser as P
 from .encoder import EncodeOptions, EncodeStats, split_lengths
 
@@ -288,16 +290,17 @@ def encode_stream(inf: BinaryIO, outf: BinaryIO,
         scratch = scratches[it & 1]
         scan_fn = native.scan if engine is None else engine.scan
         try:
-            return scan_fn(
-                piece, fastq=fastq, seq_type=opts.seq_type,
-                strict=opts.strict, well_formed=opts.well_formed,
-                do_mask=store_mask, do_upper=False, marker_pos=-1,
-                flags=base_flags | extra_flags
-                | (native.F_CONT_SEQ if cont_in else 0),
-                prev_eol=prev_eol, mask_on=mask_on, mask_run=mask_run,
-                len_carry=open_len if cont_in else 0,
-                line_carry=open_line if cont_in else 0,
-                pack_carry=pending_nibble, scratch=scratch)
+            with trace_span("scan", bytes=len(piece)):
+                return scan_fn(
+                    piece, fastq=fastq, seq_type=opts.seq_type,
+                    strict=opts.strict, well_formed=opts.well_formed,
+                    do_mask=store_mask, do_upper=False, marker_pos=-1,
+                    flags=base_flags | extra_flags
+                    | (native.F_CONT_SEQ if cont_in else 0),
+                    prev_eol=prev_eol, mask_on=mask_on, mask_run=mask_run,
+                    len_carry=open_len if cont_in else 0,
+                    line_carry=open_line if cont_in else 0,
+                    pack_carry=pending_nibble, scratch=scratch)
         except native.NativeScanError as e:
             e2 = native.NativeScanError(e.code, e.record + n_records,
                                         e.char, e.a, e.b)

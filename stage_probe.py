@@ -36,6 +36,27 @@ import sys
 import time
 
 
+def busy_share(fn) -> dict:
+    """Device time of kernels and copies over the wall time of one call of
+    ``fn``, after a warm-up call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        return {"device_busy_s": None, "wall_s": wall, "idle_share": None}
+    return {"device_busy_s": dev_us / 1e6, "wall_s": wall,
+            "idle_share": max(0.0, 1 - dev_us / 1e6 / wall)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -75,24 +96,6 @@ def main() -> int:
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
         return statistics.median(ts)
-
-    def busy_share(fn) -> dict:
-        """Device time of kernels and copies over the wall time of one call."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev_us = sum(e.device_time_total for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us <= 0:
-            return {"device_busy_s": None, "wall_s": wall, "idle_share": None}
-        return {"device_busy_s": dev_us / 1e6, "wall_s": wall,
-                "idle_share": max(0.0, 1 - dev_us / 1e6 / wall)}
 
     def probe_two_pass(name, data, o) -> None:
         """The stages of a two-pass encode and of a ragged decode."""

@@ -282,11 +282,12 @@ print(decoder.Decoder(io.BytesIO(blob)).fastq().hex())
 
 
 @pytest.mark.parametrize("native_off", [False, True], ids=["native", "numpy"])
-def test_host_stack_loads_no_torch(native_off):
-    """The package, the host encoder, stream encoder and decoder import, and
-    a host FASTA and FASTQ round trip (encode(), then Decoder.fasta() and
-    fastq(); encode_stream, stream_fasta and stream_fastq and the other
-    output modes where the native runtime is on) run, with torch absent
+def test_host_stack_loads_no_torch(native_off, tmp_path):
+    """The package, the host encoder, stream encoder and decoder and the
+    tracing module import, and a host FASTA and FASTQ round trip (encode(),
+    then Decoder.fasta() and fastq(); encode_stream, stream_fasta and
+    stream_fastq and the other output modes where the native runtime is on)
+    run, traced (NAF_TPU_TRACE, NAF_TPU_PROFILE set), with torch absent
     from sys.modules; on the native runtime and on numpy."""
     code = r"""
 import io, sys
@@ -295,6 +296,7 @@ from naf_tpu_torch import codec, format, version
 from naf_tpu_torch.native import host
 from naf_tpu_torch.ops import histogram_np
 from naf_tpu_torch.pipeline import decoder, encoder, parser, stream
+from naf_tpu_torch.utils.trace import device_profile, trace_span
 fa = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
 fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"
 out = []
@@ -322,12 +324,16 @@ assert "torch" not in sys.modules, sorted(m for m in sys.modules if m.startswith
 print(" ".join(out))
 """
     env = {k: v for k, v in os.environ.items() if k != "NAF_TPU_TORCH_NO_NATIVE"}
-    env["PYTHONPATH"] = str(REPO)
+    env.update(PYTHONPATH=str(REPO), NAF_TPU_TRACE="1",
+               NAF_TPU_PROFILE=str(tmp_path / "profile"))
     if native_off:
         env["NAF_TPU_TORCH_NO_NATIVE"] = "1"
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                        cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr
+    assert "[naf-trace] seq-unzstd " in r.stderr
+    if not native_off:
+        assert "[naf-trace] seq+qual-unzstd " in r.stderr and "[naf-trace] scan " in r.stderr
     fa_blob, fa_out, fq_blob, fq_out = (bytes.fromhex(x) for x in r.stdout.split())
     fa = b">r1 c\nACGTacgtNN\nAC\n>r2\nGGTT\n"
     fq = b"@q1 c\nACGTacgt\n+\n!!!!####\n@q2 d\nGGTTAAcc\n+\n$$$$%%%%\n"

@@ -1,0 +1,353 @@
+"""naf_tpu_torch's tracing (``utils/trace.py``) against naf_tpu's.
+
+``NAF_TPU_TRACE``: both packages' CLIs run as subprocesses on the same
+seeded inputs (``untnaf -c`` of a FASTA and of a FASTQ archive on the host
+path, ``tnaf -c`` of a pipe that streams in at least three pieces); once
+the times and rates are masked, their stderr lines are equal: the same
+stages (``seq-unzstd``, ``seq+qual-unzstd``, ``render``, ``scan``) in the
+same order with the same ``bytes=`` and ``mode=`` fields.  Any non-empty
+value turns tracing on in both, ``0`` included.  The port's host FASTQ
+render decompresses the sequence and quality on two threads when neither
+is loaded, and its output equals the input and naf_tpu's
+``Decoder.fastq()``.  ``NAF_TPU_PROFILE=dir``: ``tnaf --device`` and
+``untnaf --device``, the card replaced by the CPU, write one parseable
+torch.profiler trace each and the same bytes as without it; a profiler
+fault ends the CLI with its device error; without ``--device`` the CLIs
+load no torch.  Decoded inputs stay under 2**21 chars, below naf_tpu's
+multithreaded render (F1 in ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from naf_tpu.pipeline import decoder as RDEC
+from naf_tpu.pipeline import stream as RSTREAM
+from naf_tpu_torch import device as D
+from naf_tpu_torch.pipeline import decoder as PDEC
+from naf_tpu_torch.pipeline import encoder as PENC
+from naf_tpu_torch.pipeline import stream as PSTREAM
+from naf_tpu_torch.utils import trace
+
+from torch_cases import mixed_fasta, mixed_fastq
+
+REPO = Path(__file__).resolve().parent.parent
+#: a span's time and rate, the only parts of a trace line that may differ
+_TIMES = re.compile(rb"\s+\d+\.\d\d ms( \(\d+ MB/s\))?")
+
+
+def _env(tmp: Path, **extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("NAF_TPU", "JAX", "XLA"))}
+    env.update(PYTHONPATH=str(REPO), TMPDIR=str(tmp), JAX_PLATFORMS="cpu", **extra)
+    return env
+
+
+def _run(pkg: str, tool: str, args: list, tmp: Path, stdin: bytes = b"", **env):
+    return subprocess.run([sys.executable, "-m", f"{pkg}.cli.{tool}", *args], input=stdin,
+                          capture_output=True, env=_env(tmp, **env), cwd=tmp, timeout=300)
+
+
+def _spans(stderr: bytes) -> list:
+    """The trace lines of ``stderr``, times and rates masked."""
+    return [_TIMES.sub(b" <t>", line) for line in stderr.splitlines()
+            if line.startswith(b"[naf-trace] ")]
+
+
+def _stages(stderr: bytes) -> list:
+    return [line.split()[1].decode() for line in _spans(stderr)]
+
+
+def _long_fasta(n: int, seed: int = 30) -> bytes:
+    """About ``n`` bytes of FASTA: records of 0.2-2 Mbp, 60-char lines,
+    soft-masked stretches."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTACGTACGTNacgt", np.uint8)
+    out, size, i = [], 0, 0
+    while size < n:
+        ln = int(rng.integers(200_000, 2_000_000)) // 60 * 60
+        lines = rng.choice(alpha, size=(ln // 60, 61))
+        lines[:, 60] = ord("\n")
+        rec = b">chr%d sample\n" % i + lines.tobytes()
+        out.append(rec)
+        size += len(rec)
+        i += 1
+    return b"".join(out)
+
+
+@pytest.fixture(scope="module")
+def archives(tmp_path_factory) -> Path:
+    d = tmp_path_factory.mktemp("trace_archives")
+    for name, data in (("dna", mixed_fasta(seed=31, n_rec=60)),
+                       ("reads", mixed_fastq(seed=32, n_rec=400))):
+        (d / f"{name}.naf").write_bytes(PENC.encode(data, PENC.EncodeOptions())[0])
+    return d
+
+
+# ---------------------------------------------------------------------------
+# (a) the two CLIs trace the same stages
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("archive,stages", [
+    ("dna", ["seq-unzstd", "render"]),
+    ("reads", ["seq+qual-unzstd", "render"]),
+], ids=["untnaf_fasta", "untnaf_fastq"])
+def test_untnaf_traces_as_naf_tpu(archive, stages, archives, tmp_path):
+    args = ["-c", str(archives / f"{archive}.naf")]
+    port = _run("naf_tpu_torch", "untnaf", args, tmp_path, NAF_TPU_TRACE="1")
+    ref = _run("naf_tpu", "untnaf", args, tmp_path, NAF_TPU_TRACE="1")
+    assert port.returncode == ref.returncode == 0, port.stderr + ref.stderr
+    assert port.stdout == ref.stdout
+    assert _spans(port.stderr) == _spans(ref.stderr)
+    assert _stages(port.stderr) == stages
+    assert [line for line in port.stderr.splitlines() if not line.startswith(b"[naf-trace]")] \
+        == []
+
+
+def test_streamed_tnaf_traces_as_naf_tpu(tmp_path):
+    """A pipe streams: one ``scan`` span a piece, at least three pieces."""
+    assert PSTREAM.DEFAULT_CHUNK == RSTREAM.DEFAULT_CHUNK
+    data = _long_fasta(3 * PSTREAM.DEFAULT_CHUNK + PSTREAM.DEFAULT_CHUNK // 2)
+    port = _run("naf_tpu_torch", "tnaf", ["-c"], tmp_path, data, NAF_TPU_TRACE="1")
+    ref = _run("naf_tpu", "tnaf", ["-c"], tmp_path, data, NAF_TPU_TRACE="1")
+    assert port.returncode == ref.returncode == 0, port.stderr + ref.stderr
+    assert port.stdout == ref.stdout
+    assert _spans(port.stderr) == _spans(ref.stderr)
+    stages = _stages(port.stderr)
+    assert set(stages) == {"scan"} and len(stages) >= 3
+
+
+# ---------------------------------------------------------------------------
+# (b) which values turn tracing on
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("value,on", [(None, False), ("", False), ("0", True), ("1", True)],
+                         ids=["unset", "empty", "zero", "one"])
+@pytest.mark.parametrize("pkg", ["naf_tpu_torch", "naf_tpu"])
+def test_trace_variable(pkg, value, on, archives, tmp_path):
+    env = {} if value is None else {"NAF_TPU_TRACE": value}
+    r = _run(pkg, "untnaf", ["-c", str(archives / "dna.naf")], tmp_path, **env)
+    assert r.returncode == 0, r.stderr
+    assert (b"[naf-trace]" in r.stderr) == on
+    if not on:
+        assert r.stderr == b""
+
+
+# ---------------------------------------------------------------------------
+# (c) the two-thread FASTQ decompress
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def traced(monkeypatch, capsys):
+    """Tracing on in this process; returns a reader of the stages printed
+    since the last read, with their fields."""
+    monkeypatch.setattr(trace, "ENABLED", True)
+    capsys.readouterr()
+
+    def read() -> list:
+        return [(line.split()[1], dict(f.split("=") for f in line.split() if "=" in f))
+                for line in capsys.readouterr().err.splitlines()
+                if line.startswith("[naf-trace] ")]
+    return read
+
+
+def _counting_decodes(monkeypatch) -> list:
+    calls = []
+    real = PDEC.Decoder._decode_payload
+
+    def counted(self, payload, expect):
+        calls.append(expect)
+        return real(self, payload, expect)
+    monkeypatch.setattr(PDEC.Decoder, "_decode_payload", counted)
+    return calls
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["upper", "masked"])
+def test_fastq_decompresses_on_two_threads(masked, traced, monkeypatch):
+    data = mixed_fastq(seed=33, n_rec=500)
+    if not masked:
+        data = data.upper()
+    blob = PENC.encode(data, PENC.EncodeOptions())[0]
+    total = sum(len(line) for line in data.split(b"\n")[1::4])
+    calls = _counting_decodes(monkeypatch)
+    d = PDEC.Decoder(io.BytesIO(blob))
+    out = d.fastq()
+    assert out == RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions()).fastq()
+    if not masked:
+        assert out == data
+    assert traced() == [("seq+qual-unzstd", {"bytes": str((total + 1) // 2 + total)}),
+                        ("render", {"bytes": str(total), "mode": "4"})]
+    assert sorted(calls) == sorted([(total + 1) // 2, total])
+    assert d._seq_raw is not None and d._qual.size == total
+    assert d._load_qual() is d._qual and len(calls) == 2     # no second decompress
+
+
+def test_fastq_with_its_sequence_loaded_takes_the_serial_loads(traced, monkeypatch):
+    data = mixed_fastq(seed=34, n_rec=300)
+    blob = PENC.encode(data, PENC.EncodeOptions())[0]
+    total = sum(len(line) for line in data.split(b"\n")[1::4])
+    d = PDEC.Decoder(io.BytesIO(blob))
+    d._batch_metadata(False)
+    d._load_seq_raw()
+    calls = _counting_decodes(monkeypatch)
+    out = d.fastq()
+    assert out == RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions()).fastq()
+    assert [s for s, _ in traced()] == ["seq-unzstd", "render"]
+    assert calls == [total]                  # the quality alone, after the sequence
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_device_decodes_trace_the_sequence_load(fastq, traced):
+    """``fasta_device`` / ``fastq_device`` load the sequence through
+    ``_load_seq_raw``, as naf_tpu's do: one ``seq-unzstd`` span, and no
+    two-thread load (the quality follows the plan)."""
+    data = mixed_fastq(seed=35, n_rec=200) if fastq else mixed_fasta(seed=35, n_rec=30)
+    blob = PENC.encode(data, PENC.EncodeOptions())[0]
+    d = PDEC.Decoder(io.BytesIO(blob))
+    out = (PDEC.fastq_device(d, device="cpu") if fastq
+           else PDEC.fasta_device(d, device="cpu"))
+    ref = RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions())
+    assert out == (ref.fastq() if fastq else ref.fasta())
+    assert [s for s, _ in traced()] == ["seq-unzstd"]
+
+
+# ---------------------------------------------------------------------------
+# (d) NAF_TPU_PROFILE around the CLI's --device paths, the card replaced by the CPU
+# ---------------------------------------------------------------------------
+
+class _Std:
+    def __init__(self, data: bytes = b""):
+        self.buffer = io.BytesIO(data)
+
+    def isatty(self) -> bool:
+        return False
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    monkeypatch.setattr(D, "cuda_device", lambda: torch.device("cpu"))
+    monkeypatch.setenv("NAF_TPU_STREAM_THRESHOLD", "1024")
+    monkeypatch.setenv("NAF_TPU_DEVICE_CHUNK", "4096")
+    monkeypatch.delenv("NAF_TPU_PROFILE", raising=False)
+    monkeypatch.delenv("TMPDIR", raising=False)
+    monkeypatch.delenv("TMP", raising=False)
+
+
+def _main(tool: str, argv: list, monkeypatch, stdin: bytes = b"") -> tuple:
+    """(status, stdout, stderr) of the port's ``tool`` main in this process."""
+    from importlib import import_module
+
+    io_ = {k: _Std(stdin if k == "stdin" else b"") for k in ("stdin", "stdout", "stderr")}
+    for k, v in io_.items():
+        monkeypatch.setattr(sys, k, v)
+    try:
+        rc = import_module(f"naf_tpu_torch.cli.{tool}").main(argv)
+    except SystemExit as e:
+        rc = e.code
+    return rc, io_["stdout"].buffer.getvalue(), io_["stderr"].buffer.getvalue()
+
+
+def _one_trace(directory: Path) -> list:
+    files = list(directory.iterdir())
+    assert [f.name for f in files] == [f"naf_tpu_torch.{os.getpid()}.trace.json"]
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert events
+    return events
+
+
+@pytest.mark.parametrize("kind", ["fasta", "fastq", "fasta_pipe"])
+def test_profile_writes_one_trace_a_call(kind, cpu_card, monkeypatch, tmp_path):
+    data = (mixed_fastq(seed=36, n_rec=200) if kind == "fastq"
+            else mixed_fasta(seed=36, n_rec=20))
+    src = tmp_path / ("in.fq" if kind == "fastq" else "in.fa")
+    src.write_bytes(data)
+    if kind == "fasta_pipe":      # a pipe: tnaf --device streams, 4096-byte pieces
+        enc = lambda: _main("tnaf", ["--device", "-c"], monkeypatch, stdin=data)  # noqa: E731
+    else:
+        enc = lambda: _main("tnaf", ["--device", "-c", str(src)], monkeypatch)  # noqa: E731
+    rc, plain, err = enc()
+    assert (rc, err) == (0, b"")
+    monkeypatch.setenv("NAF_TPU_PROFILE", str(tmp_path / "enc"))
+    rc, blob, err = enc()
+    assert (rc, err) == (0, b"") and blob == plain
+    assert blob == PENC.encode(data, PENC.EncodeOptions())[0]
+    assert any(e.get("ph") == "X" for e in _one_trace(tmp_path / "enc"))
+
+    (tmp_path / "in.naf").write_bytes(blob)
+    dec = ["--device", "-c", str(tmp_path / "in.naf")]
+    monkeypatch.delenv("NAF_TPU_PROFILE")
+    rc, plain, err = _main("untnaf", dec, monkeypatch)
+    assert (rc, err) == (0, b"")
+    monkeypatch.setenv("NAF_TPU_PROFILE", str(tmp_path / "dec"))
+    rc, out, err = _main("untnaf", dec, monkeypatch)
+    assert (rc, err) == (0, b"") and out == plain
+    ref = RDEC.Decoder(io.BytesIO(blob), RDEC.DecodeOptions())
+    assert out == (ref.fastq() if kind == "fastq" else ref.fasta())
+    assert any(e.get("ph") == "X" for e in _one_trace(tmp_path / "dec"))
+
+
+@pytest.mark.parametrize("tool", ["tnaf", "untnaf"])
+def test_profile_fault_ends_with_the_device_error(tool, cpu_card, monkeypatch, tmp_path):
+    """A trace directory that cannot be made ends the CLI as any device
+    fault does: its error line, status 1, no output file."""
+    data = mixed_fasta(seed=37, n_rec=10)
+    (tmp_path / "in.fa").write_bytes(data)
+    (tmp_path / "in.naf").write_bytes(PENC.encode(data, PENC.EncodeOptions())[0])
+    (tmp_path / "taken").write_bytes(b"")
+    monkeypatch.setenv("NAF_TPU_PROFILE", str(tmp_path / "taken"))
+    src = tmp_path / ("in.fa" if tool == "tnaf" else "in.naf")
+    rc, out, err = _main(tool, ["--device", "-o", str(tmp_path / "out"), str(src)], monkeypatch)
+    what = "encode" if tool == "tnaf" else "decode"
+    assert rc == 1 and out == b""
+    assert err.startswith(f"{tool} error: device {what} failed: ".encode()), err
+    if tool == "tnaf":
+        assert not (tmp_path / "out").exists()
+
+
+# ---------------------------------------------------------------------------
+# (e) the host paths load no torch, traced and under NAF_TPU_PROFILE
+# ---------------------------------------------------------------------------
+
+_NO_TORCH = r"""
+import io, sys
+from naf_tpu_torch.cli import {tool}
+sys.stdin = io.TextIOWrapper(io.BytesIO(open(sys.argv[1], "rb").read()))
+try:
+    rc = {tool}.main(sys.argv[2:])
+except SystemExit as e:
+    rc = e.code
+from naf_tpu_torch.utils.trace import device_profile
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "naf_tpu"))
+assert not bad, bad
+print(rc, file=sys.stderr)
+"""
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("tnaf", ["-o", "{out}", "{in}"]), ("tnaf", ["-c"]),
+    ("untnaf", ["-c", "{naf}"]), ("untnaf", ["-c", "{fq}"]),
+], ids=["tnaf_file", "tnaf_pipe_stream", "untnaf_fasta", "untnaf_fastq"])
+def test_traced_host_cli_loads_no_torch(tool, args, archives, tmp_path):
+    src = tmp_path / "in.fa"
+    src.write_bytes(mixed_fasta(seed=38, n_rec=20))
+    subs = {"{in}": str(src), "{out}": str(tmp_path / "o.naf"),
+            "{naf}": str(archives / "dna.naf"), "{fq}": str(archives / "reads.naf")}
+    r = subprocess.run([sys.executable, "-c", _NO_TORCH.format(tool=tool), str(src),
+                        *[subs.get(a, a) for a in args]],
+                       capture_output=True, cwd=tmp_path, timeout=300,
+                       env=_env(tmp_path, NAF_TPU_TRACE="1", NAF_TPU_PROFILE=str(tmp_path / "prof"),
+                                **({"NAF_TPU_STREAM_THRESHOLD": "1"} if tool == "tnaf" else {})))
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stderr.splitlines()[-1] == b"0"
+    assert b"[naf-trace]" in r.stderr
+    assert not (tmp_path / "prof").exists()
