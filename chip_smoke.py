@@ -97,13 +97,28 @@ Phases, each printing JSON lines:
      encode()'s, the others decoding to its decode, the ranks' archives
      the same, each with its bytes gathered and wall time; and
      ``dryrun_multichip``, the checks of ``__graft_entry__.py``'s dry run
-     over the mesh.  ``--mesh`` runs phase 1 and this phase only.
-Seven paths run with the launch counts set to 0 just before and read just
+     over the mesh.  ``--mesh`` runs phase 1 and this phase only;
+  9. the device zstd engine (``compress_section_device``): the keys and
+     chain kernels of ``csrc/matchfind.cu`` against their plain versions
+     at a level-19 ``--long 27`` span's shapes (a window padded to 2^27
+     positions, depth 16; the anchor pass over a window padded to 2^28
+     bytes), with ``torch.sort(stable=True)``'s time beside them; then the
+     packed SEQ section of gen_fasta_single(252) at level 19, window log 27
+     (cut to the prefix whose serializer time a one-span probe puts inside
+     ``ENGINE_BUDGET_S``), that of gen_fasta_single(128) and the quality
+     section of gen_fastq(500_000, read_len=150) at level 1, and
+     ``encode(engine="device")`` of gen_fasta_single(128): every frame
+     must decode to its input, the first, a middle and the last span's
+     candidates must equal the plain versions' on the card, the archive
+     must decode to the input; each call's per-span device ms (keys, sort,
+     chain, fetch), serializer seconds, MB/s, payload and peak device
+     memory are printed beside ``compress_section_native``'s.
+Eight paths run with the launch counts set to 0 just before and read just
 after each: the fused FASTA path and the fused FASTQ path (phases 3-4 on
 their inputs), the two-pass encodes, the ragged decodes, the CLI (its
-in-process calls and the pipe's two processes), the stream and the mesh
-(the spawned ranks' launches added).  Every kernel of a path must have
-launched in it; the kernels line sums the seven.  The
+in-process calls and the pipe's two processes), the stream, the mesh
+(the spawned ranks' launches added) and the device engine.  Every kernel
+of a path must have launched in it; the kernels line sums the eight.  The
 classifies launch standalone on the two-pass path and as device code inside
 each fused emit: a classify's row counts its standalone launches and gives
 the emit's as ``fused_launches``.  The last line is the result.  Any
@@ -138,6 +153,13 @@ STREAM_THRESHOLD = 256 << 20
 #: the in-memory encode of gen_fasta_single(252) (267.5 MB; PERF.md section 5),
 #: four times smaller than the 1 GB stream input
 PEAK_LIMIT = 738_199_040
+#: seconds the level-19 device-engine call may spend in the host serializer;
+#: a probe of one span sets the prefix of the section it compresses
+ENGINE_BUDGET_S = 150
+#: the prefix of the level-19 section both engines compress as a yardstick
+YARDSTICK_BYTES = 8 << 20
+#: the level and --long window log of the device engine's high-level call
+ENGINE_LEVEL, ENGINE_WINDOW_LOG = 19, 27
 
 
 def emit(row: dict) -> None:
@@ -214,6 +236,28 @@ def value_sectors(vals, keep) -> int:
     k = keep.bool()
     k = torch.cat([k.new_zeros(lead), k, k.new_zeros(-(lead + k.numel()) % per)])
     return int(k.view(-1, per).any(1).sum())
+
+
+def chain_key_sectors(sk, order, k: int, r0: int, r1: int, stride: int) -> int:
+    """The 32-byte sectors of ``sk`` that a depth-``k`` chain over the span
+    [r0, r1) must read: each span entry's key and its earlier neighbours in
+    the sort down to the first unequal one, at most k (a run ends there)."""
+    import torch
+
+    m = sk.numel()
+    i = torch.arange(m, device=sk.device)
+    new = torch.ones(m, dtype=torch.bool, device=sk.device)
+    new[1:] = sk[1:] != sk[:-1]
+    start = torch.cummax(torch.where(new, i, 0), 0).values
+    idx = torch.nonzero(((order + 1) * stride > r0) & (order * stride < r1)).squeeze(1)
+    first = (idx - torch.clamp(idx - start[idx] + 1, max=k)).clamp(min=0)
+    del new, start
+    # sk[first:idx + 1] for every span entry, as a difference array
+    diff = torch.zeros(m + 1, dtype=torch.int32, device=sk.device)
+    ones = torch.ones_like(idx, dtype=torch.int32)
+    diff.index_add_(0, first, ones)
+    diff.index_add_(0, idx + 1, -ones)
+    return value_sectors(sk, diff.cumsum(0, dtype=torch.int32)[:m] > 0)
 
 
 def kernel_name(event_name: str) -> str:
@@ -585,7 +629,7 @@ KERNEL_NAMES = {k: f"naf::{v}_kernel" for k, v in (
     ("unpack_4bit", "unpack"), ("apply_mask_parity", "mask_parity"),
     ("emit_fastq", "emit_fastq"), ("classify_fastq", "classify_fastq"),
     ("cumsum_i32", "scan"), ("maxscan_i32", "scan"), ("compact", "compact"),
-    ("compact_dense", "compact"))}
+    ("compact_dense", "compact"), ("match_keys", "match_keys"), ("match_chain", "match_chain"))}
 
 
 def span_rows(stderr: bytes) -> list:
@@ -1397,6 +1441,229 @@ def mesh_phase(card: str, mesh, opts, protein) -> dict:
     return launches
 
 
+def sections(data: bytes) -> tuple[bytes, bytes]:
+    """(packed SEQ, QUAL) payloads of an input, as the host encode
+    compresses them."""
+    import numpy as np
+
+    from naf_tpu_torch.format import constants as C
+    from naf_tpu_torch.ops.nibble_np import pack_4bit_np
+    from naf_tpu_torch.pipeline import parser as P
+
+    fmt, marker = P.detect_format(data)
+    fastq = fmt == C.IN_FORMAT_FASTQ
+    res = (P.parse_fastq if fastq else P.parse_fasta)(data, marker_pos=marker)
+    packed = res.packed
+    if packed is None:
+        packed, carry = pack_4bit_np(res.seq)
+        if carry is not None:
+            packed = np.concatenate([packed, np.asarray([carry], np.uint8)])
+    return np.ascontiguousarray(packed).tobytes(), res.qual.tobytes() if fastq else b""
+
+
+def engine_kernel_rows(card: str, seq: bytes, raw: bytes, dev) -> dict:
+    """Phase 9's kernel rows: the keys and chain kernels against their plain
+    versions on the card at a level-19 ``--long 27`` span's shapes: the last
+    span of ``seq`` in its 64 MiB history (a window padded to 2^27
+    positions, depth 16), and the anchor pass (depth 1) over the last span
+    of ``raw`` in its 128 MiB history (a window padded to 2^28 bytes);
+    ``sort_ms`` is ``torch.sort(stable=True)`` of the same keys."""
+    import torch
+
+    from naf_tpu_torch.codec import zstd_backend as Z
+    from naf_tpu_torch.ops import matchfind as MF
+
+    rows: dict = {}
+    hist, ldm_hist = Z._device_histories(ENGINE_WINDOW_LOG, MF.SPAN)
+    depth = Z._device_chain_depth(ENGINE_LEVEL)
+    for label, data, hist, anchor, k in (("window", seq, hist, False, depth),
+                                         ("anchor", raw, ldm_hist, True, 1)):
+        sec = MF.upload(data, dev)
+        n, span = sec.numel(), MF.SPAN
+        lo = (n - 1) // span * span
+        wlo = max(0, lo - hist) & ~7
+        win, cap = sec[wlo:n], MF._pow2(n - wlo)
+        if cap != MF._pow2(hist + span):
+            raise AssertionError(f"{label}: a window of {n - wlo} bytes pads to {cap}")
+        stride = 8 if anchor else 1
+        kkeys = MF.match_keys_kernel(win, cap, anchor=anchor)
+        pkeys = MF.match_keys_plain(win, cap, anchor=anchor)
+        torch.cuda.synchronize()
+        err_keys = max_abs_err(kkeys, pkeys)
+        del pkeys
+        sk, order = torch.sort(kkeys, stable=True)
+        kch = MF.match_chain_kernel(sk, order, k, lo - wlo, n - wlo, stride=stride, wlo=wlo)
+        pch = MF.match_chain_plain(sk, order, k, lo - wlo, n - wlo, stride=stride, wlo=wlo)
+        torch.cuda.synchronize()
+        err_chain = max_abs_err(kch, pch)
+        out_bytes = kch.numel() * 4
+        del pch, kch
+        torch.cuda.empty_cache()
+        # the chain reads all of order, the span entries' keys and their
+        # neighbours (chain_key_sectors), and writes the span's rows
+        sk_sectors = chain_key_sectors(sk, order, k, lo - wlo, n - wlo, stride)
+        torch.cuda.empty_cache()
+        sort_ms = cuda_time(lambda: torch.sort(kkeys, stable=True), 5)
+        shape = (f"u8[{n - wlo}] padded to {cap}" + (" (anchors)" if anchor else "")
+                 + f", span [{lo - wlo}, {n - wlo}), k {k}")
+        for name, err, fn, pfn, nbytes, extra, repl in (
+                ("match_keys", err_keys, lambda: MF.match_keys_kernel(win, cap, anchor=anchor),
+                 lambda: MF.match_keys_plain(win, cap, anchor=anchor),
+                 win.numel() + kkeys.numel() * 4, {},
+                 "naf_tpu/ops/matchfind.py:108" if anchor else "naf_tpu/ops/matchfind.py:34"),
+                ("match_chain", err_chain,
+                 lambda: MF.match_chain_kernel(sk, order, k, lo - wlo, n - wlo, stride=stride,
+                                               wlo=wlo),
+                 lambda: MF.match_chain_plain(sk, order, k, lo - wlo, n - wlo, stride=stride,
+                                              wlo=wlo),
+                 order.numel() * 8 + sk_sectors * SECTOR_BYTES + out_bytes,
+                 {"sk_sectors": sk_sectors},
+                 "naf_tpu/ops/matchfind.py:108" if anchor else "naf_tpu/ops/matchfind.py:34")):
+            row = {"name": name, "route": "cuda", "source": "naf_tpu_torch/csrc/matchfind.cu",
+                   "replaces": repl, "max_abs_err": err, "ms": cuda_time(fn, 10),
+                   "plain_ms": cuda_time(pfn, 3), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None, "sort_ms": sort_ms, **extra}
+            emit({"phase": "kernel", "shape": f"{label}: {shape}", "card": card, **row})
+            if err != 0:
+                raise AssertionError(f"{name} ({label}): kernel differs from its plain version "
+                                     f"({err})")
+            if anchor:
+                rows[name]["anchor"] = {f: row[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "sort_ms", "replaces",
+                                                            *extra)}
+            else:
+                rows[name] = row
+            torch.cuda.empty_cache()
+        del sec, win, kkeys, sk, order
+        torch.cuda.empty_cache()
+    return rows
+
+
+def device_engine_phase(card: str, dev, kernel_rows: dict) -> dict:
+    """Phase 9, the device zstd engine (``compress_section_device``): its
+    kernels at a level-19 ``--long 27`` span's shapes (``engine_kernel_rows``),
+    then the counted path: the packed SEQ section of gen_fasta_single(252)
+    at level 19, window log 27 (BASELINE config 4, cut to the prefix whose
+    serializer time a one-span probe puts inside ``ENGINE_BUDGET_S``), of
+    gen_fasta_single(128) at level 1 and the quality section of
+    gen_fastq(500_000, read_len=150) at level 1, and ``encode(engine=
+    "device")`` of gen_fasta_single(128).  Each frame must decode to its
+    input, the first, a middle and the last span's candidates must equal the
+    plain versions' on the card, and the archive must decode to the input.
+    Each call's spans, per-span device ms of keys, sort, chain and fetch,
+    serializer seconds, total seconds, MB/s, payload bytes and peak device
+    memory are printed beside ``compress_section_native``'s seconds and
+    bytes (the level-19 one on the first ``YARDSTICK_BYTES``, both
+    engines).  Returns the path's launch counts."""
+    import io
+
+    import torch
+
+    import bench
+    from naf_tpu_torch import device as D
+    from naf_tpu_torch.codec import zstd_backend as Z
+    from naf_tpu_torch.ops import matchfind as MF
+    from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder
+    from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
+
+    t0 = time.perf_counter()
+    big = bench.gen_fasta_single(252)
+    seq19, _ = sections(big)
+    emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
+          "bytes": {"gen_fasta_single(252)": len(big), "its packed SEQ": len(seq19)}})
+    rows = engine_kernel_rows(card, seq19, big, dev)
+    del big
+    t0 = time.perf_counter()
+    fa = bench.gen_fasta_single(128)
+    seq1, _ = sections(fa)
+    _, qual = sections(bench.gen_fastq(500_000, read_len=150))
+    emit({"phase": "inputs", "seconds": time.perf_counter() - t0,
+          "bytes": {"gen_fasta_single(128) packed SEQ": len(seq1),
+                    "gen_fastq(500000,read_len=150) QUAL": len(qual)}})
+
+    span = MF.SPAN
+    probe: dict = {}
+    Z.compress_section_device(seq19[:span], level=ENGINE_LEVEL, window_log=ENGINE_WINDOW_LOG,
+                              device=dev, timing=probe)
+    probe_s = probe["spans"][0]["serialize_s"]
+    # later spans search a 64 MiB history: allow twice the first span's time
+    fit = max(1, int(ENGINE_BUDGET_S / (2 * probe_s)))
+    n19 = min(len(seq19), fit * span)
+    emit({"phase": "device_engine_probe", "card": card, "span_bytes": span,
+          "serialize_s": probe_s, "budget_s": ENGINE_BUDGET_S, "bytes": n19,
+          "section_bytes": len(seq19), "cut": n19 < len(seq19)})
+    calls = [("gen_fasta_single(252) SEQ", seq19[:n19], ENGINE_LEVEL, ENGINE_WINDOW_LOG),
+             ("gen_fasta_single(128) SEQ", seq1, 1, 0),
+             ("gen_fastq(500000,read_len=150) QUAL", qual, 1, 0)]
+    eopts = EncodeOptions(level=1, engine="device", threads=os.cpu_count() or 0)
+
+    D.reset_counts()
+    results = []
+    for name, sec, level, wl in calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        timing: dict = {}
+        t0 = time.perf_counter()
+        payload = Z.compress_section_device(sec, level=level, window_log=wl, device=dev,
+                                            timing=timing)
+        total = time.perf_counter() - t0
+        results.append((payload, total, timing["spans"],
+                        torch.cuda.max_memory_allocated(dev) - base))
+    t0 = time.perf_counter()
+    blob, _ = encode(fa, eopts, device=dev)
+    encode_s = time.perf_counter() - t0
+    launches, routes = dict(D.LAUNCHES), dict(D.ROUTES)
+
+    for k in ("match_keys", "match_chain"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the device_engine path")
+    if Decoder(io.BytesIO(blob), DecodeOptions()).fasta() != fa:
+        raise AssertionError("encode(engine='device') does not decode to its input")
+    emit({"phase": "device_engine_encode", "input": "gen_fasta_single(128)", "card": card,
+          "seconds": encode_s, "archive": len(blob), "decodes_to_input": True, "routes": routes})
+    for (name, sec, level, wl), (payload, total, spans, peak) in zip(calls, results):
+        if Z.decompress_section(payload, len(sec)) != sec:
+            raise AssertionError(f"{name}: the device engine's frame does not decode")
+        k = Z._device_chain_depth(level)
+        hist, ldm = Z._device_histories(wl, span)
+        on_card = MF.upload(sec, dev)
+        n_spans = -(-len(sec) // span)
+        for i in sorted({0, n_spans // 2, n_spans - 1}):
+            lo, hi = i * span, min((i + 1) * span, len(sec))
+            got = MF.span_candidates(on_card, lo, hi, k, hist, ldm)
+            want = MF.span_candidates(on_card, lo, hi, k, hist, ldm, plain=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: span {i}'s candidates differ from the plain "
+                                     "versions'")
+        del on_card, got, want
+        torch.cuda.empty_cache()
+        stages = {stage: [round(sp.get(stage, 0.0), 4) for sp in spans]
+                  for stage in ("keys", "sort", "chain", "fetch")}
+        row = {"phase": "device_engine", "input": name, "card": card, "level": level,
+               "window_log": wl, "k": k, "bytes": len(sec), "spans": len(spans),
+               "device_ms": {stage: sum(v) for stage, v in stages.items()},
+               "per_span_device_ms": stages,
+               "serialize_s": sum(sp["serialize_s"] for sp in spans),
+               "per_span_serialize_s": [round(sp["serialize_s"], 4) for sp in spans],
+               "total_s": total, "MBps": len(sec) / 1e6 / total, "payload": len(payload),
+               "peak_device_bytes": peak, "decodes": True, "spans_equal_plain": True}
+        ysec = sec if level < ENGINE_LEVEL else sec[:YARDSTICK_BYTES]
+        t0 = time.perf_counter()
+        native = Z.compress_section_native(ysec, level=level, window_log=wl)
+        row["native"] = {"bytes": len(ysec), "seconds": time.perf_counter() - t0,
+                         "payload": len(native)}
+        if level >= ENGINE_LEVEL:
+            t0 = time.perf_counter()
+            dpay = Z.compress_section_device(ysec, level=level, window_log=wl, device=dev)
+            row["device_on_yardstick"] = {"bytes": len(ysec),
+                                             "seconds": time.perf_counter() - t0,
+                                             "payload": len(dpay)}
+        emit(row)
+    kernel_rows.update(rows)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -1861,13 +2128,17 @@ def main() -> int:
     path_launches["mesh"] = mesh_phase(card, phase_mesh(torch.cuda.device_count()), opts,
                                        protein)
 
+    # ---- 9. the device zstd engine -----------------------------------------
+    path_launches["device_engine"] = device_engine_phase(card, dev, kernel_rows)
+    emit({"phase": "launches", "device_engine_path": path_launches["device_engine"]})
+
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "naf_tpu"))
     if bad:
         raise AssertionError(f"the port's path imported {bad[:5]}")
 
     order = ("emit_fasta", "classify_fasta", "pack_4bit", "unpack_4bit", "apply_mask_parity",
              "emit_fastq", "classify_fastq", "cumsum_i32", "maxscan_i32", "compact",
-             "compact_dense")
+             "compact_dense", "match_keys", "match_chain")
     total = {k: sum(p[k] for p in path_launches.values()) for k in order}
     fused = {"classify_fasta": "emit_fasta", "classify_fastq": "emit_fastq"}
     kernels = []

@@ -1,5 +1,5 @@
 """The zstd section codec (the port's copy of ``naf_tpu/codec``: the
-library engine and the native engine)."""
+library engine, the native engine and the device match-finder engine)."""
 
 from .zstd_backend import (
     MAX_CLEVEL,
@@ -16,6 +16,7 @@ from .zstd_backend import (
     compress_part_native,
     compress_section,
     compress_section_blocked,
+    compress_section_device,
     compress_section_native,
     compress_section_parts,
     decode_engine,
@@ -35,7 +36,8 @@ __all__ = [
     "compress_section", "compress_section_blocked", "compress_frames", "blocked_payload",
     "decompress_section", "decompress_section_blocked",
     "iter_decompress", "parse_blocked_index",
-    "compress_section_native", "compress_part_native", "compress_section_parts",
+    "compress_section_native", "compress_section_device", "compress_part_native",
+    "compress_section_parts",
     "stitch_section_frame", "decompress_section_native",
     "set_decode_engine", "decode_engine",
 ]

@@ -14,8 +14,11 @@ the ``zstandard`` package; it decompresses through the package where it
 imports, else through ``zstd_compat``.  The native engine
 (``engine="native"``, ``set_decode_engine("native")``) is the RFC 8878
 encoder and decoder of ``native/naf_zstd.cpp`` in the port's host library.
-The JAX package's device match-finder engine (``engine="device"``) is not
-ported and raises ``NotImplementedError``.
+The device match-finder engine (``engine="device"``,
+``compress_section_device``) proposes match candidates on a device
+(``ops/matchfind.py``, the card's kernels or their plain versions on the
+CPU) and packs them with that library's candidate serializer; it imports
+torch only when it runs, so the host stack stays torch-free.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import ctypes as ct
 import os
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import Iterator, Optional
 
 import numpy as np
@@ -43,17 +47,13 @@ WINDOWLOG_MAX = 31
 MIN_CLEVEL = -131072
 MAX_CLEVEL = 22
 
-#: the JAX package's entropy engine that the port does not have
-UNPORTED_ENGINES = ("device",)
+#: the entropy engines: the library, the native encoder, the device match finder
+ENGINES = ("zstd", "native", "device")
 
 
 def check_engine(engine: str) -> None:
-    """Raise for an entropy engine the port does not have."""
-    if engine in UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine={engine!r} (naf_tpu's device match-finder engine) is not ported to "
-            "naf_tpu_torch")
-    if engine not in ("zstd", "native"):
+    """Raise for an entropy engine the package does not have."""
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -317,15 +317,17 @@ def _pool_map(fn, items, threads: int) -> list:
 
 
 def compress_frames(data, level: int = 1, window_log: int = 0, threads: int = 0,
-                    block_bytes: int = 4 << 20, engine: str = "zstd"
+                    block_bytes: int = 4 << 20, engine: str = "zstd", *, device="cuda"
                     ) -> tuple[list[int], list[bytes]]:
     """`data` -> (per-frame raw lengths, independent magic-stripped frames).
 
     The building block shared by the blocked section writer and the
     multi-process extended encode (each process frames only its own bytes).
+    ``device`` is where the device engine proposes candidates.
     """
     check_engine(engine)
-    one = compress_section_native if engine == "native" else compress_section
+    one = {"zstd": compress_section, "native": compress_section_native,
+           "device": partial(compress_section_device, device=device)}[engine]
     mv = memoryview(data)
     blocks = [mv[i:i + block_bytes] for i in range(0, mv.nbytes, block_bytes)] or [mv[:0]]
     frames = _pool_map(lambda b: one(b, level=level, window_log=window_log), blocks, threads)
@@ -344,11 +346,11 @@ def blocked_payload(raw_lens: list[int], frames: list[bytes]) -> bytes:
 
 def compress_section_blocked(data, level: int = 1, window_log: int = 0,
                              threads: int = 0, block_bytes: int = 4 << 20,
-                             engine: str = "zstd") -> bytes:
+                             engine: str = "zstd", *, device="cuda") -> bytes:
     """Compress `data` as independently-framed blocks with an index."""
     return blocked_payload(*compress_frames(data, level=level, window_log=window_log,
                                             threads=threads, block_bytes=block_bytes,
-                                            engine=engine))
+                                            engine=engine, device=device))
 
 
 def parse_blocked_index(payload: bytes):
@@ -403,6 +405,8 @@ def _native_lib():
             fn.argtypes = [p, u64, p, u64, i32, i32]
         lib.naf_zstd_window_log_for.restype = i32
         lib.naf_zstd_window_log_for.argtypes = [i32, i32]
+        lib.naf_zstd_compress_cand_stream.restype = u64
+        lib.naf_zstd_compress_cand_stream.argtypes = [p, u64, u64, u64, p, i32, p, p, u64]
         _native_bound = True
     return lib
 
@@ -495,6 +499,117 @@ def compress_section_parts(parts, level: int = 1, window_log: int = 0,
     parts = [memoryview(p) for p in parts]
     chains = _pool_map(lambda p: compress_part_native(p, level, window_log), parts, threads)
     return stitch_section_frame(chains, [p.nbytes for p in parts], level, window_log)
+
+
+# ---------------------------------------------------------------------------
+# Device match-finder engine: candidates from ops/matchfind.py (the card's
+# kernels, or their plain versions on the CPU), packed by the native
+# candidate serializer into one standard zstd frame.
+# ---------------------------------------------------------------------------
+
+def _device_chain_depth(level: int) -> int:
+    """`-#` -> candidate chain depth proposed per position (the device
+    analog of cfg_for's chain-log ladder, naf_zstd.cpp:852)."""
+    if level <= 2:
+        return 2
+    if level <= 12:
+        return 4
+    if level <= 18:
+        return 8
+    return 16
+
+
+def _device_histories(window_log: int, span: int) -> tuple[int, int]:
+    """(history, anchor history) of the device engine's spans of ``span``
+    bytes: the windowed pass searches ``max(span, min(1 << window_log,
+    64 MiB))`` bytes before a span (``span`` without ``--long``), the
+    anchor pass ``min(1 << window_log, 128 MiB)`` (none without)."""
+    if not window_log:
+        return span, 0
+    return max(span, min(1 << window_log, 64 << 20)), min(1 << window_log, 128 << 20)
+
+
+def compress_section_device(data, level: int = 1, window_log: int = 0, k: int = 0, *,
+                            device="cuda", timing: Optional[dict] = None) -> bytes:
+    """Device-proposed match candidates + host bitstream packing; a
+    magic-stripped frame, the same bytes as naf_tpu's engine.
+
+    The section goes to ``device`` once.  For each ``ops.matchfind.SPAN``
+    (read at call time) of it, the device proposes the k nearest earlier
+    equal-key positions of every position within a sliding history window
+    (``span_candidates``); the span's rows come back to one host buffer
+    (pinned for a card), and ``naf_zstd_compress_cand_stream`` verifies,
+    extends and scores them (repeat offsets included) into the frame's
+    blocks.  ``level`` sets the chain depth (``_device_chain_depth``, unless
+    ``k``); ``window_log`` (``--long``) widens the history and adds the
+    anchor pass (``_device_histories``).  Sections of 2 GiB or more, whose
+    positions int32 cannot hold, go to ``compress_section_native`` (route
+    ``device_engine_host:over_2gib``).  ``timing={}`` receives per span the
+    device ms of each stage (CUDA events; a card only) and the serializer's
+    seconds.  Calls on several threads at once (``compress_frames``'s pool)
+    each make the card current and launch on its current stream.
+    """
+    mv = memoryview(data)
+    if mv.nbytes >= 1 << 31:
+        from ..device import count_route
+
+        count_route("device_engine_host:over_2gib")
+        return compress_section_native(data, level=level, window_log=window_log)
+    import time
+    from contextlib import nullcontext
+
+    import torch
+
+    from ..device import resolve
+    from ..ops import matchfind as MF
+
+    dev = resolve(device)
+    k = k or _device_chain_depth(level)
+    lib = _native_lib()
+    arr = np.frombuffer(mv, np.uint8)
+    n = arr.size
+    cap = n + n // 4 + 4096
+    dst = np.empty(cap, np.uint8)
+    rep = np.array([1, 4, 8], np.uint32)
+    span = MF.SPAN
+    hist, ldm_hist = _device_histories(window_log, span)
+    rep_p = rep.ctypes.data_as(ct.c_void_p)
+    w = 0
+    if n == 0:
+        w = lib.naf_zstd_compress_cand_stream(None, 0, 0, 0, None, k, rep_p,
+                                              dst.ctypes.data_as(ct.c_void_p), cap)
+        if w == 0:
+            raise RuntimeError("device engine buffer overflow")
+    else:
+        cuda = dev.type == "cuda"
+        with torch.cuda.device(dev) if cuda else nullcontext():
+            sec = MF.upload(arr, dev)
+            width = k + (1 if ldm_hist else 0)
+            if cuda:
+                host = torch.empty((min(span, n), width), dtype=torch.int32, pin_memory=True)
+            spans = timing.setdefault("spans", []) if timing is not None else None
+            for lo in range(0, n, span):
+                hi = min(lo + span, n)
+                marks = MF.StageTimer(cuda and spans is not None)
+                cand = MF.span_candidates(sec, lo, hi, k, hist, ldm_hist, marks=marks)
+                if cuda:
+                    cand = host[:hi - lo].copy_(cand, non_blocking=True)
+                    marks.mark("fetch")
+                    torch.cuda.current_stream(dev).synchronize()
+                t0 = time.perf_counter()
+                wrote = lib.naf_zstd_compress_cand_stream(
+                    arr.ctypes.data_as(ct.c_void_p), n, lo, hi,
+                    ct.c_void_p(cand.data_ptr()), width, rep_p,
+                    ct.c_void_p(dst.ctypes.data + w), cap - w)
+                if spans is not None:
+                    spans.append({**marks.ms(), "serialize_s": time.perf_counter() - t0})
+                if wrote == 0:
+                    raise RuntimeError("device engine buffer overflow")
+                w += wrote
+    frame = dst[:w].tobytes()
+    if frame[:4] != ZSTD_FRAME_MAGIC:
+        raise RuntimeError("device engine produced an invalid frame")
+    return frame[4:]
 
 
 # ---------------------------------------------------------------------------

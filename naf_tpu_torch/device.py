@@ -19,7 +19,9 @@ large file) counts ``encode_device:stream`` once, and each of its pieces
 render over a mesh of several blocks counts ``decode_device:ragged:mesh``;
 the multi-process encodes count ``encode_multihost``,
 ``encode_multihost:parts`` or ``encode_multihost:extended``, or
-``multihost_host:<why>`` (``parallel/multihost.py``).
+``multihost_host:<why>`` (``parallel/multihost.py``); the device zstd
+engine counts ``device_engine_host:over_2gib`` for a section it leaves
+to the native engine.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ LAUNCHES: dict[str, int] = {
     "maxscan_i32": 0,
     "compact": 0,
     "compact_dense": 0,
+    "match_keys": 0,
+    "match_chain": 0,
 }
 
 ROUTES: dict[str, int] = {}

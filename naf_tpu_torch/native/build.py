@@ -47,6 +47,8 @@ SIGNATURES = {
                        _P],
     "naf_scan_i32": [_P, _I, _L, _I, _P, _P, _I, _P],
     "naf_compact": [_P, _I, _P, _L, _P, _P, _I, _P],
+    "naf_match_keys": [_P, _L, _L, _I, _P, _P],
+    "naf_match_chain": [_P, _P, _L, _I, _I, _L, _L, _L, _P, _I, _P],
 }
 
 _lib = None

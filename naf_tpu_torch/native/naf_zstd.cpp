@@ -1,8 +1,8 @@
-// naf_tpu_torch's copy of naf_tpu/native/naf_zstd.cpp, without the
-// candidate serializers (naf_zstd_compress_cand_k, _cand, _cand_stream),
-// which serve only naf_tpu's device match-finder engine; everything else
-// is unchanged but two comments that named a checkout path.  native/host.py
-// builds it with naf_native.cpp into the port's one host library.
+// naf_tpu_torch's copy of naf_tpu/native/naf_zstd.cpp, the candidate
+// serializers of the device match-finder engine (naf_zstd_compress_cand_k,
+// _cand, _cand_stream) included; everything is unchanged but two comments
+// that named a checkout path.  native/host.py builds it with naf_native.cpp
+// into the port's one host library.
 //
 // naf_zstd — a from-scratch zstd *encoder* emitting RFC 8878 frames.
 //
@@ -2054,6 +2054,221 @@ uint64_t naf_zstd_compress(const uint8_t *src, uint64_t n,
 }
 
 uint64_t naf_zstd_scratch_bytes(void) { return sizeof(int32_t) << 17; }
+
+// ---------------------------------------------------------------------------
+// candidate-driven variant: the device kernel (ops/matchfind.py) proposes
+// match candidates per position; this serializer verifies, extends, and
+// packs — the host side of the device/host split from SURVEY §7 step 6.
+// cand[p] holds up to K int32 candidate positions (closest-first, -1 = none)
+// when stride K > 1, or one per position when K == 1.
+// ---------------------------------------------------------------------------
+
+// Estimated literal entropy (bits*8 per byte, clamped [8, 64]) of a span —
+// the acceptance price for candidate matches.  Packed DNA nibble-pairs run
+// ~4 bits/byte, so a 5-byte match at a 2^18 offset is a net LOSS vs
+// literals; without this gate the greedy serializer drowns random regions
+// in genuine-but-harmful short matches (16-value alphabet => 4-byte windows
+// recur every ~64 KB by chance).
+static uint32_t lit_entropy_x8(const uint8_t *src, uint64_t lo, uint64_t hi) {
+  uint64_t count[256] = {0};
+  uint64_t n = hi - lo;
+  uint64_t step = n > (1 << 20) ? 16 : 1;    // sample large spans
+  uint64_t total = 0;
+  for (uint64_t i = lo; i < hi; i += step) { count[src[i]]++; total++; }
+  if (total < 64) return 64;
+  double h = 0.0;
+  for (int s = 0; s < 256; s++) {
+    if (!count[s]) continue;
+    double p = (double)count[s] / (double)total;
+    h -= p * std::log2(p);
+  }
+  int v = (int)(h * 8.0 + 0.5);
+  return (uint32_t)(v < 8 ? 8 : v > 64 ? 64 : v);
+}
+
+static uint32_t find_sequences_cand(const uint8_t *src, const int32_t *cand,
+                                    int32_t k_cand, uint64_t cand_lo,
+                                    uint64_t block_start, uint64_t block_end,
+                                    RepState &rs, uint32_t lit_h8,
+                                    Seq *seqs, uint32_t max_seqs,
+                                    uint8_t *literals, uint32_t *lit_total) {
+  uint64_t pos = block_start, anchor = block_start;
+  uint32_t n = 0, lit_n = 0;
+  const uint64_t limit = block_end >= 12 ? block_end - 12 : 0;
+  while (pos < limit && n < max_seqs) {
+    uint32_t rep_d = 0;
+    uint64_t m_rep = best_rep(src, pos, block_end, rs,
+                              (uint32_t)(pos - anchor), &rep_d);
+    if (m_rep * lit_h8 <= 14u * 8u) m_rep = 0;   // rep not worth a sequence
+    uint64_t best = 0;
+    uint32_t off = 0;
+    int64_t best_sc = INT64_MIN;
+    for (int32_t k = 0; k < k_cand; k++) {
+      int64_t c = cand[(pos - cand_lo) * k_cand + k];
+      if (c < 0 || (uint64_t)c >= pos) continue;
+      uint64_t m = extend(src, (uint64_t)c, pos, block_end);
+      if (m < 3) continue;
+      // accept only if the match beats coding its bytes as literals:
+      // ~24-bit sequence overhead + offset extra bits vs m * H(literals)
+      uint32_t ofb = highbit32((uint32_t)(pos - (uint64_t)c) | 1);
+      if (m * lit_h8 <= (24u + ofb) * 8u) continue;
+      // price-aware pick: with deep chains a farther candidate one byte
+      // longer must still beat the near one after offset-bit cost
+      int64_t sc = (int64_t)(m * lit_h8) - (int64_t)(ofb * 8u);
+      if (sc > best_sc) {
+        best_sc = sc;
+        best = m;
+        off = (uint32_t)(pos - (uint64_t)c);
+      }
+    }
+    if (m_rep >= 3 && m_rep + 1 >= best) {
+      uint32_t ll = (uint32_t)(pos - anchor);
+      std::memcpy(literals + lit_n, src + anchor, ll);
+      lit_n += ll;
+      seqs[n].lit_len = ll;
+      seqs[n].match_len = (uint32_t)m_rep;
+      seqs[n].ofv = offset_value(rs, rep_d, ll);
+      n++;
+      pos += m_rep; anchor = pos;
+    } else if (best >= 5) {
+      uint32_t ll = (uint32_t)(pos - anchor);
+      std::memcpy(literals + lit_n, src + anchor, ll);
+      lit_n += ll;
+      seqs[n].lit_len = ll;
+      seqs[n].match_len = (uint32_t)best;
+      seqs[n].ofv = offset_value(rs, off, ll);
+      n++;
+      pos += best; anchor = pos;
+    } else {
+      pos++;
+    }
+  }
+  uint32_t tail = (uint32_t)(block_end - anchor);
+  std::memcpy(literals + lit_n, src + anchor, tail);
+  lit_n += tail;
+  *lit_total = lit_n;
+  return n;
+}
+
+uint64_t naf_zstd_compress_cand_k(const uint8_t *src, uint64_t n,
+                                  const int32_t *cand, int32_t k_cand,
+                                  uint8_t *dst, uint64_t dst_cap) {
+  fse_init_all();
+  uint64_t w = write_frame_header(dst, n);
+  if (n == 0) {
+    dst[w++] = 0x01; dst[w++] = 0x00; dst[w++] = 0x00;
+    return w;
+  }
+  static thread_local Seq seqs[BLOCK_MAX / 3 + 16];
+  static thread_local uint8_t literals[BLOCK_MAX + 16];
+  static thread_local uint8_t body[BLOCK_MAX + (BLOCK_MAX >> 2) + 4096];
+  RepState rs;
+  uint32_t lit_h8 = lit_entropy_x8(src, 0, n);
+  uint64_t pos = 0;
+  while (pos < n) {
+    uint64_t bsz = n - pos < BLOCK_MAX ? n - pos : BLOCK_MAX;
+    int last = (pos + bsz == n) ? 1 : 0;
+    uint32_t lit_n = 0;
+    RepState rs_block = rs;
+    uint32_t n_seqs = find_sequences_cand(src, cand, k_cand, 0,
+                                          pos, pos + bsz,
+                                          rs_block, lit_h8, seqs,
+                                          (uint32_t)(BLOCK_MAX / 3),
+                                          literals, &lit_n);
+    uint64_t bodysz = write_compressed_block(seqs, n_seqs, literals, lit_n,
+                                             bsz, body, sizeof(body));
+    if (w + 3 + (bodysz ? bodysz : bsz) > dst_cap) return 0;
+    if (bodysz) {
+      rs = rs_block;
+      uint32_t hdr = (uint32_t)last | (2u << 1) | ((uint32_t)bodysz << 3);
+      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
+      dst[w++] = (uint8_t)(hdr >> 16);
+      std::memcpy(dst + w, body, bodysz);
+      w += bodysz;
+    } else {
+      uint32_t hdr = (uint32_t)last | ((uint32_t)bsz << 3);
+      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
+      dst[w++] = (uint8_t)(hdr >> 16);
+      std::memcpy(dst + w, src + pos, bsz);
+      w += bsz;
+    }
+    pos += bsz;
+  }
+  return w;
+}
+
+uint64_t naf_zstd_compress_cand(const uint8_t *src, uint64_t n,
+                                const int32_t *cand,
+                                uint8_t *dst, uint64_t dst_cap) {
+  return naf_zstd_compress_cand_k(src, n, cand, 1, dst, dst_cap);
+}
+
+// Chunked candidate serializer: emits the compressed blocks covering
+// [lo, hi) of a single frame over src[0..n).  `cand` holds k_cand ABSOLUTE
+// candidate positions per row for positions [lo, hi) only, so the caller's
+// candidate buffer is span-sized, not input-sized — the bounded-memory
+// contract of `tnaf --engine device` (device proposes per-span, host
+// serializes incrementally).  `rep` is the persistent uint32[3]
+// repeat-offset state carried between calls (reset internally when
+// lo == 0).  Writes the frame header when lo == 0, marks the final block
+// when hi == n; `lo` must be a multiple of the 128 KB block size.
+// Returns bytes written to dst, 0 on overflow / bad arguments.
+uint64_t naf_zstd_compress_cand_stream(const uint8_t *src, uint64_t n,
+                                       uint64_t lo, uint64_t hi,
+                                       const int32_t *cand, int32_t k_cand,
+                                       uint32_t *rep,
+                                       uint8_t *dst, uint64_t dst_cap) {
+  fse_init_all();
+  uint64_t w = 0;
+  if (lo == 0) {
+    if (dst_cap < 32) return 0;
+    w = write_frame_header(dst, n);
+    rep[0] = 1; rep[1] = 4; rep[2] = 8;
+    if (n == 0) {
+      dst[w++] = 0x01; dst[w++] = 0x00; dst[w++] = 0x00;
+      return w;
+    }
+  }
+  if (hi > n || lo >= hi || (lo % BLOCK_MAX) != 0) return 0;
+  static thread_local Seq seqs[BLOCK_MAX / 3 + 16];
+  static thread_local uint8_t literals[BLOCK_MAX + 16];
+  static thread_local uint8_t body[BLOCK_MAX + (BLOCK_MAX >> 2) + 4096];
+  RepState rs;
+  rs.r[0] = rep[0]; rs.r[1] = rep[1]; rs.r[2] = rep[2];
+  uint32_t lit_h8 = lit_entropy_x8(src, lo, hi);
+  uint64_t pos = lo;
+  while (pos < hi) {
+    uint64_t bsz = hi - pos < BLOCK_MAX ? hi - pos : BLOCK_MAX;
+    int last = (pos + bsz == n) ? 1 : 0;
+    uint32_t lit_n = 0;
+    RepState rs_block = rs;
+    uint32_t n_seqs = find_sequences_cand(src, cand, k_cand, lo,
+                                          pos, pos + bsz,
+                                          rs_block, lit_h8, seqs,
+                                          (uint32_t)(BLOCK_MAX / 3),
+                                          literals, &lit_n);
+    uint64_t bodysz = write_compressed_block(seqs, n_seqs, literals, lit_n,
+                                             bsz, body, sizeof(body));
+    if (w + 3 + (bodysz ? bodysz : bsz) > dst_cap) return 0;
+    if (bodysz) {
+      rs = rs_block;
+      uint32_t hdr = (uint32_t)last | (2u << 1) | ((uint32_t)bodysz << 3);
+      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
+      dst[w++] = (uint8_t)(hdr >> 16);
+      std::memcpy(dst + w, body, bodysz);
+      w += bodysz;
+    } else {
+      uint32_t hdr = (uint32_t)last | ((uint32_t)bsz << 3);
+      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
+      dst[w++] = (uint8_t)(hdr >> 16);
+      std::memcpy(dst + w, src + pos, bsz);
+      w += bsz;
+    }
+    pos += bsz;
+  }
+  rep[0] = rs.r[0]; rep[1] = rs.r[1]; rep[2] = rs.r[2];
+  return w;
+}
 
 // ===========================================================================
 // From-scratch zstd DECODER (RFC 8878) — the decode half of the native

@@ -189,20 +189,23 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict], mesh:
     return D, fmt, stats, em, k0, dev
 
 
-def _host(why: str, data: bytes, opts: EncodeOptions):
+def _host(why: str, data: bytes, opts: EncodeOptions, mesh: BlockMesh):
     count_route(f"multihost_host:{why}")
-    return encode(data, opts)
+    return encode(data, opts, device=mesh.devices[0])
 
 
-def _build(fmt, opts, stats, em_np, data: bytes, prebuilt=None):
-    """(archive, whether a quality length mismatch sent it to the host)."""
+def _build(fmt, opts, stats, em_np, data: bytes, mesh: BlockMesh, prebuilt=None):
+    """(archive, whether a quality length mismatch sent it to the host).
+    The device engine (``opts.engine == "device"``) runs on the local
+    mesh's first device."""
     mismatch = []
 
     def fallback():
         mismatch.append(True)
-        return _host("qual_length_mismatch", data, opts)
+        return _host("qual_length_mismatch", data, opts, mesh)
 
-    out = build_two_pass(fmt, opts, stats, em_np, fallback, prebuilt=prebuilt)
+    out = build_two_pass(fmt, opts, stats, em_np, fallback, prebuilt=prebuilt,
+                         device=mesh.devices[0])
     return out, bool(mismatch)
 
 
@@ -217,9 +220,9 @@ def encode_multihost(data: bytes, opts: Optional[EncodeOptions] = None, *,
     try:
         D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=True)
     except _HostFallback as e:
-        return _host(str(e), data, opts)
+        return _host(str(e), data, opts, mesh)
     em_np = [_gather_rows(o, k0, D, dev, traffic) for o in em]
-    out, mismatch = _build(fmt, opts, stats, em_np, data)
+    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh)
     if not mismatch:
         count_route("encode_multihost")
     return out
@@ -292,7 +295,7 @@ def encode_multihost_parts(data: bytes, opts: Optional[EncodeOptions] = None,
     try:
         D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
     except _HostFallback as e:
-        return _host(str(e), data, opts)
+        return _host(str(e), data, opts, mesh)
     fastq = fmt == C.IN_FORMAT_FASTQ
     em_np = _gather_small_rows(em, fastq, k0, D, dev, traffic)
     em = [em[0], em_np[1], *em[2:]]          # the global first codes
@@ -315,7 +318,7 @@ def encode_multihost_parts(data: bytes, opts: Optional[EncodeOptions] = None,
             raise RuntimeError(f"part bytes {sum(qsizes)} != quality size {total_qual}")
         prebuilt["quality"] = Section(uncompressed_size=total_qual,
                                       payload=stitch_section_frame(qchains, qsizes, opts.level))
-    out, mismatch = _build(fmt, opts, stats, em_np, data, prebuilt=prebuilt)
+    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh, prebuilt=prebuilt)
     if not mismatch:
         count_route("encode_multihost:parts")
     return out
@@ -374,7 +377,7 @@ def encode_multihost_extended(data: bytes, opts: Optional[EncodeOptions] = None,
     try:
         D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
     except _HostFallback as e:
-        return _host(str(e), data, opts)
+        return _host(str(e), data, opts, mesh)
     fastq = fmt == C.IN_FORMAT_FASTQ
     em_np = _gather_small_rows(em, fastq, k0, D, dev, traffic)
     em = [em[0], em_np[1], *em[2:]]
@@ -382,7 +385,7 @@ def encode_multihost_extended(data: bytes, opts: Optional[EncodeOptions] = None,
     def frames_of(byts: np.ndarray):
         return compress_frames(byts, level=opts.level, window_log=opts.long_window_log,
                                threads=opts.threads, block_bytes=opts.block_bytes,
-                               engine=opts.engine)
+                               engine=opts.engine, device=mesh.devices[0])
 
     seq, qual = _local_bytes(em, stats, k0, fastq)
     seq_payload, seq_raw = _gather_framed(
@@ -398,7 +401,7 @@ def encode_multihost_extended(data: bytes, opts: Optional[EncodeOptions] = None,
         if qual_raw != total_qual:
             raise RuntimeError(f"framed QUAL bytes {qual_raw} != {total_qual}")
         prebuilt["quality"] = Section(uncompressed_size=total_qual, payload=qual_payload)
-    out, mismatch = _build(fmt, opts, stats, em_np, data, prebuilt=prebuilt)
+    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh, prebuilt=prebuilt)
     if not mismatch:
         count_route("encode_multihost:extended")
     return out

@@ -57,9 +57,9 @@ def _rows(rows, used: int) -> np.ndarray:
     return all_gather([r[:used] for r in rows])
 
 
-def _host_route(reason: str, data: bytes, opts: EncodeOptions):
+def _host_route(reason: str, data: bytes, opts: EncodeOptions, device):
     count_route(f"encode_host:{reason}")
-    return encode(data, opts)
+    return encode(data, opts, device=device)
 
 
 def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="cuda",
@@ -67,8 +67,10 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
     """FASTA or FASTQ encode with the kernels, one block on each device of
     ``mesh``, or one block on ``device`` (the current card by default;
     'cpu', asked for explicitly, runs the plain versions) when no mesh is
-    given; archive bytes equal host ``encode(data, opts)``."""
+    given; archive bytes equal host ``encode(data, opts)``.  The device
+    engine (``opts.engine == "device"``) runs on the mesh's first device."""
     mesh = mesh if mesh is not None else block_mesh(devices=[device])
+    card = mesh.devices[0]
     opts = opts or EncodeOptions()
     fmt, marker = P.detect_format(data)
     if (opts.in_format != C.IN_FORMAT_UNKNOWN and fmt != C.IN_FORMAT_UNKNOWN
@@ -77,14 +79,14 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
             "input format is different from format specified in the command line")
     fastq = fmt == C.IN_FORMAT_FASTQ
     if not fastq and fmt != C.IN_FORMAT_FASTA:
-        return _host_route("not_fasta", data, opts)
+        return _host_route("not_fasta", data, opts, card)
     body = np.frombuffer(data, np.uint8)[marker + 1:]
     if opts.well_formed and not _wf_device_safe(body, fastq):
-        return _host_route("well_formed_unsafe", data, opts)
+        return _host_route("well_formed_unsafe", data, opts, card)
     if fastq:
         mb = make_blocks_fastq(body, mesh.size)
         if mb is None:
-            return _host_route("fastq_irregular", data, opts)
+            return _host_route("fastq_irregular", data, opts, card)
         blocks = mb[0]
     else:
         blocks = make_blocks(body, mesh.size)
@@ -94,7 +96,7 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
 
     def fallback():
         mismatch.append(True)
-        return _host_route("qual_length_mismatch", data, opts)
+        return _host_route("qual_length_mismatch", data, opts, card)
 
     if opts.seq_type >= C.SEQ_TYPE_PROTEIN:
         why = "text_like"
@@ -108,7 +110,7 @@ def encode_device(data: bytes, opts: Optional[EncodeOptions] = None, *, device="
     out = _encode_two_pass(xs, blocks, fmt, opts, fallback)
     if out is not None and not mismatch:
         count_route(f"encode_device:two_pass:{why}")
-    return out if out is not None else _host_route("strict_unexpected", data, opts)
+    return out if out is not None else _host_route("strict_unexpected", data, opts, card)
 
 
 def _encode_fused(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
@@ -127,7 +129,7 @@ def _encode_fused(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
     return None, _stitch_and_build(
         D, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         np.zeros(D, np.int64), parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
-        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
+        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback, device=xs[0].device)
 
 
 def _encode_fused_fastq(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
@@ -145,7 +147,7 @@ def _encode_fused_fastq(xs: list, blocks, fmt: int, opts: EncodeOptions, fallbac
     return None, _stitch_and_build(
         D, fmt, opts, parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
         parsed["qual_bytes"], parsed["n_rec"], parsed["n_runs"], parsed["first_lower"],
-        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback)
+        parsed["longest"], zero_hists, parsed["em_np"], fallback=fallback, device=xs[0].device)
 
 
 def _encode_two_pass(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
@@ -160,16 +162,16 @@ def _encode_two_pass(xs: list, blocks, fmt: int, opts: EncodeOptions, fallback):
     em_np = emit_blocks_sharded(xs, masks, stats, seq_type=opts.seq_type, fastq=fastq,
                                 pack_nibbles=opts.seq_type < C.SEQ_TYPE_PROTEIN)
     del masks
-    return build_two_pass(fmt, opts, stats, em_np, fallback=fallback)
+    return build_two_pass(fmt, opts, stats, em_np, fallback=fallback, device=xs[0].device)
 
 
 def build_two_pass(fmt: int, opts: EncodeOptions, stats: list, em_np: list, fallback,
-                   prebuilt: Optional[dict] = None):
+                   prebuilt: Optional[dict] = None, device="cuda"):
     """``_stitch_and_build`` of the blocks' ``stats_blocks_sharded`` dicts
     and ``emit_blocks_sharded`` rows."""
     cols = [np.asarray([st[k] for st in stats]) for k in STATS_KEYS]
     return _stitch_and_build(len(stats), fmt, opts, *cols, stats[0]["hists"], em_np,
-                             fallback=fallback, prebuilt=prebuilt)
+                             fallback=fallback, prebuilt=prebuilt, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -340,10 +342,10 @@ def parse_fused_fastq(D, scal, outs):
 
 def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
                       n_rec, n_runs, first_lower, longest, hists, em_np,
-                      fallback, prebuilt=None):
+                      fallback, prebuilt=None, device="cuda"):
     """Host carry stitching (O(blocks + records + runs)) + container;
     ``hists`` are the id, comment, sequence and quality histograms of
-    unexpected bytes, each u64[257].
+    unexpected bytes, each u64[257]; ``device`` is the device engine's.
 
     ``prebuilt`` injects ready SEQ/QUAL sections (the multi-process
     compressed-traffic paths: payloads were compressed by the processes
@@ -423,4 +425,4 @@ def _stitch_and_build(D, fmt, opts, counts, id_bytes, com_bytes, qual_bytes,
         unexpected_qual=res.unexpected_qual,
         in_format=fmt,
     )
-    return build_archive(res, opts, stats, prebuilt=prebuilt)
+    return build_archive(res, opts, stats, prebuilt=prebuilt, device=device)

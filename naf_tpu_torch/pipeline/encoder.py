@@ -7,8 +7,10 @@ zstd sections and the container; the device encode
 the same archive bytes.  ``engine="native"`` compresses every section with
 the native entropy engine (``codec.compress_section_native``), a large SEQ
 section in thread-parallel parts stitched into one frame
-(``codec.compress_section_parts``); ``engine="device"`` (naf_tpu's device
-match-finder) is not ported and raises ``NotImplementedError``.
+(``codec.compress_section_parts``); ``engine="device"`` compresses the
+SEQ and QUAL sections with the device match finder
+(``codec.compress_section_device`` on ``device=``) and the metadata
+sections with the native engine, as naf_tpu's does.
 
 Every archive produced here is decodable by the reference `unnaf`.
 """
@@ -21,7 +23,7 @@ from typing import Optional
 import numpy as np
 
 from ..codec import (SectionCompressor, check_engine, compress_section_blocked,
-                     compress_section_native, compress_section_parts)
+                     compress_section_device, compress_section_native, compress_section_parts)
 from ..format import constants as C
 from ..format.container import NafArchive, NafHeader, Section, naf_bytes
 from ..ops.mask import mask_units_from_bytes
@@ -47,7 +49,7 @@ class EncodeOptions:
     threads: int = 0                       # zstd worker threads per section
     extended: bool = False                 # tnaf extended format (blocked SEQ)
     block_bytes: int = 4 << 20             # extended: block size (packed bytes)
-    engine: str = "zstd"                   # "zstd" (library) | "native" (ours)
+    engine: str = "zstd"                   # "zstd" (library) | "native" | "device"
     temp_dir: Optional[str] = None         # spill compressed sections here
     temp_name: str = "tnaf"                # temp file prefix (--name)
     keep_temp_files: bool = False
@@ -82,8 +84,9 @@ def split_lengths(lengths: np.ndarray) -> np.ndarray:
     return out
 
 
-def encode(data: bytes, opts: EncodeOptions) -> tuple[bytes, EncodeStats]:
-    """Compress one FASTA/FASTQ input held in memory into a NAF archive."""
+def encode(data: bytes, opts: EncodeOptions, *, device="cuda") -> tuple[bytes, EncodeStats]:
+    """Compress one FASTA/FASTQ input held in memory into a NAF archive;
+    ``device`` is where ``engine="device"`` proposes match candidates."""
     from ..utils.malloc import tune_for_large_buffers
 
     tune_for_large_buffers()
@@ -122,12 +125,13 @@ def encode(data: bytes, opts: EncodeOptions) -> tuple[bytes, EncodeStats]:
     stats.unexpected_seq = res.unexpected_seq
     stats.unexpected_qual = res.unexpected_qual
 
-    return build_archive(res, opts, stats)
+    return build_archive(res, opts, stats, device=device)
 
 
 def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                   stats: EncodeStats, *,
-                  prebuilt: "Optional[dict]" = None) -> tuple[bytes, EncodeStats]:
+                  prebuilt: "Optional[dict]" = None,
+                  device="cuda") -> tuple[bytes, EncodeStats]:
     """Sections + container from a parse result (host or device produced).
 
     Shared tail of the host pipeline and the device pipeline
@@ -136,6 +140,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
     ``prebuilt`` maps section names to ready ``Section`` objects (the
     multi-process paths of parallel/multihost.py compress SEQ/QUAL on the
     processes that own the blocks and inject the assembled payloads here).
+    ``device`` is read only by ``engine="device"``.
     """
     check_engine(opts.engine)
     is_fastq = stats.in_format == C.IN_FORMAT_FASTQ
@@ -148,7 +153,9 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
     level, threads = opts.level, opts.threads
 
     def compress_bytes(buf, window_log: int = 0) -> Section:
-        if opts.engine == "native":
+        if opts.engine in ("native", "device"):
+            # the device engine takes the SEQ and QUAL payloads; the small
+            # metadata sections go through the native serializer
             mv = memoryview(buf)
             return Section(uncompressed_size=mv.nbytes,
                            payload=compress_section_native(mv, level=level))
@@ -160,8 +167,12 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
         if opts.extended:
             return compress_section_blocked(
                 buf, level=level, window_log=opts.long_window_log,
-                threads=threads, block_bytes=opts.block_bytes, engine=opts.engine)
+                threads=threads, block_bytes=opts.block_bytes, engine=opts.engine,
+                device=device)
         # --long widens the SEQ window only (compressor.c:7-21)
+        if opts.engine == "device":
+            return compress_section_device(buf, level=level, window_log=opts.long_window_log,
+                                           device=device)
         if opts.engine == "native":
             n = memoryview(buf).nbytes
             if threads > 1 and n >= PARTS_MIN_BYTES:
@@ -212,7 +223,12 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                 uncompressed_size=int(res.qual.size),
                 payload=compress_section_blocked(
                     res.qual.tobytes(), level=level, threads=threads,
-                    block_bytes=opts.block_bytes, engine=opts.engine))
+                    block_bytes=opts.block_bytes, engine=opts.engine, device=device))
+        elif opts.engine == "device":
+            jobs["quality"] = lambda: Section(
+                uncompressed_size=int(res.qual.size),
+                payload=compress_section_device(res.qual.tobytes(), level=level,
+                                                device=device))
         else:
             jobs["quality"] = lambda: compress_bytes(res.qual.tobytes())
 

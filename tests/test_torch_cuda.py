@@ -24,7 +24,9 @@ import torch
 from naf_tpu_torch import device as D
 from naf_tpu_torch.format import constants as C
 from naf_tpu_torch.ops import compact as CP
+from naf_tpu_torch.codec import zstd_backend as Z
 from naf_tpu_torch.ops import emit_fused as EF
+from naf_tpu_torch.ops import matchfind as MF
 from naf_tpu_torch.ops import pack as PK
 from naf_tpu_torch.ops import scan_fused as SF
 from naf_tpu_torch.ops import unpack as UP
@@ -33,13 +35,15 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
-                         FASTQ_EMIT_CASES, MASK_PARITY_CASES, SCAN_CARD_CASES, SCAN_CASES,
+                         FASTQ_EMIT_CASES, MASK_PARITY_CASES, MATCH_CHAIN_WINDOWS,
+                         MATCH_KEY_CASES, SCAN_CARD_CASES, SCAN_CASES,
                          SEQ_TYPES, START_STATES, STREAM_CASES, case_change_behind_tile_start,
                          classify_case, compact_case, dense_toggles, emit_case, fasta_big_block,
                          fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads,
-                         mask_parity_input, ragged_fasta, ragged_fastq, reads_fasta, scan_case,
-                         scan_input, sra_fastq, typed_fasta)
+                         mask_parity_input, match_spans, match_window, mixed_fasta, mixed_fastq,
+                         ragged_fasta, ragged_fastq, reads_fasta, scan_case, scan_input,
+                         sra_fastq, typed_fasta)
 
 pytestmark = pytest.mark.cuda
 
@@ -258,11 +262,13 @@ def test_wrappers_launch_on_cuda_tensors(card):
     SF.maxscan_i32(x)
     CP.compact_u8(x, x)
     CP.compact_u8_dense(x, x)
+    sk, order = torch.sort(MF.match_keys(x, x.numel()), stable=True)
+    MF.match_chain(sk, order, 2, 0, x.numel())
     torch.cuda.synchronize()
     assert D.LAUNCHES == {"emit_fasta": 1, "classify_fasta": 1, "pack_4bit": 1,
                           "unpack_4bit": 1, "apply_mask_parity": 1, "emit_fastq": 1,
                           "classify_fastq": 1, "cumsum_i32": 1, "maxscan_i32": 1,
-                          "compact": 1, "compact_dense": 1}
+                          "compact": 1, "compact_dense": 1, "match_keys": 1, "match_chain": 1}
 
 
 @pytest.mark.parametrize("n", [1, 100, SCAN_TILE - 1, SCAN_TILE + 1, 3 * SCAN_TILE + 17,
@@ -465,6 +471,69 @@ def test_stream_engine_many_chunks_on_card(card, name):
         assert D.LAUNCHES["classify_fasta"] >= 1 and D.LAUNCHES["compact_dense"] >= 1
 
 
+# ---- the device zstd engine's kernels (csrc/matchfind.cu) --------------------
+
+@pytest.mark.parametrize("anchor", [False, True])
+@pytest.mark.parametrize("size,cap", [*MATCH_KEY_CASES, (3 << 22, 1 << 24), (1 << 24, 1 << 24)])
+def test_match_keys_kernel_on_card(card, size, cap, anchor):
+    for kind in ("acgt", "random", "equal"):
+        for k in (0, 3):                            # aligned, and 3 bytes past
+            x = _on(match_window(size, size + cap, kind), card, k)
+            assert torch.equal(MF.match_keys_kernel(x, cap, anchor=anchor),
+                               MF.match_keys_plain(x, cap, anchor=anchor))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("kind,size,cap", [*MATCH_CHAIN_WINDOWS, ("acgt", 3 << 22, 1 << 24)])
+def test_match_chain_kernel_on_card(card, kind, size, cap, k):
+    """Every depth over the spans of ``match_spans``, and the anchor pass
+    (stride 8) into the last column of a wider row buffer."""
+    x = _on(match_window(size, k, kind), card)
+    sk, order = torch.sort(MF.match_keys_plain(x, cap), stable=True)
+    for r0, r1 in match_spans(cap):
+        got = MF.match_chain_kernel(sk, order, k, r0, r1, wlo=123_456)
+        assert torch.equal(got, MF.match_chain_plain(sk, order, k, r0, r1, wlo=123_456))
+    sk, order = torch.sort(MF.match_keys_plain(x, cap, anchor=True), stable=True)
+    for r0, r1 in ((0, cap), (3, 29), (cap // 2 + 5, cap - 3)):
+        got = torch.full((r1 - r0, k + 1), 7, dtype=torch.int32, device=card)
+        want = got.clone()
+        MF.match_chain_kernel(sk, order, 1, r0, r1, stride=8, wlo=4096, out=got, col=k)
+        MF.match_chain_plain(sk, order, 1, r0, r1, stride=8, wlo=4096, out=want, col=k)
+        assert torch.equal(got, want)
+
+
+def test_device_engine_on_card(card, monkeypatch):
+    """compress_section_device on the card gives the CPU's frames (which
+    tests/test_torch_matchfind.py holds against naf_tpu's) across spans,
+    levels, --long and the blocked sections' threads, and engine="device"
+    archives equal the CPU's; the kernels launch."""
+    monkeypatch.setattr(MF, "SPAN", 256 << 10)
+    rng = np.random.default_rng(45)
+    unit = rng.integers(0, 256, 9000, dtype=np.uint8)
+    data = np.concatenate([np.tile(unit, 60), rng.integers(0, 16, 900_000, dtype=np.uint8)
+                           * 17]).tobytes()
+    D.reset_counts()
+    for level, wl in ((1, 0), (9, 0), (19, 25)):
+        timing = {}
+        got = Z.compress_section_device(data, level=level, window_log=wl, device=card,
+                                        timing=timing)
+        assert got == Z.compress_section_device(data, level=level, window_log=wl, device="cpu")
+        assert Z.decompress_section(got, len(data)) == data
+        assert len(timing["spans"]) == -(-len(data) // MF.SPAN)
+        assert all(set(sp) == {"keys", "sort", "chain", "fetch", "serialize_s"}
+                   for sp in timing["spans"])
+    assert (Z.compress_section_blocked(data, level=3, threads=4, block_bytes=300_000,
+                                       engine="device", device=card)
+            == Z.compress_section_blocked(data, level=3, threads=4, block_bytes=300_000,
+                                          engine="device", device="cpu"))
+    assert D.LAUNCHES["match_keys"] > 0 and D.LAUNCHES["match_chain"] > 0
+    opts = EncodeOptions(level=5, engine="device")
+    for inp in (mixed_fasta(seed=46, n_rec=10, max_len=200_000),
+                mixed_fastq(seed=47, n_rec=3000)):
+        assert (encode(inp, opts, device=card)[0] == encode(inp, opts, device="cpu")[0]
+                == encode_device(inp, opts, device=card)[0])
+
+
 # ---- the block mesh (parallel/mesh.py) on the card ---------------------------
 
 @pytest.fixture(scope="module")
@@ -510,6 +579,12 @@ def test_every_kernel_on_the_last_card(card, last_card):
     for dense in (False, True):
         out, cnt = CP.compact_kernel(v, keep, dense=dense)
         assert torch.equal(out, want) and int(cnt) == int(want_cnt)
+    w = _on(match_window(70_001, 5), last_card)
+    keys = MF.match_keys_kernel(w, 1 << 17)
+    assert keys.device == last_card and torch.equal(keys, MF.match_keys_plain(w, 1 << 17))
+    sk, order = torch.sort(keys, stable=True)
+    assert torch.equal(MF.match_chain_kernel(sk, order, 4, 1000, 60_000, wlo=7),
+                       MF.match_chain_plain(sk, order, 4, 1000, 60_000, wlo=7))
     assert torch.cuda.current_device() == card.index
 
 

@@ -149,20 +149,17 @@ def test_section_codec_streaming_writes():
 
 @pytest.mark.parametrize("engine", ["native", "device"])
 def test_unported_engines_raise(engine):
-    """Of naf_tpu's own entropy engines only the device match-finder is
-    unported and raises; the native engine is ported and writes naf_tpu's
-    bytes."""
+    """Each of naf_tpu's own entropy engines is ported and writes naf_tpu's
+    bytes (the device match finder here on the CPU); only an engine
+    neither package has raises."""
     data = b">a\nACGT\n"
-    if engine == "native":
-        assert (PCODEC.compress_section_blocked(b"ACGT", engine=engine)
-                == RCODEC.compress_section_blocked(b"ACGT", engine=engine))
-        assert (PENC.encode(data, PENC.EncodeOptions(engine=engine))[0]
-                == RENC.encode(data, RENC.EncodeOptions(engine=engine))[0])
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PCODEC.compress_section_blocked(b"ACGT", engine=engine)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PENC.encode(data, PENC.EncodeOptions(engine=engine))
+    kw = {"device": "cpu"} if engine == "device" else {}
+    assert (PCODEC.compress_section_blocked(b"ACGT", engine=engine, **kw)
+            == RCODEC.compress_section_blocked(b"ACGT", engine=engine))
+    assert (PENC.encode(data, PENC.EncodeOptions(engine=engine), **kw)[0]
+            == RENC.encode(data, RENC.EncodeOptions(engine=engine))[0])
+    with pytest.raises(ValueError, match="unknown engine"):
+        PCODEC.compress_section_blocked(b"ACGT", engine=f"{engine}2")
 
 
 # ---------------------------------------------------------------------------

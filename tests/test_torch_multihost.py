@@ -142,6 +142,33 @@ def test_one_process_host_routes(gloo_world_1):
     assert D.ROUTES == {"multihost_host:fastq_irregular": 1}
 
 
+
+@pytest.mark.parametrize("name", ["giant_fasta", "fastq"])
+def test_one_process_device_engine_matches_naf_tpu(name, gloo_world_1, monkeypatch):
+    """engine="device" on the multi-process encodes: the plain archive
+    (compressed after the gather) and the extended one (each process's
+    frames from the device match finder on its mesh's first device, the
+    CPU here) equal naf_tpu's, with SPAN lowered to 256 KiB in both
+    packages so that the frames cross spans."""
+    from naf_tpu.ops import matchfind as RMF
+    from naf_tpu_torch.ops import matchfind as MF
+
+    monkeypatch.setattr(MF, "SPAN", 256 << 10)
+    monkeypatch.setattr(RMF, "SPAN", 256 << 10)
+    data = (mesh_giant_fasta(n_lines=12_000) if name == "giant_fasta"
+            else mixed_fastq(seed=93, n_rec=3000))
+    kw = {"level": 3, "engine": "device", "block_bytes": 300_000}
+    opts, ref_opts = EncodeOptions(**kw), RENC.EncodeOptions(**kw)
+    mesh = block_mesh(devices=["cpu"] * 4)
+    D.reset_counts()
+    plain = MH.encode_multihost(data, opts, mesh=mesh)[0]
+    assert plain == RMH.encode_multihost(data, ref_opts)[0] == encode(data, opts, device="cpu")[0]
+    ext = MH.encode_multihost_extended(data, opts, mesh=mesh)[0]
+    assert ext == RMH.encode_multihost_extended(data, ref_opts)[0]
+    assert _decode(ext) == _decode(plain) == _decode(encode(data, EncodeOptions())[0])
+    assert D.ROUTES == {"encode_multihost": 1, "encode_multihost:extended": 1}
+
+
 WORKER = r"""
 import datetime, hashlib, io, sys
 import torch.distributed as dist

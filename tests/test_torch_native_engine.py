@@ -2,7 +2,8 @@
 host library) against naf_tpu's.
 
 The cases of naf_tpu's tests/test_native_engine.py that need neither the
-reference binaries nor naf_tpu's device match-finder engine.  The port's
+reference binaries nor the device match-finder engine (whose are in
+test_torch_matchfind.py).  The port's
 ``compress_section_native``, ``compress_part_native`` and
 ``compress_section_parts`` give naf_tpu's bytes on seeded inputs across
 levels, negative levels and ``--long``; its native decoder gives the
@@ -336,11 +337,6 @@ def test_native_engine_ratio_close_to_zstd1():
     assert len(blob_n) < len(blob_z) * 1.10
 
 
-def test_device_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="device match-finder"):
-        PENC.encode(b">a\nACGT\n", PENC.EncodeOptions(engine="device"))
-
-
 def test_streaming_paths_with_native_engine():
     """The buffered native SectionDecompressor keeps the streaming decodes
     and the record ranges byte-identical."""
@@ -437,11 +433,13 @@ def test_tnaf_native_engine_honors_level(tmp_path, monkeypatch):
 
 
 def test_port_native_lib_is_self_contained():
-    """The host library is the port's own build of both sources, and
-    exports no candidate serializer."""
+    """The host library is the port's own build of both sources, with the
+    device engine's candidate serializers."""
     so = host._build()
     assert so is not None and so != rnative._SO
     assert [p.name for p in host.SOURCES] == ["naf_native.cpp", "naf_zstd.cpp"]
     lib = host._load()
     assert hasattr(lib, "naf_zstd_compress_ex") and hasattr(lib, "naf_zstd_decompress")
-    assert not hasattr(lib, "naf_zstd_compress_cand_stream")
+    for name in ("naf_zstd_compress_cand_k", "naf_zstd_compress_cand",
+                 "naf_zstd_compress_cand_stream"):
+        assert hasattr(lib, name), name

@@ -974,3 +974,34 @@ MESH_TWO_PASS_CASES = {
     "sparse_overflow_fastq": (lambda: sra_fastq(np.random.default_rng(85), 420, read_len=40),
                               {}, "encode_device:two_pass:sparse_overflow"),
 }
+
+
+# ---- the match-candidate kernels (csrc/matchfind.cu) ------------------------
+
+#: (window bytes, padded size) of the keys kernel: wraps at an exact size,
+#: zero padding past a ragged one, sizes under one block of the launch and
+#: across several
+MATCH_KEY_CASES = [(16, 16), (17, 24), (1000, 1024), (4096, 4096), (4096 + 5, 8192),
+                   (65_536, 65_536), (70_001, 131_072), (0, 64)]
+#: (kind, window bytes, padded size) of the chain kernel: short runs
+#: (random), equal-key runs far longer than 16 (all-equal bytes; ACGT's 256
+#: keys over 64 Ki positions)
+MATCH_CHAIN_WINDOWS = [("random", 5000, 8192), ("acgt", 65_536, 65_536),
+                       ("equal", 9000, 16_384)]
+
+
+def match_window(n: int, seed: int, kind: str = "acgt") -> np.ndarray:
+    """n window bytes: ACGT, random bytes, or one byte repeated."""
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.full(n, 0xC3, np.uint8)
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    return rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+
+
+def match_spans(cap: int) -> list:
+    """Spans [r0, r1) of a padded window of ``cap`` positions: the whole
+    window, its start, one across the middle, the last rows, one row."""
+    return [(0, cap), (0, 100), (cap // 2 - 77, cap // 2 + 1500), (cap - 9, cap),
+            (cap // 3, cap // 3 + 1)]
