@@ -1461,19 +1461,15 @@ def sections(data: bytes) -> tuple[bytes, bytes]:
     return np.ascontiguousarray(packed).tobytes(), res.qual.tobytes() if fastq else b""
 
 
-def engine_kernel_rows(card: str, seq: bytes, raw: bytes, dev) -> dict:
-    """Phase 9's kernel rows: the keys and chain kernels against their plain
-    versions on the card at a level-19 ``--long 27`` span's shapes: the last
-    span of ``seq`` in its 64 MiB history (a window padded to 2^27
-    positions, depth 16), and the anchor pass (depth 1) over the last span
-    of ``raw`` in its 128 MiB history (a window padded to 2^28 bytes);
-    ``sort_ms`` is ``torch.sort(stable=True)`` of the same keys."""
-    import torch
-
+def engine_windows(seq: bytes, raw: bytes, dev):
+    """Phase 9's two kernel shapes, one at a time: (label, anchor, depth k,
+    section bytes n, span start lo, window start wlo, the window on the
+    card, its padded size cap) of the last span of ``seq`` in its
+    level-19 ``--long 27`` history (positions, depth 16) and of ``raw`` in
+    its anchor history (anchors, depth 1)."""
     from naf_tpu_torch.codec import zstd_backend as Z
     from naf_tpu_torch.ops import matchfind as MF
 
-    rows: dict = {}
     hist, ldm_hist = Z._device_histories(ENGINE_WINDOW_LOG, MF.SPAN)
     depth = Z._device_chain_depth(ENGINE_LEVEL)
     for label, data, hist, anchor, k in (("window", seq, hist, False, depth),
@@ -1485,6 +1481,23 @@ def engine_kernel_rows(card: str, seq: bytes, raw: bytes, dev) -> dict:
         win, cap = sec[wlo:n], MF._pow2(n - wlo)
         if cap != MF._pow2(hist + span):
             raise AssertionError(f"{label}: a window of {n - wlo} bytes pads to {cap}")
+        yield label, anchor, k, n, lo, wlo, win, cap
+        del sec, win
+
+
+def engine_kernel_rows(card: str, seq: bytes, raw: bytes, dev) -> dict:
+    """Phase 9's kernel rows: the keys and chain kernels against their plain
+    versions on the card at a level-19 ``--long 27`` span's shapes: the last
+    span of ``seq`` in its 64 MiB history (a window padded to 2^27
+    positions, depth 16), and the anchor pass (depth 1) over the last span
+    of ``raw`` in its 128 MiB history (a window padded to 2^28 bytes);
+    ``sort_ms`` is ``torch.sort(stable=True)`` of the same keys."""
+    import torch
+
+    from naf_tpu_torch.ops import matchfind as MF
+
+    rows: dict = {}
+    for label, anchor, k, n, lo, wlo, win, cap in engine_windows(seq, raw, dev):
         stride = 8 if anchor else 1
         kkeys = MF.match_keys_kernel(win, cap, anchor=anchor)
         pkeys = MF.match_keys_plain(win, cap, anchor=anchor)
@@ -1534,7 +1547,7 @@ def engine_kernel_rows(card: str, seq: bytes, raw: bytes, dev) -> dict:
             else:
                 rows[name] = row
             torch.cuda.empty_cache()
-        del sec, win, kkeys, sk, order
+        del win, kkeys, sk, order
         torch.cuda.empty_cache()
     return rows
 

@@ -3,7 +3,7 @@
 order given and then in reverse (A B B A).
 
     python3 kernel_ab.py DIR DIR [DIR ...] [--reps 10]
-                         [--only fastq|scans|classify|mask|ragged]
+                         [--only fastq|scans|classify|mask|ragged|match]
 
 Each DIR is the root of a checkout (the directory that holds
 ``naf_tpu_torch/``), for example an older commit unpacked with
@@ -46,7 +46,18 @@ torch's bitwise_xor of chars and toggles, what moving the bytes costs
 without a parity); --only ragged the one-card device decode
 (``fasta_device`` / ``fastq_device``, which both render ragged) of the three
 two-pass inputs' archives, end to end, the best wall seconds of --reps
-calls with the routes and launches of one call.  One JSON line per timing, then the card's name and
+calls with the routes and launches of one call; --only match the device
+engine's two kernels (csrc/matchfind.cu) at chip_smoke.py's phase-9
+shapes (``engine_windows``: the last span of gen_fasta_single(252)'s
+packed SEQ in a window padded to 2^27 positions, depth 16, and its anchor
+pass over the raw FASTA, 2^28 bytes, depth 1), the keys and the chain of
+each (key ``window`` / ``anchor``), the chain also over the span's last
+position alone (``match_chain_one_row_ms``: the pass over order with
+next to no rows) and at depth 1 (``match_chain_k1_ms``), beside
+``torch.sort(stable=True)`` of the same keys (``sort_ms``) and torch's
+``index_copy_`` of the span's [rows, k] int32 rows in the order the chain
+writes them (``rows_scatter_ms``: what scattering them costs without a
+chain).  One JSON line per timing, then the card's name and
 power limit as nvidia-smi gives them.
 """
 
@@ -176,6 +187,39 @@ def child(root: str, what: str, reps: int, only: str | None) -> None:
         print(json.dumps(row), flush=True)
         return
 
+    if only == "match":
+        from naf_tpu_torch.ops import matchfind as MF
+
+        big = bench.gen_fasta_single(252)
+        seq, _ = CS.sections(big)
+        row = {"root": root}
+        for label, anchor, k, n, lo, wlo, win, cap in CS.engine_windows(seq, big, "cuda"):
+            keys = MF.match_keys_kernel(win, cap, anchor=anchor)
+            sk, order = torch.sort(keys, stable=True)
+            stride = 8 if anchor else 1
+            # the span's rows in the order the chain writes them (sorted
+            # entries), what scattering them costs without a chain
+            sel = order[((order + 1) * stride > lo - wlo) & (order * stride < n - wlo)]
+            q = (sel[:, None] * stride + torch.arange(stride, device="cuda")).reshape(-1)
+            q = q[(q >= lo - wlo) & (q < n - wlo)] - (lo - wlo)
+            rows = torch.empty((n - lo, k), dtype=torch.int32, device="cuda")
+            vals = torch.zeros((q.numel(), k), dtype=torch.int32, device="cuda")
+            row[label] = {
+                "window": win.numel(), "cap": cap, "span": [lo - wlo, n - wlo], "k": k,
+                "match_keys_ms": cuda_time(lambda: MF.match_keys_kernel(win, cap, anchor=anchor)),
+                "match_chain_ms": cuda_time(lambda: MF.match_chain_kernel(
+                    sk, order, k, lo - wlo, n - wlo, stride=stride, wlo=wlo)),
+                "match_chain_one_row_ms": cuda_time(lambda: MF.match_chain_kernel(
+                    sk, order, k, n - wlo - 1, n - wlo, stride=stride, wlo=wlo)),
+                "match_chain_k1_ms": cuda_time(lambda: MF.match_chain_kernel(
+                    sk, order, 1, lo - wlo, n - wlo, stride=stride, wlo=wlo)),
+                "rows_scatter_ms": cuda_time(lambda: rows.index_copy_(0, q, vals)),
+                "sort_ms": cuda_time(lambda: torch.sort(keys, stable=True))}
+            del win, keys, sk, order, sel, q, rows, vals
+            torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
+        return
+
     if only == "classify":
         row = {"root": root}
         for key, data, seq_type in (
@@ -272,7 +316,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", choices=("fastq", "scans", "classify", "mask", "ragged"))
+    ap.add_argument("--only", choices=("fastq", "scans", "classify", "mask", "ragged", "match"))
     ap.add_argument("--child", choices=("build", "time"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -1,8 +1,9 @@
-// naf_tpu_torch's copy of naf_tpu/native/naf_zstd.cpp, the candidate
-// serializers of the device match-finder engine (naf_zstd_compress_cand_k,
-// _cand, _cand_stream) included; everything is unchanged but two comments
-// that named a checkout path.  native/host.py builds it with naf_native.cpp
-// into the port's one host library.
+// naf_tpu_torch's copy of naf_tpu/native/naf_zstd.cpp, with the candidate
+// serializer of the device match-finder engine (naf_zstd_compress_cand_stream)
+// but not naf_tpu's whole-input ones (naf_zstd_compress_cand_k, _cand),
+// which nothing in the port calls; everything else is unchanged but two
+// comments that named a checkout path.  native/host.py builds it with
+// naf_native.cpp into the port's one host library.
 //
 // naf_zstd — a from-scratch zstd *encoder* emitting RFC 8878 frames.
 //
@@ -2148,59 +2149,6 @@ static uint32_t find_sequences_cand(const uint8_t *src, const int32_t *cand,
   lit_n += tail;
   *lit_total = lit_n;
   return n;
-}
-
-uint64_t naf_zstd_compress_cand_k(const uint8_t *src, uint64_t n,
-                                  const int32_t *cand, int32_t k_cand,
-                                  uint8_t *dst, uint64_t dst_cap) {
-  fse_init_all();
-  uint64_t w = write_frame_header(dst, n);
-  if (n == 0) {
-    dst[w++] = 0x01; dst[w++] = 0x00; dst[w++] = 0x00;
-    return w;
-  }
-  static thread_local Seq seqs[BLOCK_MAX / 3 + 16];
-  static thread_local uint8_t literals[BLOCK_MAX + 16];
-  static thread_local uint8_t body[BLOCK_MAX + (BLOCK_MAX >> 2) + 4096];
-  RepState rs;
-  uint32_t lit_h8 = lit_entropy_x8(src, 0, n);
-  uint64_t pos = 0;
-  while (pos < n) {
-    uint64_t bsz = n - pos < BLOCK_MAX ? n - pos : BLOCK_MAX;
-    int last = (pos + bsz == n) ? 1 : 0;
-    uint32_t lit_n = 0;
-    RepState rs_block = rs;
-    uint32_t n_seqs = find_sequences_cand(src, cand, k_cand, 0,
-                                          pos, pos + bsz,
-                                          rs_block, lit_h8, seqs,
-                                          (uint32_t)(BLOCK_MAX / 3),
-                                          literals, &lit_n);
-    uint64_t bodysz = write_compressed_block(seqs, n_seqs, literals, lit_n,
-                                             bsz, body, sizeof(body));
-    if (w + 3 + (bodysz ? bodysz : bsz) > dst_cap) return 0;
-    if (bodysz) {
-      rs = rs_block;
-      uint32_t hdr = (uint32_t)last | (2u << 1) | ((uint32_t)bodysz << 3);
-      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
-      dst[w++] = (uint8_t)(hdr >> 16);
-      std::memcpy(dst + w, body, bodysz);
-      w += bodysz;
-    } else {
-      uint32_t hdr = (uint32_t)last | ((uint32_t)bsz << 3);
-      dst[w++] = (uint8_t)hdr; dst[w++] = (uint8_t)(hdr >> 8);
-      dst[w++] = (uint8_t)(hdr >> 16);
-      std::memcpy(dst + w, src + pos, bsz);
-      w += bsz;
-    }
-    pos += bsz;
-  }
-  return w;
-}
-
-uint64_t naf_zstd_compress_cand(const uint8_t *src, uint64_t n,
-                                const int32_t *cand,
-                                uint8_t *dst, uint64_t dst_cap) {
-  return naf_zstd_compress_cand_k(src, n, cand, 1, dst, dst_cap);
 }
 
 // Chunked candidate serializer: emits the compressed blocks covering

@@ -34,9 +34,6 @@ from ..device import LAUNCHES, resolve
 from ..native import build
 from .common import check_1d
 
-#: candidate chain depth proposed per position
-TOP_K = 4
-
 #: serialized span; must be a multiple of the zstd 128 KB block size
 SPAN = 4 << 20
 

@@ -35,6 +35,9 @@ struct alignas(16) uint4 {  // 16-byte aligned, as CUDA's
 struct uint2 {
   uint32_t x, y;
 };
+struct alignas(16) longlong2 {  // 16-byte aligned, as CUDA's
+  long long x, y;
+};
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -43,6 +46,22 @@ constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 0;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+// A small device: one SM that holds two blocks, so a kernel that sizes its
+// grid to the device (a persistent grid) loops over several tiles a block.
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <typename F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 
 #define __global__
 #define __device__
@@ -88,6 +107,7 @@ inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 
 namespace naf_emu {
 

@@ -35,13 +35,14 @@ from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device, fastq_device
 from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from torch_cases import (CLASSIFY_CASES, COMPACT_CARD_CASES, COMPACT_CASES, FASTA_EMIT_CASES,
-                         FASTQ_EMIT_CASES, MASK_PARITY_CASES, MATCH_CHAIN_WINDOWS,
-                         MATCH_KEY_CASES, SCAN_CARD_CASES, SCAN_CASES,
+                         FASTQ_EMIT_CASES, MASK_PARITY_CASES, MATCH_CHAIN_TILE,
+                         MATCH_CHAIN_WINDOWS, MATCH_KEY_CASES, MATCH_KEYS_TILE, SCAN_CARD_CASES, SCAN_CASES,
                          SEQ_TYPES, START_STATES, STREAM_CASES, case_change_behind_tile_start,
                          classify_case, compact_case, dense_toggles, emit_case, fasta_big_block,
                          fasta_start_states, fastq_big_block, fastq_case,
                          fastq_case_change_behind_tile_start, fastq_masked_reads, fastq_reads,
-                         mask_parity_input, match_spans, match_window, mixed_fasta, mixed_fastq,
+                         mask_parity_input, match_sorted_runs, match_spans, match_tile_spans,
+                         match_window, mixed_fasta, mixed_fastq,
                          ragged_fasta, ragged_fastq, reads_fasta, scan_case, scan_input,
                          sra_fastq, typed_fasta)
 
@@ -500,6 +501,47 @@ def test_match_chain_kernel_on_card(card, kind, size, cap, k):
         MF.match_chain_kernel(sk, order, 1, r0, r1, stride=8, wlo=4096, out=got, col=k)
         MF.match_chain_plain(sk, order, 1, r0, r1, stride=8, wlo=4096, out=want, col=k)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("anchor", [False, True])
+@pytest.mark.parametrize("tiles", [2, 130])
+def test_match_keys_tile_edges_on_card(card, anchor, tiles):
+    """src 0-15 bytes past a 16-byte boundary, a size that is no multiple of
+    16 filling its padded size (mode 0 wraps at cap) or padded past it,
+    tiles wholly in the pad; over a few keys tiles and over more tiles than
+    the card holds blocks at once."""
+    size = tiles * MATCH_KEYS_TILE + 21
+    caps = (size + 3, size + 19, 2 * size + 5) if anchor else (size, 2 * size + 5)
+    for cap in caps:
+        cap -= cap % 8 if anchor else 0
+        n = min(size, cap)
+        for off in range(16):
+            x = _on(match_window(n, off, "random"), card, off)
+            assert torch.equal(MF.match_keys_kernel(x, cap, anchor=anchor),
+                               MF.match_keys_plain(x, cap, anchor=anchor))
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("tiles", [2, 700])
+def test_match_chain_tile_edges_on_card(card, shuffled, tiles):
+    """Runs across chain tiles, spans inside one tile or across an edge,
+    tiles with no span entry, order 8 bytes past a 16-byte boundary, at
+    depths 1-16 and in stride 8 into columns of a wider row buffer; over a
+    few tiles and over more than one persistent grid's worth."""
+    sk0, order0 = match_sorted_runs(tiles * MATCH_CHAIN_TILE + 1000, 17, shuffled)
+    for off in (0, 1):
+        sk, order = _on(sk0, card, off), _on(order0, card, off)
+        for k in (1, 2, 5, 8, 16):
+            for r0, r1 in match_tile_spans(sk.numel()):
+                got = MF.match_chain_kernel(sk, order, k, r0, r1, wlo=77)
+                assert torch.equal(got, MF.match_chain_plain(sk, order, k, r0, r1, wlo=77))
+        for k in (1, 3):
+            for r0, r1 in match_tile_spans(sk.numel(), 8):
+                got = torch.full((r1 - r0, k + 4), 7, dtype=torch.int32, device=card)
+                want = got.clone()
+                MF.match_chain_kernel(sk, order, k, r0, r1, stride=8, wlo=4096, out=got, col=2)
+                MF.match_chain_plain(sk, order, k, r0, r1, stride=8, wlo=4096, out=want, col=2)
+                assert torch.equal(got, want)
 
 
 def test_device_engine_on_card(card, monkeypatch):

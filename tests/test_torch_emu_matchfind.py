@@ -2,8 +2,10 @@
 against their plain PyTorch versions (emu_build.py): the keys in both
 modes over ragged window sizes, zero padding and the wrap at the padded
 size, and the chain at depths 1-16 over span edges, runs longer than the
-depth, the anchors' stride of 8 and a column of a wider row buffer.
-Everything is integer: tolerance 0."""
+depth, the anchors' stride of 8 and a column of a wider row buffer; then
+the edges of the kernels' own tiles (every src offset from a 16-byte
+boundary, runs across chain tiles, order 8 bytes off).  Everything is
+integer: tolerance 0."""
 
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 
 from emu_build import emu_library, offset_tensor
 from naf_tpu_torch.ops import matchfind as MF
-from torch_cases import MATCH_CHAIN_WINDOWS, MATCH_KEY_CASES, match_spans, match_window
+from torch_cases import (MATCH_CHAIN_TILE, MATCH_CHAIN_WINDOWS, MATCH_KEY_CASES, MATCH_KEYS_TILE,
+                         match_sorted_runs, match_spans, match_tile_spans, match_window)
 
 
 @pytest.fixture(scope="module")
@@ -78,3 +81,60 @@ def test_match_chain_kernel_anchors_and_columns(emu, kind, size, cap):
         MF.match_chain_kernel(sk, order, 1, r0, r1, stride=8, wlo=4096, out=got, col=4, lib=emu)
         MF.match_chain_plain(sk, order, 1, r0, r1, stride=8, wlo=4096, out=want, col=4)
         assert torch.equal(got, want) and (got[:, :4] == 7).all()
+
+
+@pytest.mark.parametrize("anchor", [False, True])
+def test_match_keys_tile_edges(emu, anchor):
+    """src 0-15 bytes past a 16-byte boundary over three keys tiles and a
+    ragged end: a size that is no multiple of 16 filling its padded size
+    (mode 0 wraps at cap) or padded past it, with a tile wholly in the pad."""
+    t = MATCH_KEYS_TILE
+    size = 2 * t + 21
+    caps = (2 * t + 24, 2 * t + 40, 5 * t) if anchor else (size, 5 * t)
+    for cap in caps:
+        n = min(size, cap)
+        for off in range(16):
+            x = offset_tensor(match_window(n, off, "random"), off)
+            assert torch.equal(MF.match_keys_kernel(x, cap, anchor=anchor, lib=emu),
+                               MF.match_keys_plain(x, cap, anchor=anchor))
+
+
+def _edge_input(shuffled: bool, off: int):
+    sk, order = match_sorted_runs(2 * MATCH_CHAIN_TILE + 1000, 17, shuffled)
+    return offset_tensor(sk, off), offset_tensor(order, off)
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("k", [5, 16, 40])
+def test_match_chain_tile_edges(emu, shuffled, k):
+    """Runs across chain tiles, spans inside one tile or across an edge,
+    tiles with no span entry, order 8 bytes past a 16-byte boundary (its
+    tiles then start one entry early); unshuffled, the rows just past the
+    first edge reach back into the tile before it.  A depth over 32 takes
+    the kernel's columns 32 at a time."""
+    for off in (0, 1):
+        sk, order = _edge_input(shuffled, off)
+        for r0, r1 in match_tile_spans(sk.numel()):
+            got = MF.match_chain_kernel(sk, order, k, r0, r1, wlo=77, lib=emu)
+            assert torch.equal(got, MF.match_chain_plain(sk, order, k, r0, r1, wlo=77))
+            if not shuffled and r0 == MATCH_CHAIN_TILE - 8:
+                e = MATCH_CHAIN_TILE - r0
+                assert got[e, k - 1] == MATCH_CHAIN_TILE - k + 77
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("k", [1, 3])
+def test_match_chain_anchor_columns_tile_edges(emu, shuffled, k):
+    """Stride 8 into columns 2..2+k of a wider row buffer over the same tile
+    edges, spans starting and ending inside an anchor; the other columns
+    keep their values."""
+    for off in (0, 1):
+        sk, order = _edge_input(shuffled, off)
+        for r0, r1 in match_tile_spans(sk.numel(), 8):
+            got = torch.full((r1 - r0, k + 4), 7, dtype=torch.int32)
+            want = got.clone()
+            MF.match_chain_kernel(sk, order, k, r0, r1, stride=8, wlo=4096, out=got, col=2,
+                                  lib=emu)
+            MF.match_chain_plain(sk, order, k, r0, r1, stride=8, wlo=4096, out=want, col=2)
+            assert torch.equal(got, want)
+            assert (got[:, :2] == 7).all() and (got[:, 2 + k:] == 7).all()

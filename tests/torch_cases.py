@@ -1005,3 +1005,38 @@ def match_spans(cap: int) -> list:
     window, its start, one across the middle, the last rows, one row."""
     return [(0, cap), (0, 100), (cap // 2 - 77, cap // 2 + 1500), (cap - 9, cap),
             (cap // 3, cap // 3 + 1)]
+
+
+#: the match kernels' tiles (csrc/matchfind.cu): window bytes a keys block
+#: (KEYS_TILE) and sorted entries a chain tile (CHAIN_TILE)
+MATCH_KEYS_TILE, MATCH_CHAIN_TILE = 8192, 2048
+
+
+def match_sorted_runs(m: int, seed: int, shuffled: bool) -> tuple[np.ndarray, np.ndarray]:
+    """(sk int32, order int64) of the stable sort of m keys made of equal-key
+    runs about 12 long, with a run of 81 across every chain tile edge (and
+    the entry before it, where order is 8 bytes past a 16-byte boundary).
+    Unshuffled, the keys are already sorted, so sorted index i is position
+    i; shuffled, the same runs lie at random positions."""
+    rng = np.random.default_rng(seed)
+    start = rng.random(m) < 1 / 12
+    start[0] = True
+    for e in range(MATCH_CHAIN_TILE, m, MATCH_CHAIN_TILE):
+        start[e - 40:e + 41] = False
+    keys = (np.cumsum(start) - 1).astype(np.int32) * 7919
+    if shuffled:
+        keys = rng.permutation(keys)
+    order = np.argsort(keys, kind="stable")
+    return keys[order], order.astype(np.int64)
+
+
+def match_tile_spans(m: int, stride: int = 1) -> list:
+    """Spans [r0, r1) of m sorted entries of `stride` positions each, in
+    positions: the whole window; one from 8 entries before the first tile
+    edge to 24 after it (a depth of 16 reaches back into the first tile);
+    one that starts and ends inside the second tile (the other tiles have no
+    entry in it, unshuffled); one across the second edge, starting and ending
+    inside an entry; the last 5 positions."""
+    t, s = MATCH_CHAIN_TILE, stride
+    return [(0, m * s), ((t - 8) * s, (t + 24) * s), ((t + 100) * s, (t + 300) * s),
+            ((2 * t - 1) * s + s // 2, (2 * t + 1) * s + s // 2), (m * s - 5, m * s)]
