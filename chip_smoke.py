@@ -65,8 +65,7 @@ Phases, each printing JSON lines:
      and ``untnaf --device`` on gen_fasta_single(128) under
      NAF_TPU_PROFILE=build/profile, one torch.profiler trace a process
      holding a CUDA kernel event of every kernel its run launched, with the
-     device busy share the trace gives beside ``stage_probe.busy_share``'s
-     of the same calls in a process of its own; and the host ``untnaf`` of the
+     device busy share the trace gives; and the host ``untnaf`` of the
      FASTQ archive in this process with the two-thread decompress and with
      the serial loads, in turns.  The traced and profiled processes'
      launches join the CLI path's counts;
@@ -646,9 +645,9 @@ def span_rows(stderr: bytes) -> list:
 def trace_summary(path: str, launches: dict) -> dict:
     """The kernel events by name and the device busy share of one
     torch.profiler trace: kernels, copies and memsets summed over the span
-    of every event, as ``stage_probe.busy_share`` sums them over a call's
-    wall time.  Raises unless every kernel ``launches`` counts has an
-    event."""
+    of every event (overlapping events count twice; the benchmark's
+    ``--trace 1`` takes each card's union).  Raises unless every kernel
+    ``launches`` counts has an event."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     kernels: dict = {}
@@ -670,23 +669,6 @@ def trace_summary(path: str, launches: dict) -> dict:
             "trace_bytes": os.path.getsize(path), "events": len(events),
             "device_busy_s": busy_us / 1e6, "trace_span_s": span_us / 1e6,
             "idle_share": max(0.0, 1 - busy_us / span_us)}
-
-
-#: ``stage_probe.busy_share`` of ``encode_device`` on the FASTA file argv[1]
-#: and of ``fasta_device`` on its archive argv[2], in a process of its own
-#: (in this one, after the earlier phases' profiles, it found no device event)
-_BUSY_SHARE = """import io, json, os, sys
-from stage_probe import busy_share
-from naf_tpu_torch.device import cuda_device
-from naf_tpu_torch.parallel.pipeline import encode_device
-from naf_tpu_torch.pipeline.decoder import Decoder, fasta_device
-from naf_tpu_torch.pipeline.encoder import EncodeOptions
-data, blob = open(sys.argv[1], "rb").read(), open(sys.argv[2], "rb").read()
-dev, o = cuda_device(), EncodeOptions(level=1, threads=os.cpu_count() or 0)
-print(json.dumps({"encode": busy_share(lambda: encode_device(data, o, device=dev)),
-                  "decode": busy_share(lambda: fasta_device(Decoder(io.BytesIO(blob)),
-                                                            device=dev))}))
-"""
 
 
 def stream_routes_ok(routes: dict) -> bool:
@@ -792,8 +774,7 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
     def profiled(src: str, data: bytes) -> dict:
         """``tnaf --device`` and ``untnaf --device`` under
         NAF_TPU_PROFILE=build/profile: one trace a process holding a CUDA
-        kernel event of every kernel its run launched; then
-        ``stage_probe.busy_share`` of the same encode and decode."""
+        kernel event of every kernel its run launched."""
         prof = os.path.join(here, "build", "profile")
         shutil.rmtree(prof, ignore_errors=True)
         out = {}
@@ -811,11 +792,6 @@ def cli_phase(card: str, dev, cases: list, pipe_input: tuple, threshold_input: t
             out[tool] = {"seconds": run["seconds"], "trace": os.path.join("build", "profile",
                                                                           new[0]),
                          **trace_summary(os.path.join(prof, new[0]), run["launches"])}
-        r = subprocess.run([sys.executable, "-c", _BUSY_SHARE, src, path("dev.naf")],
-                           capture_output=True, env=env, cwd=here, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"busy share exited {r.returncode}: {r.stderr[-2000:]!r}")
-        out["stage_probe_busy"] = json.loads(r.stdout.splitlines()[-1])
         return out
 
     def host_fastq_untnaf(archive: str, data: bytes) -> dict:

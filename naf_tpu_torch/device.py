@@ -21,12 +21,15 @@ the multi-process encodes count ``encode_multihost``,
 ``encode_multihost:parts`` or ``encode_multihost:extended``, or
 ``multihost_host:<why>`` (``parallel/multihost.py``); the device zstd
 engine counts ``device_engine_host:over_2gib`` for a section it leaves
-to the native engine.
+to the native engine.  Each route is also the ``route`` field of the
+traced call's root span (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .utils.trace import note_root
 
 LAUNCHES: dict[str, int] = {
     "emit_fasta": 0,
@@ -77,7 +80,9 @@ def cuda_devices() -> list[torch.device]:
 
 
 def count_route(name: str) -> None:
+    """Count a route, and name it on the traced call's root span."""
     ROUTES[name] = ROUTES.get(name, 0) + 1
+    note_root(route=name)
 
 
 def reset_counts() -> None:

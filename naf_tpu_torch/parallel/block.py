@@ -39,7 +39,8 @@ from ..ops.emit_fused import emit_fasta_fused, emit_fastq_fused
 from ..ops.pack import pack_4bit
 from ..ops.scan_fused import scan_fasta_fused, scan_fastq_fused
 from ..ops.tables import device_tables
-from .mesh import all_gather, parities, pmax, psum
+from ..utils.trace import trace_span
+from .mesh import all_gather, fetch, parities, pmax, psum
 
 _GT = ord(">")
 _AT = ord("@")
@@ -78,10 +79,11 @@ def fused_blocks_sharded(xs: list, prevs, siss, parity_base: int, *, seq_type: i
     i32[S], sp_a i32[S]), each tensor on its block's device; scal holds
     ``FASTA_SCALARS``.
     """
-    rs = [emit_fasta_fused(x, int(p), bool(s), seq_type=seq_type)
-          for x, p, s in zip(xs, prevs, siss)]
-    return (_pack_blocks(rs, parity_base), [_scal(r, FASTA_SCALARS) for r in rs],
-            [r["sp_tv"] for r in rs], [r["sp_a"] for r in rs])
+    with trace_span("emit", path="fused"):
+        rs = [emit_fasta_fused(x, int(p), bool(s), seq_type=seq_type)
+              for x, p, s in zip(xs, prevs, siss)]
+        return (_pack_blocks(rs, parity_base), [_scal(r, FASTA_SCALARS) for r in rs],
+                [r["sp_tv"] for r in rs], [r["sp_a"] for r in rs])
 
 
 def fused_blocks_fastq_sharded(xs: list, prevs, parity_base: int, *, seq_type: int) -> tuple:
@@ -91,10 +93,11 @@ def fused_blocks_fastq_sharded(xs: list, prevs, parity_base: int, *, seq_type: i
     Returns per-block lists (packed u8[B'//2+1], qv u8[B'], iv u8[B'], scal
     i32[13], sp_tv, sp_a, sp_b, sp_c i32[S]); scal holds ``FASTQ_SCALARS``.
     """
-    rs = [emit_fastq_fused(x, int(p), seq_type=seq_type) for x, p in zip(xs, prevs)]
-    return (_pack_blocks(rs, parity_base), [r["qv"] for r in rs], [r["iv"] for r in rs],
-            [_scal(r, FASTQ_SCALARS) for r in rs],
-            *([r[k] for r in rs] for k in ("sp_tv", "sp_a", "sp_b", "sp_c")))
+    with trace_span("emit", path="fused"):
+        rs = [emit_fastq_fused(x, int(p), seq_type=seq_type) for x, p in zip(xs, prevs)]
+        return (_pack_blocks(rs, parity_base), [r["qv"] for r in rs], [r["iv"] for r in rs],
+                [_scal(r, FASTQ_SCALARS) for r in rs],
+                *([r[k] for r in rs] for k in ("sp_tv", "sp_a", "sp_b", "sp_c")))
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +252,8 @@ def stats_blocks_sharded(xs: list, prevs, siss, *, seq_type: int, fastq: bool,
                          parity_base: int = 0) -> tuple:
     """Pass 1 over the blocks (``_stats_fn`` with its collectives):
     (per-block stats dicts of ``block_stats``, per-block masks)."""
-    rows, hists, masks = stats_rows(xs, prevs, siss, seq_type=seq_type, fastq=fastq)
+    with trace_span("emit", path="two-pass"):
+        rows, hists, masks = stats_rows(xs, prevs, siss, seq_type=seq_type, fastq=fastq)
     return block_stats(rows, hists, parity_base), masks
 
 
@@ -287,8 +291,8 @@ def _emit_launch(b: torch.Tensor, s: dict, stats: dict, *, seq_type: int, fastq:
 def _emit_fetch(u8: list, i32: list) -> list:
     """One block's pass-2 parts as the one-row ``em_np`` list, fetched as
     one byte buffer and one i32 buffer."""
-    u8_np = torch.cat(u8).cpu().numpy()
-    i32_np = torch.cat([_i32(t) for t in i32]).cpu().numpy()
+    u8_np = fetch(torch.cat(u8)).numpy()
+    i32_np = fetch(torch.cat([_i32(t) for t in i32])).numpy()
     cuts_u8 = np.cumsum([t.numel() for t in u8])[:-1]
     cuts_i32 = np.cumsum([t.numel() for t in i32])[:-1]
     packed_np, first_np, id_np, com_np, qual_np = np.split(u8_np, cuts_u8)
@@ -330,10 +334,13 @@ def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fa
     qual_vals, seq_lens, id_lens, com_lens, qual_lens, run_lens], each
     block fetched as one byte buffer and one i32 buffer holding the used
     prefixes."""
-    launched = [_emit_launch(x, m, st, seq_type=seq_type, fastq=fastq, pack_nibbles=pack_nibbles,
-                             parity_base=int(st["odd"]))
-                for x, m, st in zip(xs, masks, stats)]
-    return _merge_rows([_emit_fetch(*parts) for parts in launched])
+    with trace_span("emit", path="two-pass"):
+        launched = [_emit_launch(x, m, st, seq_type=seq_type, fastq=fastq,
+                                 pack_nibbles=pack_nibbles, parity_base=int(st["odd"]))
+                    for x, m, st in zip(xs, masks, stats)]
+        fetched = [_emit_fetch(*parts) for parts in launched]
+    with trace_span("parse"):
+        return _merge_rows(fetched)
 
 
 # ---------------------------------------------------------------------------
@@ -373,46 +380,47 @@ def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
     before this chunk and whether the chunk resumes mid-record.  Default =
     chunk 0 right after the global marker.
     """
-    n = data.size
-    if n == 0:
-        blocks = np.full((n_blocks, 2), _LF, dtype=np.uint8)
+    with trace_span("split", bytes=data.size):
+        n = data.size
+        if n == 0:
+            blocks = np.full((n_blocks, 2), _LF, dtype=np.uint8)
+            prev = np.full(n_blocks, _LF, dtype=np.uint8)
+            prev[0] = marker if prev0 is None else prev0
+            sis = np.zeros(n_blocks, bool)
+            sis[0] = bool(sis0)
+            return Blocks(blocks, prev, sis)
+
+        # each cut is the first line start at or after its target (n when
+        # there is none), the reference's search over every line start; a
+        # block count of one has no target
+        targets = (np.arange(1, n_blocks) * n) // n_blocks
+        cuts = [0]
+        for t in targets:
+            cut = _line_start_from(data, int(t))
+            if cut > cuts[-1]:
+                cuts.append(cut)
+        while len(cuts) < n_blocks + 1:
+            cuts.append(n)
+        cuts = cuts[: n_blocks + 1]
+        cuts[-1] = n
+
+        B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
+        B += B % 2
+        blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
         prev = np.full(n_blocks, _LF, dtype=np.uint8)
         prev[0] = marker if prev0 is None else prev0
         sis = np.zeros(n_blocks, bool)
-        sis[0] = bool(sis0)
+        sis[0] = bool(sis0) and data[0] != marker
+        for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+            blocks[k, : e - s] = data[s:e]
+            if k > 0:
+                if s > 0:
+                    prev[k] = data[s - 1]
+                else:
+                    prev[k] = prev[0]
+                sis[k] = ((e > s) and data[s] != marker
+                          and (s > 0 or sis[0]))
         return Blocks(blocks, prev, sis)
-
-    # each cut is the first line start at or after its target (n when
-    # there is none), the reference's search over every line start; a
-    # block count of one has no target
-    targets = (np.arange(1, n_blocks) * n) // n_blocks
-    cuts = [0]
-    for t in targets:
-        cut = _line_start_from(data, int(t))
-        if cut > cuts[-1]:
-            cuts.append(cut)
-    while len(cuts) < n_blocks + 1:
-        cuts.append(n)
-    cuts = cuts[: n_blocks + 1]
-    cuts[-1] = n
-
-    B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
-    B += B % 2
-    blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
-    prev = np.full(n_blocks, _LF, dtype=np.uint8)
-    prev[0] = marker if prev0 is None else prev0
-    sis = np.zeros(n_blocks, bool)
-    sis[0] = bool(sis0) and data[0] != marker
-    for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
-        blocks[k, : e - s] = data[s:e]
-        if k > 0:
-            if s > 0:
-                prev[k] = data[s - 1]
-            else:
-                prev[k] = prev[0]
-            sis[k] = ((e > s) and data[s] != marker
-                      and (s > 0 or sis[0]))
-    return Blocks(blocks, prev, sis)
 
 
 def make_blocks_fastq(data: np.ndarray, n_blocks: int):
@@ -425,47 +433,48 @@ def make_blocks_fastq(data: np.ndarray, n_blocks: int):
     routes such inputs to the host parser, which raises the reference's
     message.  ``data`` starts right after the leading '@'.
     """
-    n = data.size
-    if n == 0 or data[-1] != _LF:
-        return None
-    if np.any((data == 11) | (data == 12) | (data == 13)):
-        return None
-    eol = np.flatnonzero(data == _LF)
-    n_lines = eol.size
-    if n_lines % 4 != 0:
-        return None
-    line_start = np.concatenate([[0], eol[:-1] + 1])
-    if np.any(eol == line_start):           # empty line
-        return None
-    if not np.all(data[line_start[2::4]] == ord("+")):
-        return None
-    if n_lines > 4 and not np.all(data[line_start[4::4]] == _AT):
-        return None
+    with trace_span("split", bytes=data.size):
+        n = data.size
+        if n == 0 or data[-1] != _LF:
+            return None
+        if np.any((data == 11) | (data == 12) | (data == 13)):
+            return None
+        eol = np.flatnonzero(data == _LF)
+        n_lines = eol.size
+        if n_lines % 4 != 0:
+            return None
+        line_start = np.concatenate([[0], eol[:-1] + 1])
+        if np.any(eol == line_start):           # empty line
+            return None
+        if not np.all(data[line_start[2::4]] == ord("+")):
+            return None
+        if n_lines > 4 and not np.all(data[line_start[4::4]] == _AT):
+            return None
 
-    rec_starts = line_start[0::4]
-    n_rec = rec_starts.size
-    targets = (np.arange(1, n_blocks) * n) // n_blocks
-    idx = np.searchsorted(rec_starts, targets)
-    cuts = [0]
-    for i in idx:
-        cut = int(rec_starts[i]) if i < rec_starts.size else n
-        if cut > cuts[-1]:
-            cuts.append(cut)
-    while len(cuts) < n_blocks + 1:
-        cuts.append(n)
-    cuts = cuts[: n_blocks + 1]
-    cuts[-1] = n
+        rec_starts = line_start[0::4]
+        n_rec = rec_starts.size
+        targets = (np.arange(1, n_blocks) * n) // n_blocks
+        idx = np.searchsorted(rec_starts, targets)
+        cuts = [0]
+        for i in idx:
+            cut = int(rec_starts[i]) if i < rec_starts.size else n
+            if cut > cuts[-1]:
+                cuts.append(cut)
+        while len(cuts) < n_blocks + 1:
+            cuts.append(n)
+        cuts = cuts[: n_blocks + 1]
+        cuts[-1] = n
 
-    B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
-    B += B % 2
-    blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
-    prev = np.full(n_blocks, _LF, dtype=np.uint8)
-    prev[0] = _AT
-    for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
-        blocks[k, : e - s] = data[s:e]
-        if k > 0 and s > 0:
-            prev[k] = data[s - 1]
-    return Blocks(blocks, prev, np.zeros(n_blocks, bool)), n_rec
+        B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
+        B += B % 2
+        blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
+        prev = np.full(n_blocks, _LF, dtype=np.uint8)
+        prev[0] = _AT
+        for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+            blocks[k, : e - s] = data[s:e]
+            if k > 0 and s > 0:
+                prev[k] = data[s - 1]
+        return Blocks(blocks, prev, np.zeros(n_blocks, bool)), n_rec
 
 
 # ---------------------------------------------------------------------------

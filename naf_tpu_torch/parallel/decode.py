@@ -41,6 +41,8 @@ from ..ops.emit_fused import apply_mask_parity
 from ..ops.render import body_length
 from ..ops.tables import device_tables
 from ..ops.unpack import unpack_4bit
+from ..utils.trace import trace_span
+from .mesh import fetch
 
 MODE_FASTA = 0
 MODE_FASTQ = 1
@@ -82,44 +84,45 @@ def build_plan(*, mode: int, line_len: int, rna: bool, packed: bool,
                ids_blob: Optional[bytes], comments_blob: Optional[bytes],
                name_sep: bytes, mask_spans=None) -> RenderPlan:
     """Precompute the prefix sums and the header blob of a render."""
-    slens = np.asarray(slens, dtype=np.int64)
-    n = slens.size
-    E = np.cumsum(slens)
+    with trace_span("build-plan", records=np.size(slens)):
+        slens = np.asarray(slens, dtype=np.int64)
+        n = slens.size
+        E = np.cumsum(slens)
 
-    lead = b"@" if mode == MODE_FASTQ else b">"
-    cols = [const_column(lead, n)]
-    if ids_blob is not None and comments_blob is not None:
-        idc = split_blob(ids_blob, n)
-        com = split_blob(comments_blob, n, "names")
-        cols += [idc, const_column(name_sep, n, present=com.length > 0), com]
-    elif ids_blob is not None:
-        cols.append(split_blob(ids_blob, n))
-    elif comments_blob is not None:
-        cols.append(split_blob(comments_blob, n, "names"))
-    cols.append(const_column(b"\n", n))
-    hdr = ragged_concat(cols, n)
-    hlens = np.zeros(n, np.int64)
-    for c in cols:
-        hlens += np.broadcast_to(np.asarray(c.length, np.int64), (n,))
-    H = np.cumsum(hlens)
+        lead = b"@" if mode == MODE_FASTQ else b">"
+        cols = [const_column(lead, n)]
+        if ids_blob is not None and comments_blob is not None:
+            idc = split_blob(ids_blob, n)
+            com = split_blob(comments_blob, n, "names")
+            cols += [idc, const_column(name_sep, n, present=com.length > 0), com]
+        elif ids_blob is not None:
+            cols.append(split_blob(ids_blob, n))
+        elif comments_blob is not None:
+            cols.append(split_blob(comments_blob, n, "names"))
+        cols.append(const_column(b"\n", n))
+        hdr = ragged_concat(cols, n)
+        hlens = np.zeros(n, np.int64)
+        for c in cols:
+            hlens += np.broadcast_to(np.asarray(c.length, np.int64), (n,))
+        H = np.cumsum(hlens)
 
-    if mode == MODE_FASTQ:
-        blens = 2 * slens + 4
-    else:
-        blens = body_length(slens, line_len).astype(np.int64)
-    O = np.cumsum(hlens + blens)
+        if mode == MODE_FASTQ:
+            blens = 2 * slens + 4
+        else:
+            blens = body_length(slens, line_len).astype(np.int64)
+        O = np.cumsum(hlens + blens)
 
-    if mask_spans is not None and mask_spans[0].size:
-        starts, ends = mask_spans
-        bounds = np.empty(2 * starts.size, np.int64)
-        bounds[0::2] = starts
-        bounds[1::2] = ends
-    else:
-        bounds = np.zeros(0, np.int64)
+        if mask_spans is not None and mask_spans[0].size:
+            starts, ends = mask_spans
+            bounds = np.empty(2 * starts.size, np.int64)
+            bounds[0::2] = starts
+            bounds[1::2] = ends
+        else:
+            bounds = np.zeros(0, np.int64)
 
-    return RenderPlan(mode=mode, line_len=line_len, rna=rna, packed=packed,
-                      upper=upper, slens=slens, E=E, O=O, H=H, hdr=hdr,
-                      bounds=bounds, total_out=int(O[-1]) if n else 0)
+        return RenderPlan(mode=mode, line_len=line_len, rna=rna, packed=packed,
+                          upper=upper, slens=slens, E=E, O=O, H=H, hdr=hdr,
+                          bounds=bounds, total_out=int(O[-1]) if n else 0)
 
 
 def _groups(plan: RenderPlan):
@@ -194,14 +197,13 @@ def regular_session(plan: RenderPlan, seq_bytes: np.ndarray,
     hlens, slens, starts, ends = _groups(plan)
     L = plan.line_len
     blens = _body_lengths(plan, slens)
-    sb = np.ascontiguousarray(seq_bytes, np.uint8)
-    seq_d = torch.from_numpy(sb.copy()).to(device)
+    sb = np.asarray(seq_bytes, np.uint8)
+    seq_d = _up(sb, device)
     n_chars = 2 * sb.size if plan.packed else sb.size
     bounds = plan.bounds[plan.bounds < n_chars]
-    bounds_d = torch.from_numpy(bounds.astype(np.int64)).to(device) if bounds.size else None
-    hdr_d = torch.from_numpy(np.ascontiguousarray(plan.hdr, np.uint8).copy()).to(device)
-    qual_d = (torch.from_numpy(np.ascontiguousarray(qual, np.uint8).copy()).to(device)
-              if fastq else None)
+    bounds_d = _up(bounds.astype(np.int64, copy=False), device) if bounds.size else None
+    hdr_d = _up(np.asarray(plan.hdr, np.uint8), device)
+    qual_d = _up(np.asarray(qual, np.uint8), device) if fastq else None
     total = plan.total_out
 
     layout = []
@@ -275,7 +277,7 @@ def render_regular(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.nd
     run = regular_session(plan, seq_bytes, qual, device=device)
     if run is None:
         return None
-    return run().cpu().numpy().tobytes()
+    return fetch(run()).numpy().tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +529,9 @@ def split_batch(plan: RenderPlan, bt: RenderBatch, parts: int) -> list[RenderBat
 
 
 def _up(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    """A copy of ``a`` on ``device``: an ``upload`` span."""
+    with trace_span("upload", bytes=a.nbytes):
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
 def ragged_session(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.ndarray] = None,
@@ -573,4 +577,4 @@ def render_batched(plan: RenderPlan, seq_bytes: np.ndarray, qual: Optional[np.nd
     if plan.total_out == 0:
         return b""
     batches, render = ragged_session(plan, seq_bytes, qual, mesh=mesh, out_batch=out_batch)
-    return b"".join(o.cpu().numpy().tobytes() for bt in batches for o in render(bt))
+    return b"".join(fetch(o).numpy().tobytes() for bt in batches for o in render(bt))

@@ -20,7 +20,8 @@ process, on the tensors the blocks left on their devices:
 - ``pmax``: the longest line, over the gathered rows.
 
 Nothing here synchronises a card but the fetch at the end of a gather, so
-the launches of one phase on different cards overlap.
+the launches of one phase on different cards overlap.  Each upload and each
+``fetch`` is a span (``utils/trace.py``) with the bytes it copies.
 ``dryrun_multichip`` is the counterpart of ``__graft_entry__.py``'s.
 """
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import cuda_devices, resolve
+from ..utils.trace import trace_span
 
 
 @dataclass(frozen=True)
@@ -48,7 +50,9 @@ class BlockMesh:
 
     def upload(self, rows: np.ndarray) -> list[torch.Tensor]:
         """Row k of a host array [D, ...] as a tensor on block k's device."""
-        return [torch.from_numpy(np.ascontiguousarray(r)).to(d) for r, d in zip(rows, self.devices)]
+        with trace_span("upload", bytes=rows.nbytes):
+            return [torch.from_numpy(np.ascontiguousarray(r)).to(d)
+                    for r, d in zip(rows, self.devices)]
 
 
 def block_mesh(n_devices: int | None = None, devices=None) -> BlockMesh:
@@ -65,11 +69,18 @@ def block_mesh(n_devices: int | None = None, devices=None) -> BlockMesh:
     return BlockMesh(tuple(devs))
 
 
+def fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the host: a ``fetch`` span, whose time holds the
+    wait for the work queued before the copy."""
+    with trace_span("fetch", bytes=t.numel() * t.element_size()):
+        return t.cpu()
+
+
 def all_gather(values: Sequence[torch.Tensor]) -> np.ndarray:
     """The blocks' tensors (one shape and dtype) stacked in block order on
     the host, with one fetch."""
     dev = values[0].device
-    return torch.stack([v.to(dev) for v in values]).cpu().numpy()
+    return fetch(torch.stack([v.to(dev) for v in values])).numpy()
 
 
 def parities(counts: Sequence[torch.Tensor], base: int) -> list[int]:
@@ -85,7 +96,7 @@ def parities(counts: Sequence[torch.Tensor], base: int) -> list[int]:
 def psum(values: Sequence[torch.Tensor]) -> np.ndarray:
     """The elementwise sum of the blocks' tensors, in int64, with one fetch."""
     dev = values[0].device
-    return torch.stack([v.to(dev, torch.int64) for v in values]).sum(0).cpu().numpy()
+    return fetch(torch.stack([v.to(dev, torch.int64) for v in values]).sum(0)).numpy()
 
 
 def pmax(values: np.ndarray) -> int:

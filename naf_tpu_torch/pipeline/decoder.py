@@ -14,7 +14,9 @@ native library is off.  A FASTQ render that finds neither the sequence nor
 the quality loaded decompresses the two sections on two threads
 (``_load_seq_and_qual``), as the original does.  ``NAF_TPU_TRACE`` times
 the original's three spans here (``utils/trace.py``): ``seq-unzstd``,
-``seq+qual-unzstd`` and ``render``.
+``seq+qual-unzstd`` and ``render``; it also records, silent on stderr, an
+``unzstd`` span a section decompress, and under the ``decode`` root of a
+device output ``build-plan`` and ``device-render``.
 
 ``fasta_device`` and ``fastq_device`` render the sequence (and qualities) on
 the device through ``parallel.decode``: the uniform-group render
@@ -52,7 +54,7 @@ from ..ops.histogram_np import charcount_np, format_charcount
 from ..ops.mask import apply_mask_np, expand_mask_np, merge_units, runs_to_units
 from ..ops.nibble_np import unpack_4bit_np
 from ..ops.render import body_length, wrap_records_np
-from ..utils.trace import trace_span
+from ..utils.trace import bind, trace_span
 
 
 class DecodeError(ValueError):
@@ -251,30 +253,30 @@ class Decoder:
             return decompress_section_blocked(payload, expect)
         return decompress_section(payload, expect)
 
+    def _unzstd_meta(self, name: str) -> bytes:
+        """A metadata section read and decompressed: an ``unzstd`` span."""
+        u, payload = self.r.load_section(name)
+        with trace_span("unzstd", section=name, bytes=u):
+            return decompress_section(payload, u)
+
     def _load_ids(self) -> bytes:
         if self._ids_blob is None:
-            u, payload = self.r.load_section("ids")
-            self._ids_blob = decompress_section(payload, u)
+            self._ids_blob = self._unzstd_meta("ids")
         return self._ids_blob
 
     def _load_comments(self) -> bytes:
         if self._comments_blob is None:
-            u, payload = self.r.load_section("comments")
-            self._comments_blob = decompress_section(payload, u)
+            self._comments_blob = self._unzstd_meta("comments")
         return self._comments_blob
 
     def _load_length_units(self) -> np.ndarray:
         if self._lengths_units is None:
-            u, payload = self.r.load_section("lengths")
-            raw = decompress_section(payload, u)
-            self._lengths_units = np.frombuffer(raw, dtype="<u4")
+            self._lengths_units = np.frombuffer(self._unzstd_meta("lengths"), dtype="<u4")
         return self._lengths_units
 
     def _load_mask_units(self) -> np.ndarray:
         if self._mask_units is None:
-            u, payload = self.r.load_section("mask")
-            raw = decompress_section(payload, u)
-            self._mask_units = np.frombuffer(raw, dtype=np.uint8)
+            self._mask_units = np.frombuffer(self._unzstd_meta("mask"), dtype=np.uint8)
         return self._mask_units
 
     def _load_seq_raw(self) -> tuple[int, np.ndarray]:
@@ -287,10 +289,16 @@ class Decoder:
                 self._seq_raw = np.frombuffer(self._decode_payload(payload, expect), np.uint8)
         return self._total_seq_len, self._seq_raw  # type: ignore[return-value]
 
+    def _unzstd(self, name: str, payload: bytes, expect: int) -> bytes:
+        """``_decode_payload`` of the SEQ or QUAL section ``name``: an
+        ``unzstd`` span."""
+        with trace_span("unzstd", section=name, bytes=expect):
+            return self._decode_payload(payload, expect)
+
     def _load_qual(self) -> np.ndarray:
         if self._qual is None:
             qu, qpayload = self.r.load_section("quality")
-            self._qual = np.frombuffer(self._decode_payload(qpayload, qu), np.uint8)
+            self._qual = np.frombuffer(self._unzstd("quality", qpayload, qu), np.uint8)
         return self._qual
 
     # ---- container-level info ------------------------------------------
@@ -375,8 +383,8 @@ class Decoder:
         expect = (total + 1) // 2 if self.is_nucleotide else total
         with trace_span("seq+qual-unzstd", bytes=expect + qu):
             with ThreadPoolExecutor(2) as ex:
-                f_seq = ex.submit(self._decode_payload, spayload, expect)
-                f_qual = ex.submit(self._decode_payload, qpayload, qu)
+                f_seq = ex.submit(bind(self._unzstd), "sequence", spayload, expect)
+                f_qual = ex.submit(bind(self._unzstd), "quality", qpayload, qu)
                 self._seq_raw = np.frombuffer(f_seq.result(), np.uint8)
                 self._qual = np.frombuffer(f_qual.result(), np.uint8)
 
@@ -913,18 +921,17 @@ def _render(plan, raw, qual, mesh, host) -> bytes:
     reason = DV.decline_reason(plan)
     if mesh.size > 1 and reason != "empty":
         reason = "mesh"
-    elif reason is None:
-        count_route("decode_device")
-        return DV.render_regular(plan, raw, qual, device=mesh.devices[0])
-    if reason not in _RAGGED:
+    if reason is not None and reason not in _RAGGED:
         count_route(f"decode_host:{reason}")
         return host()
     try:
-        out = DV.render_batched(plan, raw, qual, mesh=mesh)
+        with trace_span("device-render", bytes=plan.total_out):
+            out = (DV.render_regular(plan, raw, qual, device=mesh.devices[0]) if reason is None
+                   else DV.render_batched(plan, raw, qual, mesh=mesh))
     except DV.RenderOverflow:
         count_route("decode_host:render_overflow")
         return host()
-    count_route(f"decode_device:ragged:{reason}")
+    count_route("decode_device" if reason is None else f"decode_device:ragged:{reason}")
     return out
 
 
@@ -943,16 +950,17 @@ def fasta_device(decoder: Decoder, masking: Optional[bool] = None, *, device="cu
     from ..device import count_route
 
     mesh = _mesh(device, mesh)
-    if not decoder.h.has_sequence:
-        count_route("decode_host:no_sequence")
-        return b""
-    masking = decoder.masking if masking is None else masking
-    built = decoder._fasta_plan(masking)
-    if built is None:
-        count_route("decode_host:spill_quirk")
-        return decoder.fasta(masking)
-    plan, raw = built
-    return _render(plan, raw, None, mesh, lambda: decoder.fasta(masking))
+    with trace_span("decode"):
+        if not decoder.h.has_sequence:
+            count_route("decode_host:no_sequence")
+            return b""
+        masking = decoder.masking if masking is None else masking
+        built = decoder._fasta_plan(masking)
+        if built is None:
+            count_route("decode_host:spill_quirk")
+            return decoder.fasta(masking)
+        plan, raw = built
+        return _render(plan, raw, None, mesh, lambda: decoder.fasta(masking))
 
 
 def fastq_device(decoder: Decoder, *, device="cuda", mesh=None) -> bytes:
@@ -963,14 +971,15 @@ def fastq_device(decoder: Decoder, *, device="cuda", mesh=None) -> bytes:
     from ..parallel.decode import MODE_FASTQ
 
     mesh = _mesh(device, mesh)
-    if not decoder.h.has_sequence or decoder.r.n_sequences == 0:
-        count_route("decode_host:no_sequence")
-        return b""
-    if not decoder.h.has_quality:
-        raise DecodeError("FASTQ output requested, but input has no qualities")
-    built = decoder._plan(MODE_FASTQ, False)
-    if built is None:
-        count_route("decode_host:spill_quirk")
-        return decoder.fastq()
-    plan, raw = built
-    return _render(plan, raw, decoder._load_qual(), mesh, decoder.fastq)
+    with trace_span("decode"):
+        if not decoder.h.has_sequence or decoder.r.n_sequences == 0:
+            count_route("decode_host:no_sequence")
+            return b""
+        if not decoder.h.has_quality:
+            raise DecodeError("FASTQ output requested, but input has no qualities")
+        built = decoder._plan(MODE_FASTQ, False)
+        if built is None:
+            count_route("decode_host:spill_quirk")
+            return decoder.fastq()
+        plan, raw = built
+        return _render(plan, raw, decoder._load_qual(), mesh, decoder.fastq)

@@ -10,7 +10,10 @@ section in thread-parallel parts stitched into one frame
 (``codec.compress_section_parts``); ``engine="device"`` compresses the
 SEQ and QUAL sections with the device match finder
 (``codec.compress_section_device`` on ``device=``) and the metadata
-sections with the native engine, as naf_tpu's does.
+sections with the native engine, as naf_tpu's does.  ``build_archive``'s
+section compress is a ``sections`` span (``utils/trace.py``) over one
+``zstd`` span a section, on the pool's threads, and the container write a
+``container`` span.
 
 Every archive produced here is decodable by the reference `unnaf`.
 """
@@ -28,6 +31,7 @@ from ..format import constants as C
 from ..format.container import NafArchive, NafHeader, Section, naf_bytes
 from ..ops.mask import mask_units_from_bytes
 from ..ops.nibble_np import pack_4bit_np
+from ..utils.trace import bind, note, trace_span
 from . import parser as P
 
 #: native-engine SEQ payloads at least this large split into thread-parallel
@@ -199,6 +203,9 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                  else mask_units_from_bytes(res.seq))
         jobs["mask"] = lambda: compress_bytes(units.tobytes())
 
+    # the bytes each job hands to zstd, where they are not the section's
+    # uncompressed size (the packed sequence)
+    zstd_in: dict[str, int] = {}
     if text_like:
         seq_bytes = res.seq
         if opts.no_mask:
@@ -213,6 +220,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
             packed, carry = pack_4bit_np(res.seq)
             if carry is not None:
                 packed = np.concatenate([packed, np.asarray([carry], dtype=np.uint8)])
+        zstd_in["sequence"] = packed.nbytes
         jobs["sequence"] = lambda: Section(
             uncompressed_size=int(res.seq.size),
             payload=seq_payload(packed.tobytes()))
@@ -236,16 +244,23 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
         for name, sec in prebuilt.items():
             jobs[name] = (lambda s=sec: s)
 
+    def run(name: str) -> Section:
+        with trace_span("zstd", section=name):
+            sec = jobs[name]()
+            note(bytes=zstd_in.get(name, sec.uncompressed_size), out=sec.compressed_size)
+        return sec
+
     sections: dict[str, Section] = {}
     big = sum(s for s in (res.seq.size, res.qual.size) if s) > (1 << 22)
-    if big and len(jobs) > 1:
-        from concurrent.futures import ThreadPoolExecutor
+    with trace_span("sections"):
+        if big and len(jobs) > 1:
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(min(len(jobs), 4)) as ex:
-            futs = {k: ex.submit(fn) for k, fn in jobs.items()}
-            sections = {k: f.result() for k, f in futs.items()}
-    else:
-        sections = {k: fn() for k, fn in jobs.items()}
+            with ThreadPoolExecutor(min(len(jobs), 4)) as ex:
+                futs = {k: ex.submit(bind(run), k) for k in jobs}
+                sections = {k: f.result() for k, f in futs.items()}
+        else:
+            sections = {k: run(k) for k in jobs}
 
     header = NafHeader(
         format_version=1 if opts.seq_type == C.SEQ_TYPE_DNA else 2,
@@ -266,4 +281,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
         title=opts.title.encode() if opts.title is not None else None,
         sections=sections,
     )
-    return naf_bytes(archive), stats
+    with trace_span("container"):
+        blob = naf_bytes(archive)
+        note(out=len(blob))
+    return blob, stats

@@ -13,8 +13,15 @@ is loaded, and its output equals the input and naf_tpu's
 ``untnaf --device``, the card replaced by the CPU, write one parseable
 torch.profiler trace each and the same bytes as without it; a profiler
 fault ends the CLI with its device error; without ``--device`` the CLIs
-load no torch.  Decoded inputs stay under 2**21 chars, below naf_tpu's
-multithreaded render (F1 in ROADMAP.md).
+load no torch, with the span record on.  The span record: the device
+encode and decode on the CPU record naf_tpu_torch's span tree (names,
+parents, children inside their parents, byte counts equal to the sizes
+copied and stored), spans opened on the section pool's and the two-thread
+decompress's threads name their submitter, nothing is recorded with
+tracing off, the record keeps its last ``CAP`` spans, and under a CPU
+profiler the spans are ranges that name an idle gap.  Decoded inputs stay
+under 2**21 chars, below naf_tpu's multithreaded render (F1 in
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ import torch
 from naf_tpu.pipeline import decoder as RDEC
 from naf_tpu.pipeline import stream as RSTREAM
 from naf_tpu_torch import device as D
+from naf_tpu_torch.format.container import NafReader
+from naf_tpu_torch.parallel import pipeline as PPIPE
+from naf_tpu_torch.parallel.block import (FASTA_SCALARS, fused_blocks_sharded, make_blocks,
+                                          make_blocks_fastq)
 from naf_tpu_torch.pipeline import decoder as PDEC
 from naf_tpu_torch.pipeline import encoder as PENC
 from naf_tpu_torch.pipeline import stream as PSTREAM
@@ -326,7 +337,8 @@ try:
     rc = {tool}.main(sys.argv[2:])
 except SystemExit as e:
     rc = e.code
-from naf_tpu_torch.utils.trace import device_profile
+from naf_tpu_torch.utils.trace import device_profile, spans
+assert spans(), "nothing recorded"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "naf_tpu"))
 assert not bad, bad
 print(rc, file=sys.stderr)
@@ -351,3 +363,219 @@ def test_traced_host_cli_loads_no_torch(tool, args, archives, tmp_path):
     assert r.stderr.splitlines()[-1] == b"0"
     assert b"[naf-trace]" in r.stderr
     assert not (tmp_path / "prof").exists()
+
+
+# ---------------------------------------------------------------------------
+# (f) the span record: the device encode and decode on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def recorded(traced):
+    """Tracing on and the record empty; returns the stderr reader."""
+    trace.clear()
+    yield traced
+    trace.clear()
+
+
+def _checked_tree(spans: list) -> dict:
+    """The spans by id, each child held inside its parent's interval and
+    root."""
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is None:
+            assert s.root == s.id
+            continue
+        p = by_id[s.parent]
+        assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, (p, s)
+        assert s.root == p.root
+    return by_id
+
+
+def _path(s, by_id: dict) -> str:
+    names = [s.name]
+    while s.parent is not None:
+        s = by_id[s.parent]
+        names.append(s.name)
+    return "/".join(reversed(names))
+
+
+def _payload_sizes(blob: bytes) -> dict:
+    """Each section's compressed payload bytes in an archive."""
+    r = NafReader(io.BytesIO(blob))
+    out = {}
+    for key in r._ORDER[1:]:
+        if r._present(key):
+            _, c = r.section_sizes(key)
+            r._skip_ahead(c)
+            out[key] = c
+    return out
+
+
+def _dense_header_fastq(n: int) -> bytes:
+    """Reads whose comments overflow the fused emit's sparse channel."""
+    return b"".join(b"@h%d very long comment line to overflow\nACGT\n+\nIIII\n" % i
+                    for i in range(n))
+
+
+_ENCODE_CASES = {
+    "fasta_fused": (lambda: mixed_fasta(seed=40, n_rec=30), "encode_device",
+                    {"encode", "encode/split", "encode/upload", "encode/emit", "encode/fetch",
+                     "encode/parse", "encode/parse/fetch", "encode/carry", "encode/sections",
+                     "encode/sections/zstd", "encode/container"}),
+    "fastq_two_pass": (lambda: _dense_header_fastq(3000), "encode_device:two_pass:sparse_overflow",
+                       {"encode", "encode/split", "encode/upload", "encode/emit",
+                        "encode/fetch", "encode/emit/fetch", "encode/parse", "encode/carry",
+                        "encode/sections",
+                        "encode/sections/zstd", "encode/container"}),
+}
+
+
+@pytest.mark.parametrize("case", list(_ENCODE_CASES))
+def test_device_encode_records_its_span_tree(case, recorded):
+    make, route, paths = _ENCODE_CASES[case]
+    data = make()
+    blob = PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")[0]
+    spans = trace.spans()
+    assert blob == PENC.encode(data, PENC.EncodeOptions())[0]
+    by_id = _checked_tree(spans)
+    root = spans[-1]
+    assert root.name == "encode" and {s.root for s in spans} == {root.id}
+    assert root.fields == {"bytes": len(data), "blocks": 1, "route": route}
+    assert {_path(s, by_id) for s in spans} == paths
+    # the upload is the block, byte for byte; the fetches count their tensors
+    body = np.frombuffer(data, np.uint8)[1:]
+    blocks = make_blocks_fastq(body, 1)[0] if case.startswith("fastq") else make_blocks(body, 1)
+    assert [s.fields for s in spans if s.name == "upload"] == [{"bytes": blocks.data.nbytes}]
+    assert [s.fields for s in spans if s.name == "split"] == [{"bytes": body.size}]
+    assert all(s.fields["bytes"] > 0 for s in spans if s.name == "fetch")
+    # each section's zstd: its name, and the payload the archive stores
+    zstd = {s.fields["section"]: s.fields for s in spans if s.name == "zstd"}
+    assert {k: f["out"] for k, f in zstd.items()} == _payload_sizes(blob)
+    assert [s.fields for s in spans if s.name == "container"] == [{"out": len(blob)}]
+    assert recorded() == []                # every encode span is silent on stderr
+
+
+def test_fused_fetches_count_the_used_prefixes(recorded):
+    """The fused FASTA path's fetches: the scalars, then the used prefix of
+    the packed row and of the two sparse rows (``parse_fused_fasta``)."""
+    data = mixed_fasta(seed=41, n_rec=25)
+    PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")
+    fetched = [s.fields["bytes"] for s in trace.spans() if s.name == "fetch"]
+    blocks = make_blocks(np.frombuffer(data, np.uint8)[1:], 1)
+    xs = [torch.from_numpy(blocks.data[0].copy())]
+    _, scal_d, _, _ = fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq, 0, seq_type=0)
+    scal = scal_d[0].numpy()
+    cnt, n_sp = int(scal[0]), int(scal[FASTA_SCALARS.index("n_sp")])
+    assert fetched == [4 * len(FASTA_SCALARS), (cnt + 1) // 2 + 1, 4 * n_sp, 4 * n_sp]
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_device_decode_records_its_span_tree(fastq, recorded):
+    data = mixed_fastq(seed=42, n_rec=200) if fastq else mixed_fasta(seed=42, n_rec=30)
+    blob = PENC.encode(data, PENC.EncodeOptions())[0]
+    trace.clear()
+    d = PDEC.Decoder(io.BytesIO(blob))
+    out = PDEC.fastq_device(d, device="cpu") if fastq else PDEC.fasta_device(d, device="cpu")
+    assert [s for s, _ in recorded()] == ["seq-unzstd"]
+    spans = trace.spans()
+    by_id = _checked_tree(spans)
+    root = spans[-1]
+    assert root.name == "decode" and root.fields["route"].startswith("decode_device")
+    assert {s.root for s in spans} == {root.id}
+    under = {_path(s, by_id) for s in spans}
+    assert under == {"decode", "decode/unzstd", "decode/seq-unzstd", "decode/build-plan",
+                     "decode/device-render", "decode/device-render/upload",
+                     "decode/device-render/fetch"}
+    sections = [s.fields["section"] for s in spans if s.name == "unzstd"]
+    sizes = _payload_sizes(blob)
+    # a FASTQ render applies no mask; a FASTA has no quality
+    assert sections == [k for k in ("ids", "comments", "lengths", "mask", "quality")
+                        if k in sizes and k != ("mask" if fastq else "quality")]
+    render = next(s for s in spans if s.name == "device-render")
+    assert render.fields == {"bytes": len(out)}
+    assert sum(s.fields["bytes"] for s in spans if s.name == "fetch") == len(out)
+    plan = next(s for s in spans if s.name == "build-plan")
+    assert plan.fields == {"records": d.r.n_sequences}
+
+
+def test_section_pool_spans_name_their_submitter(recorded):
+    """A section compress on ``build_archive``'s pool names ``sections``,
+    opened on the caller's thread, as its parent."""
+    import threading
+
+    rng = np.random.default_rng(43)
+    lines = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(70_000, 61))
+    lines[:, 60] = ord("\n")
+    PENC.encode(b">big\n" + lines.tobytes(), PENC.EncodeOptions())   # over the pool's 4 MiB
+    spans = trace.spans()
+    _checked_tree(spans)
+    (sections,) = [s for s in spans if s.name == "sections"]
+    zstd = [s for s in spans if s.name == "zstd"]
+    assert len(zstd) == 5 and {s.parent for s in zstd} == {sections.id}
+    assert sections.thread == threading.get_ident()
+    assert all(s.thread != sections.thread for s in zstd)
+
+
+def test_two_thread_decompress_spans_name_their_submitter(recorded):
+    data = mixed_fastq(seed=44, n_rec=300)
+    blob = PENC.encode(data, PENC.EncodeOptions())[0]
+    trace.clear()
+    PDEC.Decoder(io.BytesIO(blob)).fastq()
+    spans = trace.spans()
+    _checked_tree(spans)
+    (both,) = [s for s in spans if s.name == "seq+qual-unzstd"]
+    workers = [s for s in spans if s.parent == both.id]
+    assert sorted(s.fields["section"] for s in workers) == ["quality", "sequence"]
+    assert all(s.name == "unzstd" and s.thread != both.thread for s in workers)
+    assert sum(s.fields["bytes"] for s in workers) == both.fields["bytes"]
+
+
+def test_nothing_recorded_with_tracing_off(monkeypatch, capsys):
+    monkeypatch.setattr(trace, "ENABLED", False)
+    trace.clear()
+    data = mixed_fastq(seed=45, n_rec=100)
+    blob = PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")[0]
+    PDEC.fastq_device(PDEC.Decoder(io.BytesIO(blob)), device="cpu")
+    PDEC.Decoder(io.BytesIO(blob)).fastq()
+    assert trace.spans() == [] and trace.dropped() == 0
+    assert capsys.readouterr().err == ""
+
+
+def test_record_keeps_its_last_spans(recorded):
+    extra = 7
+    for i in range(trace.CAP + extra):
+        with trace.trace_span("x", i=i):
+            pass
+    spans = trace.spans()
+    assert len(spans) == trace.CAP and trace.dropped() == extra
+    assert spans[0].fields == {"i": extra} and spans[-1].fields == {"i": trace.CAP + extra - 1}
+    trace.clear()
+    assert trace.spans() == [] and trace.dropped() == 0
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["untraced", "traced"])
+def test_spans_are_profiler_ranges(on, monkeypatch, tmp_path):
+    """Under a CPU profiler the program's spans are ``user_annotation``
+    ranges inside the benchmark's call range, traced or not, and the
+    benchmark's trace reduction names an idle gap by one of them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from benchmark.devtrace import CALL, reduce
+
+    monkeypatch.setattr(trace, "ENABLED", on)
+    data = mixed_fasta(seed=46, n_rec=20)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(CALL):
+            PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    (call,) = [e for e in ranges if e["name"] == CALL]
+    ours = {"encode", "split", "upload", "emit", "fetch", "parse", "carry", "sections", "zstd",
+            "container"}
+    inside = {e["name"] for e in ranges
+              if call["ts"] <= e["ts"] and e["ts"] + e["dur"] <= call["ts"] + call["dur"]}
+    assert ours - {"zstd"} <= inside          # the pool's zstd spans are on other threads
+    gaps = dict(reduce(events, 1, [0]).idle_gaps)
+    assert set(gaps) & ours
