@@ -1,8 +1,9 @@
 """ctypes bridge to the port's native host runtime (``naf_native.cpp``).
 
 The port's copy of ``naf_tpu/native/__init__.py``: a fused single-pass
-FASTA/FASTQ scanner and a fused decode renderer on the host, in place of
-the numpy implementations in ``pipeline.parser`` and ``ops``, which stay as
+FASTA/FASTQ scanner, a fused decode renderer and the device render plan's
+header lines on the host, in place of the numpy implementations in
+``pipeline.parser``, ``ops`` and ``parallel.decode``, which stay as
 the oracle and as the path without a C++ toolchain.  The same library
 holds the native entropy engine (``naf_zstd.cpp``, an RFC 8878 encoder and
 decoder), which ``codec.zstd_backend`` binds for ``engine="native"``.
@@ -134,6 +135,10 @@ def _load() -> Optional[ct.CDLL]:
             u8p, ct.c_uint64,
             u8p, ct.c_uint64,
             ct.c_uint64, ct.c_uint64]
+        lib.naf_header_lines.restype = ct.c_int64
+        lib.naf_header_lines.argtypes = [
+            u8p, ct.c_uint64, u8p, ct.c_uint64, ct.c_uint64, ct.c_uint8,
+            u8p, ct.c_uint64, u8p, u8p]
         _lib = lib
         return _lib
 
@@ -345,3 +350,30 @@ def render(mode: int, *, seq_data: np.ndarray, total_chars: int,
     if w != exact:
         raise RuntimeError(f"native render size mismatch: wrote {w}, sized {exact}")
     return buf
+
+
+def header_lines(ids_blob: Optional[bytes], comments_blob: Optional[bytes],
+                 n_records: int, marker: bytes, sep: bytes
+                 ) -> Optional[tuple[np.ndarray, np.ndarray]]:
+    """A render plan's header lines in one pass (``naf_header_lines``): the
+    u8 lines and the i64 length of each, or None when a blob given is
+    empty, not 0-terminated or holds fewer items than records
+    (``ops.assemble.split_blob`` names the fault)."""
+    lib = _load()
+    assert lib is not None
+    blobs = [None if b is None else np.frombuffer(b, np.uint8)
+             for b in (ids_blob, comments_blob)]
+    if n_records and any(b is not None and b.size == 0 for b in blobs):
+        return None                       # NULL would read as no blob
+    sep_a = np.frombuffer(sep, np.uint8)
+    cap = sum(b.size for b in blobs if b is not None) + n_records * (2 + sep_a.size)
+    out = np.empty(cap, np.uint8)
+    hlens = np.empty(n_records, np.int64)
+    ids_a, com_a = blobs
+    w = lib.naf_header_lines(
+        _ptr(ids_a), 0 if ids_a is None else ids_a.size,
+        _ptr(com_a), 0 if com_a is None else com_a.size,
+        n_records, marker[0], _ptr(sep_a), sep_a.size, _ptr(out), _ptr(hlens))
+    if w < 0:
+        return None
+    return out[:w], hlens

@@ -1505,6 +1505,43 @@ static void materialize_chars(uint8_t *chars, const uint8_t *seq_data,
   }
 }
 
+// One item of a NUL-separated blob at `p`: its length, with `p` moved past
+// its NUL (one past `end` when no NUL is left, as the reference reads).
+static inline uint64_t next_item(const uint8_t *&p, const uint8_t *end) {
+  uint64_t n = 0;
+  if (p < end) {
+    const void *z = std::memchr(p, 0, (size_t)(end - p));
+    n = (uint64_t)((z ? (const uint8_t *)z : end) - p);
+  }
+  p += n + 1;
+  return n;
+}
+
+// One record's header line into `out`: the marker, the id, the separator
+// and the comment when there are ids and the comment is non-empty (the
+// comment alone without ids), '\n'.  Moves id_p and co_p past the record's
+// items; returns the bytes written.  Both naf_render and naf_header_lines
+// lay out their headers here.
+static inline uint64_t put_header(uint8_t *out, uint8_t marker,
+                                  const uint8_t *&id_p, const uint8_t *id_end,
+                                  const uint8_t *&co_p, const uint8_t *co_end,
+                                  bool has_ids, bool has_com,
+                                  const uint8_t *sep, uint64_t sep_len) {
+  uint64_t w = 0;
+  out[w++] = marker;
+  const uint8_t *cstart = co_p;
+  uint64_t clen = has_com ? next_item(co_p, co_end) : 0;
+  if (has_ids) {
+    const uint8_t *istart = id_p;
+    uint64_t ilen = next_item(id_p, id_end);
+    std::memcpy(out + w, istart, ilen); w += ilen;
+    if (clen && sep_len) { std::memcpy(out + w, sep, sep_len); w += sep_len; }
+  }
+  if (clen) { std::memcpy(out + w, cstart, clen); w += clen; }
+  out[w++] = '\n';
+  return w;
+}
+
 // Renders the full output in one pass.
 //   seq_data: packed nibbles (nuc) or raw chars (text/protein)
 //   total_chars: the container's sequence uncompressed size
@@ -1584,19 +1621,8 @@ uint64_t naf_render(int32_t mode,
 
   auto put = [&](uint8_t c) { out[w++] = c; };
   auto put_name = [&](uint8_t marker) {
-    put(marker);
-    bool has_ids = ids != nullptr, has_com = comments != nullptr;
-    const uint8_t *cstart = co_p;
-    uint64_t clen = 0;
-    if (has_com) { while (co_p < co_end && *co_p) { co_p++; clen++; } co_p++; }
-    if (has_ids) {
-      while (id_p < id_end && *id_p) put(*id_p++);
-      id_p++;
-      if (has_com && clen) { put(name_sep); std::memcpy(out + w, cstart, clen); w += clen; }
-    } else if (has_com) {
-      std::memcpy(out + w, cstart, clen); w += clen;
-    }
-    put('\n');
+    w += put_header(out + w, marker, id_p, id_end, co_p, co_end,
+                    ids != nullptr, comments != nullptr, &name_sep, 1);
   };
 
   uint64_t pos = 0;   // chars consumed
@@ -1690,17 +1716,10 @@ uint64_t naf_render_size(int32_t mode, uint64_t total_chars,
   const uint8_t *id_p = ids, *id_end = ids + ids_len;
   const uint8_t *co_p = comments, *co_end = comments + comments_len;
   bool has_ids = ids != nullptr, has_com = comments != nullptr;
-  auto name_size = [&]() {
-    uint64_t n = 2;  // marker + '\n'
-    uint64_t clen = 0;
-    if (has_com) { while (co_p < co_end && *co_p) { co_p++; clen++; } co_p++; }
-    if (has_ids) {
-      while (id_p < id_end && *id_p) { id_p++; n++; }
-      id_p++;
-      if (has_com && clen) n += 1 + clen;
-    } else if (has_com) {
-      n += clen;
-    }
+  auto name_size = [&]() {   // put_header's length with a 1-byte separator
+    uint64_t clen = has_com ? next_item(co_p, co_end) : 0;
+    uint64_t n = 2 + clen;     // marker + '\n'
+    if (has_ids) n += next_item(id_p, id_end) + (clen ? 1 : 0);
     return n;
   };
 
@@ -1753,6 +1772,34 @@ uint64_t naf_render_size(int32_t mode, uint64_t total_chars,
   }
   if (any_data && pos < total_chars) wrapped_size(total_chars - pos);
   return w;
+}
+
+// The header lines of a render plan (parallel/decode.py:build_plan): one
+// put_header line a record into `out`, each line's length in `hlens`.
+// `out` holds ids_len + comments_len + n_records * (2 + sep_len) bytes.
+// Either blob may be NULL; NULs past the n_records-th are ignored.  Returns
+// the bytes written, or -1 when a blob given is empty, not 0-terminated or
+// holds fewer items than records (the caller names the fault).
+int64_t naf_header_lines(const uint8_t *ids, uint64_t ids_len,
+                         const uint8_t *comments, uint64_t comments_len,
+                         uint64_t n_records, uint8_t marker,
+                         const uint8_t *sep, uint64_t sep_len,
+                         uint8_t *out, int64_t *hlens) {
+  if (n_records == 0) return 0;
+  if ((ids && (ids_len == 0 || ids[ids_len - 1])) ||
+      (comments && (comments_len == 0 || comments[comments_len - 1])))
+    return -1;
+  const uint8_t *id_p = ids, *id_end = ids + ids_len;
+  const uint8_t *co_p = comments, *co_end = comments + comments_len;
+  uint64_t w = 0;
+  for (uint64_t r = 0; r < n_records; r++) {
+    if ((ids && id_p >= id_end) || (comments && co_p >= co_end)) return -1;
+    uint64_t len = put_header(out + w, marker, id_p, id_end, co_p, co_end,
+                              ids != nullptr, comments != nullptr, sep, sep_len);
+    hlens[r] = (int64_t)len;
+    w += len;
+  }
+  return (int64_t)w;
 }
 
 // Fast standalone 4-bit unpack (decoder --seq fast path without mask)

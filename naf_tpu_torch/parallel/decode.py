@@ -35,13 +35,14 @@ import numpy as np
 import torch
 
 from ..format import constants as C
+from ..native import host as native
 from ..ops import scan as S
 from ..ops.assemble import const_column, ragged_concat, split_blob
 from ..ops.emit_fused import apply_mask_parity
 from ..ops.render import body_length
 from ..ops.tables import device_tables
 from ..ops.unpack import unpack_4bit
-from ..utils.trace import trace_span
+from ..utils.trace import note, trace_span
 from .mesh import fetch
 
 MODE_FASTA = 0
@@ -79,31 +80,48 @@ class RenderPlan:
     total_out: int
 
 
+def _header_lines_np(lead: bytes, ids_blob: Optional[bytes],
+                     comments_blob: Optional[bytes], name_sep: bytes, n: int):
+    """(u8 header lines, i64 line lengths): ``lead``, the id, ``name_sep``
+    and the comment where the comment is non-empty, ``\\n``, a record."""
+    cols = [const_column(lead, n)]
+    if ids_blob is not None and comments_blob is not None:
+        idc = split_blob(ids_blob, n)
+        com = split_blob(comments_blob, n, "names")
+        cols += [idc, const_column(name_sep, n, present=com.length > 0), com]
+    elif ids_blob is not None:
+        cols.append(split_blob(ids_blob, n))
+    elif comments_blob is not None:
+        cols.append(split_blob(comments_blob, n, "names"))
+    cols.append(const_column(b"\n", n))
+    hlens = np.zeros(n, np.int64)
+    for c in cols:
+        hlens += np.broadcast_to(np.asarray(c.length, np.int64), (n,))
+    return ragged_concat(cols, n), hlens
+
+
 def build_plan(*, mode: int, line_len: int, rna: bool, packed: bool,
                upper: bool, slens: np.ndarray,
                ids_blob: Optional[bytes], comments_blob: Optional[bytes],
                name_sep: bytes, mask_spans=None) -> RenderPlan:
-    """Precompute the prefix sums and the header blob of a render."""
+    """Precompute the prefix sums and the header blob of a render.  The
+    header lines come from one pass of the host library
+    (``native.header_lines``), or from the numpy columns without it; the
+    ``build-plan`` span's ``headers`` field says which."""
     with trace_span("build-plan", records=np.size(slens)):
         slens = np.asarray(slens, dtype=np.int64)
         n = slens.size
         E = np.cumsum(slens)
 
         lead = b"@" if mode == MODE_FASTQ else b">"
-        cols = [const_column(lead, n)]
-        if ids_blob is not None and comments_blob is not None:
-            idc = split_blob(ids_blob, n)
-            com = split_blob(comments_blob, n, "names")
-            cols += [idc, const_column(name_sep, n, present=com.length > 0), com]
-        elif ids_blob is not None:
-            cols.append(split_blob(ids_blob, n))
-        elif comments_blob is not None:
-            cols.append(split_blob(comments_blob, n, "names"))
-        cols.append(const_column(b"\n", n))
-        hdr = ragged_concat(cols, n)
-        hlens = np.zeros(n, np.int64)
-        for c in cols:
-            hlens += np.broadcast_to(np.asarray(c.length, np.int64), (n,))
+        got = (native.header_lines(ids_blob, comments_blob, n, lead, name_sep)
+               if native.available() else None)
+        if got is not None:
+            (hdr, hlens), headers = got, "native"
+        else:       # no library, or a corrupt blob, which split_blob names
+            hdr, hlens = _header_lines_np(lead, ids_blob, comments_blob, name_sep, n)
+            headers = "numpy"
+        note(headers=headers, bytes=hdr.size)
         H = np.cumsum(hlens)
 
         if mode == MODE_FASTQ:

@@ -367,8 +367,16 @@ def test_long_render_keeps_its_tail():
 # build_plan and the numpy helpers
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(params=["native", "numpy"])
+def headers(request, monkeypatch):
+    """build_plan's header lines by the native pass or by the numpy path."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    return request.param
+
+
 @pytest.mark.parametrize("mode", [0, 1])
-def test_build_plan_matches(mode):
+def test_build_plan_matches(mode, headers):
     rng = np.random.default_rng(43)
     n = 50
     slens = rng.integers(0, 300, size=n)
@@ -386,6 +394,76 @@ def test_build_plan_matches(mode):
             assert (np.array_equal(w, v) if isinstance(v, np.ndarray) else w == v), k
     assert (PDV.MODE_FASTA, PDV.MODE_FASTQ, PDV.OUT_BATCH, PDV._REG_MAX_GROUPS) == \
         (RDV.MODE_FASTA, RDV.MODE_FASTQ, RDV.OUT_BATCH, RDV._REG_MAX_GROUPS)
+
+
+def _sra_deflines(n: int) -> tuple[bytes, bytes]:
+    """``fastq-dump``'s ids and comments (the sra-novaseq-150 shape)."""
+    rng = np.random.default_rng(47)
+    xy = rng.integers(1000, 40000, size=(n, 2))
+    tiles = rng.integers(1101, 2679, size=n)
+    ids = b"".join(b"SRR6821753.%d\0" % (i + 1) for i in range(n))
+    com = b"".join(b"A00123:8:H5KJ3DSXX:1:%d:%d:%d length=150\0" % (t, x, y)
+                   for t, (x, y) in zip(tiles, xy))
+    return ids, com
+
+
+_HEADER_CASES = {
+    "ids_and_comments": (b"a\0bb\0ccc\0", b"x\0\0zz z\0", 3),
+    "ids_only": (b"a\0bb\0ccc\0", None, 3),
+    "comments_only": (None, b"x\0\0zz z\0", 3),
+    "neither": (None, None, 3),
+    "empty_ids": (b"\0\0r3\0", b"c1\0c2\0\0", 3),
+    "zero_records": (b"", b"", 0),
+    "more_nuls_than_records": (b"a\0b\0c\0d\0", b"1\0\0\02\0\0", 2),
+    "sra_2000": (*_sra_deflines(2000), 2000),
+}
+
+_CORRUPT_CASES = {
+    "ids_empty": (b"", b"c\0", 1, "corrupted ids - not 0-terminated"),
+    "ids_unterminated": (b"a\0b", b"c\0d\0", 2, "corrupted ids - not 0-terminated"),
+    "ids_too_few": (b"a\0", b"c\0d\0", 2, "corrupted ids - can't read id 1"),
+    "comments_empty": (b"a\0", b"", 1, "corrupted names - not 0-terminated"),
+    "comments_unterminated": (None, b"c\0d", 2, "corrupted names - not 0-terminated"),
+    "comments_too_few": (b"a\0b\0c\0", b"c\0\0", 3, "corrupted names - can't read name 2"),
+    "both_bad": (b"a\0", b"c", 2, "corrupted ids - can't read id 1"),
+}
+
+
+def _header_plan(ids, com, n, mode=1, sep=b" "):
+    return PDV.build_plan(mode=mode, line_len=60, rna=False, packed=True, upper=False,
+                          slens=np.full(n, 5, np.int64), ids_blob=ids, comments_blob=com,
+                          name_sep=sep)
+
+
+@pytest.mark.parametrize("case", list(_HEADER_CASES))
+def test_build_plan_header_edges(case, headers):
+    """The header lines and their lengths, by either path, against the
+    columns' ``ragged_concat``; FASTA's marker and a two-byte separator on
+    the defline shape."""
+    ids, com, n = _HEADER_CASES[case]
+    for mode, lead, sep in ((1, b"@", b" "), (0, b">", b"\xc3\x88")):
+        plan = _header_plan(ids, com, n, mode, sep)
+        cols = [PASM.const_column(lead, n)]
+        if ids is not None and com is not None:
+            idc, cc = PASM.split_blob(ids, n), PASM.split_blob(com, n, "names")
+            cols += [idc, PASM.const_column(sep, n, present=cc.length > 0), cc]
+        elif ids is not None or com is not None:
+            cols.append(PASM.split_blob(ids if ids is not None else com, n))
+        cols.append(PASM.const_column(b"\n", n))
+        want = PASM.ragged_concat(cols, n)
+        assert plan.hdr.dtype == np.uint8 and plan.hdr.tobytes() == want.tobytes()
+        assert np.array_equal(np.diff(plan.H, prepend=0), sum(c.length for c in cols))
+        if case == "sra_2000" and mode == 1:
+            assert plan.hdr.tobytes().split(b"\n")[0] == \
+                b"@SRR6821753.1 " + com[:com.index(b"\0")]
+
+
+@pytest.mark.parametrize("case", list(_CORRUPT_CASES))
+def test_build_plan_corrupt_blobs(case, headers):
+    ids, com, n, msg = _CORRUPT_CASES[case]
+    with pytest.raises(ValueError) as got:
+        _header_plan(ids, com, n)
+    assert str(got.value) == msg
 
 
 def test_numpy_helpers_match():

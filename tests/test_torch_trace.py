@@ -495,8 +495,32 @@ def test_device_decode_records_its_span_tree(fastq, recorded):
     render = next(s for s in spans if s.name == "device-render")
     assert render.fields == {"bytes": len(out)}
     assert sum(s.fields["bytes"] for s in spans if s.name == "fetch") == len(out)
+    # the header lines the plan laid out: each record's first line
+    n = d.r.n_sequences
+    lines = out.split(b"\n")
+    heads = lines[0:4 * n:4] if fastq else [x for x in lines if x.startswith(b">")]
     plan = next(s for s in spans if s.name == "build-plan")
-    assert plan.fields == {"records": d.r.n_sequences}
+    assert plan.fields == {"records": n, "headers": "native",
+                           "bytes": sum(len(x) + 1 for x in heads)}
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_build_plan_names_its_header_path(path, recorded, monkeypatch):
+    from naf_tpu_torch.native import host as native
+    from naf_tpu_torch.parallel import decode as PDV
+
+    if path == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    n = 300
+    plan = PDV.build_plan(mode=PDV.MODE_FASTQ, line_len=0, rna=False, packed=True,
+                          upper=False, slens=np.full(n, 7, np.int64),
+                          ids_blob=b"".join(b"r%d\0" % i for i in range(n)),
+                          comments_blob=b"".join(b"c%d\0" % (i % 3) for i in range(n)),
+                          name_sep=b" ")
+    (span,) = trace.spans()
+    assert span.name == "build-plan"
+    assert span.fields == {"records": n, "headers": path, "bytes": plan.hdr.size}
+    assert plan.hdr.size > 0 and recorded() == []
 
 
 def test_section_pool_spans_name_their_submitter(recorded):
