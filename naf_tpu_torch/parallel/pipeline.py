@@ -25,8 +25,9 @@ FASTQ off the regular 4-line grid, ``--strict`` with unexpected characters
 length differs from its sequence length (likewise).  Under ``NAF_TPU_TRACE``
 a call is an ``encode`` span, the route its ``route`` field, over the
 spans of its stages (``split``, ``upload``, ``emit``, ``fetch``,
-``parse``, ``carry``, then ``build_archive``'s ``sections`` and
-``container``).
+``parse`` with the fused parses' host decode of the sparse channel,
+``sparse``, inside it, ``carry``, then ``build_archive``'s ``sections``
+and ``container``).
 
 The host helpers below are jax-free copies of the reference's
 (``_wf_device_safe``, ``_pad2d``, ``parse_fused_fasta``,
@@ -46,7 +47,7 @@ from ..ops.mask import runs_to_units
 from ..ops.tables_np import NUC_CODE
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, build_archive, encode
-from ..utils.trace import trace_span
+from ..utils.trace import note, trace_span
 from .block import (STATS_KEYS, blob_from_lens, emit_blocks_sharded, fused_blocks_fastq_sharded,
                     fused_blocks_sharded, make_blocks, make_blocks_fastq, stats_blocks_sharded,
                     stitch_lengths, stitch_packed, stitch_runs)
@@ -245,38 +246,40 @@ def parse_fused_fasta(D, scal, packed_d, tv_d, a_d):
         av = _rows(a_d, m_sp)
 
         # host-side sparse parse: O(records + runs + header bytes)
-        id_vals_l, com_vals_l = [], []
-        seq_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], []
-        n_rec = np.zeros(D, np.int64)
-        n_runs = np.zeros(D, np.int64)
-        for k in range(D):
-            t = tv[k, :n_sp[k]] >> 8
-            v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
-            a = av[k, :n_sp[k]].astype(np.int64)
-            id_vals_l.append(v[t == 0])
-            com_vals_l.append(v[t == 1])
-            rec = t == 2
-            n_rec[k] = int(rec.sum())
-            bounds = np.concatenate([[0], a[rec], [cnt_seq[k]]])
-            seq_lens_l.append(np.diff(bounds))
-            at = np.flatnonzero(rec)
-            for tag, sink in ((0, id_lens_l), (1, com_lens_l)):
-                c = np.cumsum(t == tag)
-                mid = c[at] if at.size else np.zeros(0, np.int64)
-                sink.append(np.diff(np.concatenate(
-                    [[0], mid, [int((t == tag).sum())]])))
-            j = a[t == 3]
-            run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
-                              if counts[k] > 0 else np.zeros(0, np.int64))
-            n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
+        with trace_span("sparse", entries=int(n_sp.sum())):
+            id_vals_l, com_vals_l = [], []
+            seq_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], []
+            n_rec = np.zeros(D, np.int64)
+            n_runs = np.zeros(D, np.int64)
+            for k in range(D):
+                t = tv[k, :n_sp[k]] >> 8
+                v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
+                a = av[k, :n_sp[k]].astype(np.int64)
+                id_vals_l.append(v[t == 0])
+                com_vals_l.append(v[t == 1])
+                rec = t == 2
+                n_rec[k] = int(rec.sum())
+                bounds = np.concatenate([[0], a[rec], [cnt_seq[k]]])
+                seq_lens_l.append(np.diff(bounds))
+                at = np.flatnonzero(rec)
+                for tag, sink in ((0, id_lens_l), (1, com_lens_l)):
+                    c = np.cumsum(t == tag)
+                    mid = c[at] if at.size else np.zeros(0, np.int64)
+                    sink.append(np.diff(np.concatenate(
+                        [[0], mid, [int((t == tag).sum())]])))
+                j = a[t == 3]
+                run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
+                                  if counts[k] > 0 else np.zeros(0, np.int64))
+                n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
 
-        em_np = [packed, first_codes, counts,
-                 _pad2d(D, id_vals_l, np.uint8), _pad2d(D, com_vals_l, np.uint8),
-                 np.zeros((D, 1), np.uint8),
-                 _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
-                 _pad2d(D, com_lens_l),
-                 np.zeros((D, int(n_rec.max()) + 1), np.int64),
-                 _pad2d(D, run_lens_l, np.int64)]
+            em_np = [packed, first_codes, counts,
+                     _pad2d(D, id_vals_l, np.uint8), _pad2d(D, com_vals_l, np.uint8),
+                     np.zeros((D, 1), np.uint8),
+                     _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
+                     _pad2d(D, com_lens_l),
+                     np.zeros((D, int(n_rec.max()) + 1), np.int64),
+                     _pad2d(D, run_lens_l, np.int64)]
+            note(records=int(n_rec.sum()) + 1)
         return dict(
             counts=counts,
             id_bytes=np.array([r.size for r in id_vals_l], np.int64),
@@ -313,34 +316,37 @@ def parse_fused_fastq(D, scal, outs):
         bv = _rows(b_d, m_sp)
         cv = _rows(c_d, m_sp)
 
-        com_vals_l = []
-        seq_lens_l, qual_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], [], []
-        n_rec = np.zeros(D, np.int64)
-        n_runs = np.zeros(D, np.int64)
-        for k in range(D):
-            t = tv[k, :n_sp[k]] >> 8
-            v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
-            com_vals_l.append(v[t == 1])
-            rec = t == 2
-            n_rec[k] = int(rec.sum())
-            for arr, total, sink in ((av, cnt_seq[k], seq_lens_l), (bv, qual_bytes[k], qual_lens_l),
-                                     (cv, id_bytes[k], id_lens_l)):
-                x = arr[k, :n_sp[k]].astype(np.int64)
-                sink.append(np.diff(np.concatenate([[0], x[rec], [total]])))
-            at = np.flatnonzero(rec)
-            ccom = np.cumsum(t == 1)
-            mid = ccom[at] if at.size else np.zeros(0, np.int64)
-            com_lens_l.append(np.diff(np.concatenate([[0], mid, [int((t == 1).sum())]])))
-            j = av[k, :n_sp[k]].astype(np.int64)[t == 3]
-            run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
-                              if counts[k] > 0 else np.zeros(0, np.int64))
-            n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
+        with trace_span("sparse", entries=int(n_sp.sum())):
+            com_vals_l = []
+            seq_lens_l, qual_lens_l, id_lens_l, com_lens_l, run_lens_l = [], [], [], [], []
+            n_rec = np.zeros(D, np.int64)
+            n_runs = np.zeros(D, np.int64)
+            for k in range(D):
+                t = tv[k, :n_sp[k]] >> 8
+                v = (tv[k, :n_sp[k]] & 0xFF).astype(np.uint8)
+                com_vals_l.append(v[t == 1])
+                rec = t == 2
+                n_rec[k] = int(rec.sum())
+                for arr, total, sink in ((av, cnt_seq[k], seq_lens_l),
+                                         (bv, qual_bytes[k], qual_lens_l),
+                                         (cv, id_bytes[k], id_lens_l)):
+                    x = arr[k, :n_sp[k]].astype(np.int64)
+                    sink.append(np.diff(np.concatenate([[0], x[rec], [total]])))
+                at = np.flatnonzero(rec)
+                ccom = np.cumsum(t == 1)
+                mid = ccom[at] if at.size else np.zeros(0, np.int64)
+                com_lens_l.append(np.diff(np.concatenate([[0], mid, [int((t == 1).sum())]])))
+                j = av[k, :n_sp[k]].astype(np.int64)[t == 3]
+                run_lens_l.append(np.diff(np.concatenate([[0], j, [counts[k]]]))
+                                  if counts[k] > 0 else np.zeros(0, np.int64))
+                n_runs[k] = (j.size + 1) if counts[k] > 0 else 0
 
-        em_np = [packed, first_codes, counts,
-                 id_vals, _pad2d(D, com_vals_l, np.uint8), qual_vals,
-                 _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
-                 _pad2d(D, com_lens_l), _pad2d(D, qual_lens_l),
-                 _pad2d(D, run_lens_l, np.int64)]
+            em_np = [packed, first_codes, counts,
+                     id_vals, _pad2d(D, com_vals_l, np.uint8), qual_vals,
+                     _pad2d(D, seq_lens_l), _pad2d(D, id_lens_l),
+                     _pad2d(D, com_lens_l), _pad2d(D, qual_lens_l),
+                     _pad2d(D, run_lens_l, np.int64)]
+            note(records=int(n_rec.sum()) + 1)
         return dict(
             counts=counts, id_bytes=id_bytes,
             com_bytes=np.array([r.size for r in com_vals_l], np.int64),

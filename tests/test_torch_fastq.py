@@ -10,7 +10,8 @@
     parse_fused_fastq equal their originals;
   * encode_device(device="cpu") on FASTQ equals naf_tpu's host encode(),
     fastq_device(device="cpu") equals naf_tpu's Decoder.fastq(), and every
-    route, device or host, is taken by name.
+    route, device or host, is taken by name; Nanopore-shaped long reads
+    take the fused route.
 Everything is integer or bytes: tolerance 0.
 """
 
@@ -42,13 +43,13 @@ from naf_tpu_torch.parallel import decode as PD
 from naf_tpu_torch.parallel import pipeline as PP
 from naf_tpu_torch.parallel.pipeline import encode_device
 from naf_tpu_torch.pipeline.decoder import Decoder, fastq_device
-from naf_tpu_torch.pipeline.encoder import EncodeOptions
+from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from naf_tpu_torch.pipeline.parser import InputError
 
 from fused_pipeline_cases import _gen_fq
 from test_emit_fused import _oracle_fastq
 from torch_cases import (FASTQ_CASES, fastq_case, fastq_case_change_behind_tile_start,
-                         fastq_masked_reads)
+                         fastq_masked_reads, long_read_fastq)
 
 AT = ord("@")
 
@@ -230,6 +231,20 @@ def test_encode_device_fastq_equals_host(name):
     if not opts.no_mask:         # FASTQ output is never masked (unnaf.c:443)
         assert out == b"\n".join(r.upper() if i % 4 == 1 else r
                                  for i, r in enumerate(data.split(b"\n")))
+
+
+def test_long_read_fastq_takes_the_fused_route():
+    """Nanopore-shaped reads, two of them over two 32 KiB tiles, the ``+``
+    line repeating the defline: the fused route, the archive of the port's
+    and naf_tpu's host ``encode()``, and the text back with a bare ``+``."""
+    data = long_read_fastq(seed=48)
+    D.reset_counts()
+    blob = encode_device(data, EncodeOptions(), device="cpu")[0]
+    assert D.ROUTES == {"encode_device": 1}
+    assert blob == encode(data, EncodeOptions())[0] == _host(data, EncodeOptions())
+    out = fastq_device(Decoder(io.BytesIO(blob)), device="cpu")
+    assert out == b"\n".join(b"+" if i % 4 == 2 else r
+                             for i, r in enumerate(data.split(b"\n")))
 
 
 def test_fastq_device_uniform_takes_the_device():

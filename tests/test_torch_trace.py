@@ -16,12 +16,13 @@ fault ends the CLI with its device error; without ``--device`` the CLIs
 load no torch, with the span record on.  The span record: the device
 encode and decode on the CPU record naf_tpu_torch's span tree (names,
 parents, children inside their parents, byte counts equal to the sizes
-copied and stored), spans opened on the section pool's and the two-thread
-decompress's threads name their submitter, nothing is recorded with
-tracing off, the record keeps its last ``CAP`` spans, and under a CPU
-profiler the spans are ranges that name an idle gap.  Decoded inputs stay
-under 2**21 chars, below naf_tpu's multithreaded render (F1 in
-ROADMAP.md).
+copied and stored; the fused FASTA and long-read FASTQ parses' ``sparse``
+span with the emit's sparse entries and the archive's records), spans
+opened on the section pool's and the two-thread decompress's threads name
+their submitter, nothing is recorded with tracing off, the record keeps
+its last ``CAP`` spans, and under a CPU profiler the spans are ranges that
+name an idle gap.  Decoded inputs stay under 2**21 chars, below naf_tpu's
+multithreaded render (F1 in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,14 +44,15 @@ from naf_tpu.pipeline import stream as RSTREAM
 from naf_tpu_torch import device as D
 from naf_tpu_torch.format.container import NafReader
 from naf_tpu_torch.parallel import pipeline as PPIPE
-from naf_tpu_torch.parallel.block import (FASTA_SCALARS, fused_blocks_sharded, make_blocks,
-                                          make_blocks_fastq)
+from naf_tpu_torch.parallel.block import (FASTA_SCALARS, FASTQ_SCALARS,
+                                          fused_blocks_fastq_sharded, fused_blocks_sharded,
+                                          make_blocks, make_blocks_fastq)
 from naf_tpu_torch.pipeline import decoder as PDEC
 from naf_tpu_torch.pipeline import encoder as PENC
 from naf_tpu_torch.pipeline import stream as PSTREAM
 from naf_tpu_torch.utils import trace
 
-from torch_cases import mixed_fasta, mixed_fastq
+from torch_cases import long_read_fastq, mixed_fasta, mixed_fastq
 
 REPO = Path(__file__).resolve().parent.parent
 #: a span's time and rate, the only parts of a trace line that may differ
@@ -421,8 +423,12 @@ def _dense_header_fastq(n: int) -> bytes:
 _ENCODE_CASES = {
     "fasta_fused": (lambda: mixed_fasta(seed=40, n_rec=30), "encode_device",
                     {"encode", "encode/split", "encode/upload", "encode/emit", "encode/fetch",
-                     "encode/parse", "encode/parse/fetch", "encode/carry", "encode/sections",
-                     "encode/sections/zstd", "encode/container"}),
+                     "encode/parse", "encode/parse/fetch", "encode/parse/sparse", "encode/carry",
+                     "encode/sections", "encode/sections/zstd", "encode/container"}),
+    "fastq_fused": (lambda: long_read_fastq(seed=40), "encode_device",
+                    {"encode", "encode/split", "encode/upload", "encode/emit", "encode/fetch",
+                     "encode/parse", "encode/parse/fetch", "encode/parse/sparse", "encode/carry",
+                     "encode/sections", "encode/sections/zstd", "encode/container"}),
     "fastq_two_pass": (lambda: _dense_header_fastq(3000), "encode_device:two_pass:sparse_overflow",
                        {"encode", "encode/split", "encode/upload", "encode/emit",
                         "encode/fetch", "encode/emit/fetch", "encode/parse", "encode/carry",
@@ -468,6 +474,31 @@ def test_fused_fetches_count_the_used_prefixes(recorded):
     scal = scal_d[0].numpy()
     cnt, n_sp = int(scal[0]), int(scal[FASTA_SCALARS.index("n_sp")])
     assert fetched == [4 * len(FASTA_SCALARS), (cnt + 1) // 2 + 1, 4 * n_sp, 4 * n_sp]
+
+
+@pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])
+def test_sparse_span_counts_the_channel(fastq, recorded):
+    """The fused parse's ``sparse`` span: the entries the emit's scalars
+    count (``n_sp``) and the records the archive holds."""
+    data = long_read_fastq(seed=47) if fastq else mixed_fasta(seed=47, n_rec=30)
+    blob = PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")[0]
+    (sparse,) = [s for s in trace.spans() if s.name == "sparse"]
+    body = np.frombuffer(data, np.uint8)[1:]
+    if fastq:
+        blocks = make_blocks_fastq(body, 1)[0]
+        xs = [torch.from_numpy(blocks.data[0].copy())]
+        scal = fused_blocks_fastq_sharded(xs, blocks.prev, 0, seq_type=0)[3][0].numpy()
+        names = FASTQ_SCALARS
+    else:
+        blocks = make_blocks(body, 1)
+        xs = [torch.from_numpy(blocks.data[0].copy())]
+        scal = fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq, 0,
+                                    seq_type=0)[1][0].numpy()
+        names = FASTA_SCALARS
+    n_sp = int(scal[names.index("n_sp")])
+    assert n_sp > 0 and int(scal[names.index("sp_ok")])
+    records = PDEC.Decoder(io.BytesIO(blob)).r.n_sequences
+    assert sparse.fields == {"entries": n_sp, "records": records}
 
 
 @pytest.mark.parametrize("fastq", [False, True], ids=["fasta", "fastq"])

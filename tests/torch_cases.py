@@ -10,6 +10,8 @@ adds empty lines that keep nothing).
 
 from __future__ import annotations
 
+import uuid
+
 import numpy as np
 
 from naf_tpu_torch.format import constants as C
@@ -780,6 +782,26 @@ def mixed_fasta(seed: int = 0, n_rec: int = 40, max_len: int = 3000, line: int =
         body = seq.tobytes()
         out.append(head + b"\n" + b"".join(body[j:j + line] + b"\n"
                                            for j in range(0, ln, line)))
+    return b"".join(out)
+
+
+def long_read_fastq(seed: int = 0, n_rec: int = 12, long_len: int = 70_000) -> bytes:
+    """Nanopore-shaped reads as ``fastq-dump`` writes them: ``@<run>.<spot>
+    <read uuid> length=<L>``, the ``+`` line repeating the defline, unbinned
+    Phred+33 qualities about a per-read mean (``:``, Q25, among them).
+    Reads 2 and 7 are longer than two 32 KiB tiles, the others of hundreds
+    to a few thousand bases."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(200, 4000, n_rec)
+    lens[[2, 7]] = long_len + rng.integers(0, 1000, 2)
+    out = []
+    for i, ln in enumerate(lens):
+        read_id = uuid.UUID(bytes=rng.bytes(16), version=4)
+        defline = b"SRR7990034.%d %s length=%d" % (i + 1, str(read_id).encode(), ln)
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=ln)
+        mean = 15 if i in (2, 7) else int(rng.integers(4, 21))
+        qual = np.clip(np.rint(rng.normal(mean, 5, ln)), 1, 40).astype(np.uint8) + 33
+        out.append(b"@%s\n%s\n+%s\n%s\n" % (defline, seq.tobytes(), defline, qual.tobytes()))
     return b"".join(out)
 
 
