@@ -1,9 +1,10 @@
 """ctypes bridge to the port's native host runtime (``naf_native.cpp``).
 
 The port's copy of ``naf_tpu/native/__init__.py``: a fused single-pass
-FASTA/FASTQ scanner, a fused decode renderer and the device render plan's
-header lines on the host, in place of the numpy implementations in
-``pipeline.parser``, ``ops`` and ``parallel.decode``, which stay as
+FASTA/FASTQ scanner, a fused decode renderer, the device render plan's
+header lines and the FASTQ grid check of the device encode's block split
+on the host, in place of the numpy implementations in ``pipeline.parser``,
+``ops``, ``parallel.decode`` and ``parallel.block``, which stay as
 the oracle and as the path without a C++ toolchain.  The same library
 holds the native entropy engine (``naf_zstd.cpp``, an RFC 8878 encoder and
 decoder), which ``codec.zstd_backend`` binds for ``engine="native"``.
@@ -139,6 +140,8 @@ def _load() -> Optional[ct.CDLL]:
         lib.naf_header_lines.argtypes = [
             u8p, ct.c_uint64, u8p, ct.c_uint64, ct.c_uint64, ct.c_uint8,
             u8p, ct.c_uint64, u8p, u8p]
+        lib.naf_fastq_grid.restype = ct.c_int64
+        lib.naf_fastq_grid.argtypes = [u8p, ct.c_uint64, ct.c_int64, u8p]
         _lib = lib
         return _lib
 
@@ -377,3 +380,17 @@ def header_lines(ids_blob: Optional[bytes], comments_blob: Optional[bytes],
     if w < 0:
         return None
     return out[:w], hlens
+
+
+def fastq_grid(data: np.ndarray, n_blocks: int) -> Optional[tuple[list, int]]:
+    """The FASTQ grid check and block cuts of ``make_blocks_fastq`` in one
+    pass (``naf_fastq_grid``): the ``n_blocks + 1`` cuts and the record
+    count, or None where the text is off the regular 4-line grid."""
+    lib = _load()
+    assert lib is not None
+    data = np.ascontiguousarray(data, np.uint8)
+    cuts = np.empty(n_blocks + 1, np.int64)
+    n_rec = lib.naf_fastq_grid(_ptr(data), data.size, n_blocks, _ptr(cuts))
+    if n_rec < 0:
+        return None
+    return cuts.tolist(), int(n_rec)

@@ -39,7 +39,8 @@ from ..ops.emit_fused import emit_fasta_fused, emit_fastq_fused
 from ..ops.pack import pack_4bit
 from ..ops.scan_fused import scan_fasta_fused, scan_fastq_fused
 from ..ops.tables import device_tables
-from ..utils.trace import trace_span
+from ..native import host as native
+from ..utils.trace import note, trace_span
 from .mesh import all_gather, fetch, parities, pmax, psum
 
 _GT = ord(">")
@@ -423,6 +424,42 @@ def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
         return Blocks(blocks, prev, sis)
 
 
+def _fastq_grid_np(data: np.ndarray, n_blocks: int):
+    """The grid check and block cuts of ``make_blocks_fastq`` in numpy: the
+    ``n_blocks + 1`` cuts and the record count, or None off the grid."""
+    n = data.size
+    if n == 0 or data[-1] != _LF:
+        return None
+    if np.any((data == 11) | (data == 12) | (data == 13)):
+        return None
+    eol = np.flatnonzero(data == _LF)
+    n_lines = eol.size
+    if n_lines % 4 != 0:
+        return None
+    line_start = np.concatenate([[0], eol[:-1] + 1])
+    if np.any(eol == line_start):           # empty line
+        return None
+    if not np.all(data[line_start[2::4]] == ord("+")):
+        return None
+    if n_lines > 4 and not np.all(data[line_start[4::4]] == _AT):
+        return None
+
+    rec_starts = line_start[0::4]
+    n_rec = rec_starts.size
+    targets = (np.arange(1, n_blocks) * n) // n_blocks
+    idx = np.searchsorted(rec_starts, targets)
+    cuts = [0]
+    for i in idx:
+        cut = int(rec_starts[i]) if i < rec_starts.size else n
+        if cut > cuts[-1]:
+            cuts.append(cut)
+    while len(cuts) < n_blocks + 1:
+        cuts.append(n)
+    cuts = cuts[: n_blocks + 1]
+    cuts[-1] = n
+    return cuts, n_rec
+
+
 def make_blocks_fastq(data: np.ndarray, n_blocks: int):
     """Record-aligned FASTQ blocks; returns (Blocks, n_records) or None.
 
@@ -432,38 +469,19 @@ def make_blocks_fastq(data: np.ndarray, n_blocks: int):
     EOL-class, so e.g. a CRLF grid is an error there.  Returning None
     routes such inputs to the host parser, which raises the reference's
     message.  ``data`` starts right after the leading '@'.
+
+    The check and the cuts are one pass of the host library
+    (``native.fastq_grid``), or ``_fastq_grid_np`` without it; the
+    ``grid`` span's ``native`` field says which.
     """
     with trace_span("split", bytes=data.size):
-        n = data.size
-        if n == 0 or data[-1] != _LF:
+        with trace_span("grid", bytes=data.size):
+            in_lib = native.available()
+            got = native.fastq_grid(data, n_blocks) if in_lib else _fastq_grid_np(data, n_blocks)
+            note(records=got[1] if got else 0, native=int(in_lib))
+        if got is None:
             return None
-        if np.any((data == 11) | (data == 12) | (data == 13)):
-            return None
-        eol = np.flatnonzero(data == _LF)
-        n_lines = eol.size
-        if n_lines % 4 != 0:
-            return None
-        line_start = np.concatenate([[0], eol[:-1] + 1])
-        if np.any(eol == line_start):           # empty line
-            return None
-        if not np.all(data[line_start[2::4]] == ord("+")):
-            return None
-        if n_lines > 4 and not np.all(data[line_start[4::4]] == _AT):
-            return None
-
-        rec_starts = line_start[0::4]
-        n_rec = rec_starts.size
-        targets = (np.arange(1, n_blocks) * n) // n_blocks
-        idx = np.searchsorted(rec_starts, targets)
-        cuts = [0]
-        for i in idx:
-            cut = int(rec_starts[i]) if i < rec_starts.size else n
-            if cut > cuts[-1]:
-                cuts.append(cut)
-        while len(cuts) < n_blocks + 1:
-            cuts.append(n)
-        cuts = cuts[: n_blocks + 1]
-        cuts[-1] = n
+        cuts, n_rec = got
 
         B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
         B += B % 2

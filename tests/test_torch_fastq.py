@@ -148,18 +148,124 @@ IRREGULAR = {
 }
 
 
-@pytest.mark.parametrize("n_blocks", [1, 3])
-def test_make_blocks_fastq_matches(n_blocks):
-    body = np.frombuffer(_gen_fq(300, 90, 4), np.uint8)[1:]
-    a, na = PB.make_blocks_fastq(body, n_blocks)
-    b, nb = RB.make_blocks_fastq(body, n_blocks)
+def _regular() -> bytes:
+    """300 short reads, the text after the leading '@'."""
+    return _gen_fq(300, 90, 4)[1:]
+
+
+def _put(raw: bytes, pos: int, byte: int) -> bytes:
+    return raw[:pos] + bytes([byte]) + raw[pos + 1:]
+
+
+def _line_start(raw: bytes, line: int) -> int:
+    return 0 if line == 0 else [i for i, c in enumerate(raw) if c == 10][line - 1] + 1
+
+
+def _bad_in_tail() -> bytes:
+    """A CR inside the last quality line, behind the last full 32 bytes."""
+    raw = _regular()
+    assert len(raw) % 32 >= 3
+    return _put(raw, len(raw) - 2, 13)
+
+
+def _long_record() -> bytes:
+    """A 100 kb read between short ones: most targets fall deep inside it."""
+    rng = np.random.default_rng(8)
+    recs = []
+    for i, n in enumerate([40, 100_000, 60, 30]):
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes()
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * n))
+    return b"".join(recs)[1:]
+
+
+def _even_records() -> bytes:
+    """28 records of 25 bytes: every target of 2, 4 and 7 blocks falls on a
+    record start."""
+    recs = [b"@r%02d\nACGTACGT\n+\nIIIIIIII\n" % i for i in range(1, 28)]
+    return b"".join([b"r000\nACGTACGT\n+\nIIIIIIII\n", *recs])
+
+
+#: texts after the leading '@' that make_blocks_fastq splits into 1, 2, 3, 4
+#: and 7 blocks, or refuses
+GRID_CASES = {
+    "regular": _regular,
+    **{k: (lambda v=v: v) for k, v in IRREGULAR.items()},
+    "vt_mid_line": lambda: _put(_regular(), 5, 11),
+    "ff_mid_line": lambda: _put(_regular(), _line_start(_regular(), 5) + 7, 12),
+    "cr_last_byte": lambda: _regular()[:-1] + b"\r",
+    "bad_byte_in_tail": _bad_in_tail,
+    "cr_at_32": lambda: _put(_regular(), 32, 13),
+    "vt_at_64": lambda: _put(_regular(), 64, 11),
+    "ff_before_96": lambda: _put(_regular(), 95, 12),
+    "no_at_record_2": lambda: _put(_regular(), _line_start(_regular(), 8), ord("r")),
+    "no_plus_last_record": lambda: _put(_regular(), _line_start(_regular(), 4 * 299 + 2),
+                                        ord("-")),
+    "empty_first_line": lambda: b"\nAC\n+\n!!\n@r\nAC\n+\n!!\n",
+    "long_record": _long_record,
+    "even_records": _even_records,
+    "more_blocks_than_records": lambda: b"r\nAC\n+\n!!\n@s\nG\n+\n#\n",
+}
+
+
+def _fuzz(n: int = 300) -> list:
+    """Seeded single-byte edits of a valid FASTQ: an LF, CR, '@' or '+'
+    inserted, deleted or written over a byte."""
+    raw = _gen_fq(40, 20, 9)[1:]
+    rng = np.random.default_rng(23)
+    out = []
+    for _ in range(n):
+        pos = int(rng.integers(0, len(raw)))
+        byte = int(rng.choice(np.frombuffer(b"\n\r@+", np.uint8)))
+        op = int(rng.integers(0, 3))
+        if op == 0:
+            out.append(raw[:pos] + bytes([byte]) + raw[pos:])
+        elif op == 1:
+            out.append(raw[:pos] + raw[pos + 1:])
+        else:
+            out.append(_put(raw, pos, byte))
+    return out
+
+
+def _assert_blocks_match(raw: bytes, n_blocks: int):
+    x = np.frombuffer(raw, np.uint8)
+    got, want = PB.make_blocks_fastq(x, n_blocks), RB.make_blocks_fastq(x, n_blocks)
+    if want is None:
+        assert got is None
+        return
+    (a, na), (b, nb) = got, want
     assert na == nb
     for f in ("data", "prev", "starts_in_seq"):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
-    for raw in IRREGULAR.values():
-        x = np.frombuffer(raw, np.uint8)
-        assert PB.make_blocks_fastq(x, n_blocks) is None
-        assert RB.make_blocks_fastq(x, n_blocks) is None
+
+
+@pytest.fixture(params=["native", "numpy"])
+def grid_path(request, monkeypatch):
+    """make_blocks_fastq held to one grid check: the host library's pass, or
+    the numpy fallback (the library off); the other one raises."""
+    from naf_tpu_torch.native import host as native
+
+    def other(*a):
+        raise AssertionError("the other grid check ran")
+
+    if request.param == "native":
+        assert native.available()
+        monkeypatch.setattr(PB, "_fastq_grid_np", other)
+    else:
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(native, "fastq_grid", other)
+    return request.param
+
+
+@pytest.mark.parametrize("case", [*GRID_CASES, "fuzz"])
+def test_make_blocks_fastq_matches(case, grid_path):
+    raws = _fuzz() if case == "fuzz" else [GRID_CASES[case]()]
+    for raw in raws:
+        for n_blocks in (1, 2, 3, 4, 7):
+            _assert_blocks_match(raw, n_blocks)
+    if case in ("regular", "long_record", "even_records"):
+        x = np.frombuffer(raws[0], np.uint8)
+        blocks, _ = PB.make_blocks_fastq(x, 7)
+        assert (blocks.data != ord("\n")).any(axis=1).sum() > 1       # cut, not one block
 
 
 def test_fused_block_fastq_and_parse_match():

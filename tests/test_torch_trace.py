@@ -17,7 +17,8 @@ load no torch, with the span record on.  The span record: the device
 encode and decode on the CPU record naf_tpu_torch's span tree (names,
 parents, children inside their parents, byte counts equal to the sizes
 copied and stored; the fused FASTA and long-read FASTQ parses' ``sparse``
-span with the emit's sparse entries and the archive's records), spans
+span with the emit's sparse entries and the archive's records; a FASTQ
+split's ``grid`` span with its records and the check that ran), spans
 opened on the section pool's and the two-thread decompress's threads name
 their submitter, nothing is recorded with tracing off, the record keeps
 its last ``CAP`` spans, and under a CPU profiler the spans are ranges that
@@ -426,12 +427,13 @@ _ENCODE_CASES = {
                      "encode/parse", "encode/parse/fetch", "encode/parse/sparse", "encode/carry",
                      "encode/sections", "encode/sections/zstd", "encode/container"}),
     "fastq_fused": (lambda: long_read_fastq(seed=40), "encode_device",
-                    {"encode", "encode/split", "encode/upload", "encode/emit", "encode/fetch",
+                    {"encode", "encode/split", "encode/split/grid", "encode/upload",
+                     "encode/emit", "encode/fetch",
                      "encode/parse", "encode/parse/fetch", "encode/parse/sparse", "encode/carry",
                      "encode/sections", "encode/sections/zstd", "encode/container"}),
     "fastq_two_pass": (lambda: _dense_header_fastq(3000), "encode_device:two_pass:sparse_overflow",
-                       {"encode", "encode/split", "encode/upload", "encode/emit",
-                        "encode/fetch", "encode/emit/fetch", "encode/parse", "encode/carry",
+                       {"encode", "encode/split", "encode/split/grid", "encode/upload",
+                        "encode/emit", "encode/fetch", "encode/emit/fetch", "encode/parse", "encode/carry",
                         "encode/sections",
                         "encode/sections/zstd", "encode/container"}),
 }
@@ -460,6 +462,31 @@ def test_device_encode_records_its_span_tree(case, recorded):
     assert {k: f["out"] for k, f in zstd.items()} == _payload_sizes(blob)
     assert [s.fields for s in spans if s.name == "container"] == [{"out": len(blob)}]
     assert recorded() == []                # every encode span is silent on stderr
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_fastq_split_records_its_grid_check(path, recorded, monkeypatch):
+    """A FASTQ encode's ``split`` holds one ``grid`` span: the bytes
+    checked, the records found and which check ran (``native`` 1 for the
+    host library's pass, 0 for the numpy fallback)."""
+    from naf_tpu_torch.native import host as native
+
+    if path == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    data = mixed_fastq(seed=48, n_rec=120)
+    PPIPE.encode_device(data, PENC.EncodeOptions(), device="cpu")
+    spans = trace.spans()
+    by_id = _checked_tree(spans)
+    (grid,) = [s for s in spans if s.name == "grid"]
+    assert by_id[grid.parent].name == "split"
+    assert grid.fields == {"bytes": len(data) - 1, "records": data.count(b"\n") // 4,
+                           "native": int(path == "native")}
+
+
+def test_fasta_split_records_no_grid_check(recorded):
+    PPIPE.encode_device(mixed_fasta(seed=48, n_rec=20), PENC.EncodeOptions(), device="cpu")
+    names = {s.name for s in trace.spans()}
+    assert "split" in names and "grid" not in names
 
 
 def test_fused_fetches_count_the_used_prefixes(recorded):
