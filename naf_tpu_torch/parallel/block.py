@@ -1,5 +1,5 @@
 """Block splitting, the fused and two-pass passes over the blocks of a
-mesh, and the host stitch helpers.
+mesh, the rows they hand the host (``BlockRows``) and the host stitch.
 
 The numpy helpers are jax-free copies of ``naf_tpu/parallel/block.py``
 (``make_blocks``, ``make_blocks_fastq``, ``stitch_packed``,
@@ -20,7 +20,11 @@ a mesh overlap:
   one gather of them, the prefix that gives each block's ``odd``, ``pmax``
   of the longest line and ``psum`` of the unexpected-byte histograms;
 - ``emit_blocks_sharded``: pass 2 (``_emit_fn``), each block packed at its
-  ``odd``.
+  ``odd``, fetched as a ``BlockRows``.
+
+``stitch_rows`` turns a ``BlockRows`` into the records of the whole input
+or stream piece: lengths, header blobs, qualities, mask runs and the
+nibble stream.
 
 One block is a mesh of one.  naf_tpu's packed-row layouts
 (``stats_blocks_packed``, ``emit_blocks_packed``) are not ported.
@@ -28,7 +32,8 @@ One block is a mesh of one.  naf_tpu's packed-row layouts
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,6 +57,40 @@ FASTA_SCALARS = ("cnt", "cnt_seq", "n_sp", "sp_ok", "unex_id", "unex_com", "unex
                  "first_lower", "first_sval")
 #: those of a fused FASTQ block
 FASTQ_SCALARS = FASTA_SCALARS + ("cnt_qual", "cnt_id", "unex_qual")
+
+
+@dataclass(kw_only=True)
+class BlockRows:
+    """What the device passes over D blocks hand the host stitch: a column
+    of D values, and a zero-padded [D, w] row a block of which only the
+    used prefix counts (``counts`` nibbles or bytes, ``*_bytes`` values,
+    ``n_rec + 1`` record segments, ``n_runs`` case runs)."""
+
+    counts: np.ndarray        # chars of each block's sequence stream
+    id_bytes: np.ndarray
+    com_bytes: np.ndarray
+    qual_bytes: np.ndarray
+    n_rec: np.ndarray         # record starts inside each block
+    n_runs: np.ndarray        # case runs of each block's stream
+    first_lower: np.ndarray   # whether that stream starts lower case
+    longest: np.ndarray       # the longest line of all blocks, in each
+    first_codes: np.ndarray   # nibble code of each block's first char
+    #: the id, comment, sequence and quality histograms of unexpected bytes
+    hists: list = field(default_factory=lambda: [np.zeros(257, np.uint64) for _ in range(4)])
+    packed: np.ndarray        # nibbles at the block's parity; protein, text: bytes
+    id_vals: np.ndarray
+    com_vals: np.ndarray
+    qual_vals: np.ndarray
+    seq_lens: np.ndarray      # each record segment's length in the block
+    id_lens: np.ndarray
+    com_lens: np.ndarray
+    qual_lens: np.ndarray
+    run_lens: np.ndarray      # each case run's length
+
+
+#: the [D, w] row fields of a ``BlockRows``
+ROW_FIELDS = ("packed", "id_vals", "com_vals", "qual_vals", "seq_lens", "id_lens", "com_lens",
+              "qual_lens", "run_lens")
 
 
 def _scal(r: dict, names: tuple) -> torch.Tensor:
@@ -249,6 +288,14 @@ def block_stats(rows: np.ndarray, hists: np.ndarray, parity_base: int = 0) -> li
     return out
 
 
+def stats_columns(stats: list) -> dict:
+    """The per-block columns and histograms of a ``BlockRows`` from pass 1's
+    dict of every block (``block_stats``)."""
+    cols = {col: np.asarray([st[k] for st in stats])
+            for col, k in zip(("counts", *STATS_KEYS[1:]), STATS_KEYS)}
+    return dict(cols, hists=stats[0]["hists"])
+
+
 def stats_blocks_sharded(xs: list, prevs, siss, *, seq_type: int, fastq: bool,
                          parity_base: int = 0) -> tuple:
     """Pass 1 over the blocks (``_stats_fn`` with its collectives):
@@ -289,38 +336,33 @@ def _emit_launch(b: torch.Tensor, s: dict, stats: dict, *, seq_type: int, fastq:
             [cnt_d.reshape(1), *lens, run_lens])
 
 
-def _emit_fetch(u8: list, i32: list) -> list:
-    """One block's pass-2 parts as the one-row ``em_np`` list, fetched as
-    one byte buffer and one i32 buffer."""
+def _emit_fetch(u8: list, i32: list) -> dict:
+    """One block's pass-2 parts, fetched as one byte buffer and one i32
+    buffer: its first code and its rows, by ``BlockRows`` field.  The i32
+    buffer leads with the device's char count, which pass 1 already gave."""
     u8_np = fetch(torch.cat(u8)).numpy()
     i32_np = fetch(torch.cat([_i32(t) for t in i32])).numpy()
     cuts_u8 = np.cumsum([t.numel() for t in u8])[:-1]
     cuts_i32 = np.cumsum([t.numel() for t in i32])[:-1]
-    packed_np, first_np, id_np, com_np, qual_np = np.split(u8_np, cuts_u8)
-    cnt_np, seq_l, id_l, com_l, qual_l, run_l = np.split(i32_np, cuts_i32)
-    return [packed_np[None], first_np, cnt_np.astype(np.int64), id_np[None], com_np[None],
-            qual_np[None], seq_l[None], id_l[None], com_l[None], qual_l[None],
-            run_l.astype(np.int64)[None]]
+    packed, first, id_v, com_v, qual_v = np.split(u8_np, cuts_u8)
+    _, seq_l, id_l, com_l, qual_l, run_l = np.split(i32_np, cuts_i32)
+    return dict(first_codes=first, packed=packed, id_vals=id_v, com_vals=com_v, qual_vals=qual_v,
+                seq_lens=seq_l, id_lens=id_l, com_lens=com_l, qual_lens=qual_l,
+                run_lens=run_l.astype(np.int64))
 
 
-def _merge_rows(per_block: list) -> list:
-    """Per-block ``em_np`` lists (one row each) as one list of D rows:
-    first_code and cnt concatenated, every other part zero-padded to its
-    widest block."""
-    out = []
-    for parts in zip(*per_block):
-        if parts[0].ndim == 1:
-            out.append(np.concatenate(parts))
-            continue
-        arr = np.zeros((len(parts), max(max(p.shape[1] for p in parts), 1)), parts[0].dtype)
-        for k, p in enumerate(parts):
-            arr[k, :p.shape[1]] = p[0]
-        out.append(arr)
+def pad_rows(D: int, rows: list, dtype=np.int32) -> np.ndarray:
+    """1-D per-block rows as one [D, w] array, zero-padded to the widest
+    (w at least 1)."""
+    w = max(max((r.size for r in rows), default=0), 1)
+    out = np.zeros((D, w), dtype)
+    for k, r in enumerate(rows):
+        out[k, :r.size] = r
     return out
 
 
 def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fastq: bool,
-                        pack_nibbles: bool) -> list:
+                        pack_nibbles: bool) -> BlockRows:
     """Pass 2 over the blocks (``_emit_fn``), every block's launches before
     the first fetch.
 
@@ -330,10 +372,8 @@ def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fa
     parity the block's first char pairs with the previous block's last, so
     chars[1:] are packed and ``first_code`` is the code of chars[0].
     Protein and text keep the compacted bytes and store no mask.  Returns
-    the ``em_np`` list that ``_stitch_and_build`` takes, one row a block
-    (``_merge_rows``): [packed, first_code, cnt, id_vals, com_vals,
-    qual_vals, seq_lens, id_lens, com_lens, qual_lens, run_lens], each
-    block fetched as one byte buffer and one i32 buffer holding the used
+    the blocks' ``BlockRows``, its columns from ``stats``; each block is
+    fetched as one byte buffer and one i32 buffer holding the used
     prefixes."""
     with trace_span("emit", path="two-pass"):
         launched = [_emit_launch(x, m, st, seq_type=seq_type, fastq=fastq,
@@ -341,7 +381,11 @@ def emit_blocks_sharded(xs: list, masks: list, stats: list, *, seq_type: int, fa
                     for x, m, st in zip(xs, masks, stats)]
         fetched = [_emit_fetch(*parts) for parts in launched]
     with trace_span("parse"):
-        return _merge_rows(fetched)
+        D = len(fetched)
+        return BlockRows(**stats_columns(stats),
+                         first_codes=np.concatenate([f["first_codes"] for f in fetched]),
+                         **{k: pad_rows(D, [f[k] for f in fetched], fetched[0][k].dtype)
+                            for k in ROW_FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -405,23 +449,30 @@ def make_blocks(data: np.ndarray, n_blocks: int, *, marker: int = _GT,
         cuts = cuts[: n_blocks + 1]
         cuts[-1] = n
 
-        B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
-        B += B % 2
-        blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
-        prev = np.full(n_blocks, _LF, dtype=np.uint8)
-        prev[0] = marker if prev0 is None else prev0
-        sis = np.zeros(n_blocks, bool)
-        sis[0] = bool(sis0) and data[0] != marker
-        for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
-            blocks[k, : e - s] = data[s:e]
-            if k > 0:
-                if s > 0:
-                    prev[k] = data[s - 1]
-                else:
-                    prev[k] = prev[0]
-                sis[k] = ((e > s) and data[s] != marker
-                          and (s > 0 or sis[0]))
-        return Blocks(blocks, prev, sis)
+        return _fill_blocks(data, cuts, marker if prev0 is None else prev0, marker=marker,
+                            sis0=sis0)
+
+
+def _fill_blocks(data: np.ndarray, cuts: list, prev0: int, *, marker: int | None = None,
+                 sis0: bool = False) -> Blocks:
+    """Non-empty ``data`` cut at ``cuts`` (``[0, ..., data.size]``) into
+    '\\n'-padded blocks of one even width of at least 2: the byte before
+    each block (``prev0`` before the first) and, for FASTA (``marker``
+    given), whether each starts inside a record (the first only if
+    ``sis0``)."""
+    n_blocks = len(cuts) - 1
+    B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
+    B += B % 2
+    blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
+    prev = np.full(n_blocks, prev0, dtype=np.uint8)
+    sis = np.zeros(n_blocks, bool)
+    for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+        blocks[k, : e - s] = data[s:e]
+        if k > 0:
+            prev[k] = data[s - 1]       # every cut after the first is past 0
+        if marker is not None and e > s:
+            sis[k] = data[s] != marker and (k > 0 or bool(sis0))
+    return Blocks(blocks, prev, sis)
 
 
 def _fastq_grid_np(data: np.ndarray, n_blocks: int):
@@ -482,39 +533,31 @@ def make_blocks_fastq(data: np.ndarray, n_blocks: int):
         if got is None:
             return None
         cuts, n_rec = got
-
-        B = max(max(e - s for s, e in zip(cuts[:-1], cuts[1:])), 2)
-        B += B % 2
-        blocks = np.full((n_blocks, B), _LF, dtype=np.uint8)
-        prev = np.full(n_blocks, _LF, dtype=np.uint8)
-        prev[0] = _AT
-        for k, (s, e) in enumerate(zip(cuts[:-1], cuts[1:])):
-            blocks[k, : e - s] = data[s:e]
-            if k > 0 and s > 0:
-                prev[k] = data[s - 1]
-        return Blocks(blocks, prev, np.zeros(n_blocks, bool)), n_rec
+        return _fill_blocks(data, cuts, _AT), n_rec
 
 
 # ---------------------------------------------------------------------------
 # host-side stitching (copies of naf_tpu.parallel.block)
 # ---------------------------------------------------------------------------
 
-def stitch_packed(packed: np.ndarray, counts: np.ndarray,
-                  first_codes: np.ndarray) -> np.ndarray:
+def stitch_packed(packed: np.ndarray, counts: np.ndarray, first_codes: np.ndarray,
+                  held: Optional[int] = None) -> np.ndarray:
     """Merge per-block even-aligned payloads into one nibble stream.
 
     For a block whose prefix parity is odd, its first char's code was left
     out of its packed payload; it belongs in the high nibble of the previous
-    byte of the stream.  One OR per block edge.
+    byte of the stream.  One OR per block edge.  ``held`` is the low nibble
+    of a stream piece before these blocks, left waiting for its high
+    nibble: the blocks then start at odd parity and their first char
+    completes it.  A trailing half byte ends the stream as its last byte.
     """
     pieces: list[np.ndarray] = []
-    total = 0
-    pending_low: int | None = None
+    odd = held is not None
+    pending_low = held
     for d in range(counts.shape[0]):
         cnt = int(counts[d])
         if cnt == 0:
             continue
-        odd = (total % 2) == 1
         if odd:
             assert pending_low is not None
             pieces.append(np.asarray(
@@ -528,7 +571,7 @@ def stitch_packed(packed: np.ndarray, counts: np.ndarray,
         pieces.append(np.ascontiguousarray(body))
         if packed_chars % 2:
             pending_low = int(packed[d, nbytes]) & 0x0F
-        total += cnt
+        odd ^= bool(cnt % 2)
     if pending_low is not None:
         pieces.append(np.asarray([pending_low], dtype=np.uint8))
     if not pieces:
@@ -650,3 +693,58 @@ def blob_from_lens(vals: np.ndarray, lens: np.ndarray) -> bytes:
     fill[ends] = False
     out[fill] = vals
     return out.tobytes()
+
+
+@dataclass
+class Stitched:
+    """The records of a ``BlockRows`` (``stitch_rows``)."""
+
+    seq_lens: np.ndarray             # i64[records]
+    ids_blob: bytes
+    comments_blob: bytes
+    seq: Optional[np.ndarray]        # the nibble stream (protein, text: the bytes)
+    qual: Optional[np.ndarray]       # FASTQ only
+    runs: Optional[np.ndarray]       # the mask's case runs
+    first_lower: bool                # whether runs[0] is lower case
+
+
+def stitch_rows(rows: BlockRows, *, fastq: bool, mask: bool, text_like: bool = False,
+                payload: bool = True, held: Optional[int] = None) -> Optional[Stitched]:
+    """The records of the blocks of ``rows``, carried across their edges
+    (O(blocks + records + runs)): record lengths, '\\0'-terminated id and
+    comment blobs, the mask runs (under ``mask``), and with ``payload`` the
+    nibble stream (``stitch_packed`` from ``held``; protein and text,
+    ``text_like``: the bytes) and the FASTQ qualities.  None when a FASTQ
+    record's quality length differs from its sequence length, whose
+    message only the host parser gives."""
+    D = rows.counts.shape[0]
+
+    def lengths(arr2d):
+        return stitch_lengths([arr2d[k, : int(rows.n_rec[k]) + 1] for k in range(D)])
+
+    def used(arr2d, sizes):
+        return np.concatenate([arr2d[k, : int(sizes[k])] for k in range(D)])
+
+    seq_lens = lengths(rows.seq_lens)
+    assert seq_lens.size == int(rows.n_rec.sum()) + 1
+    if fastq and not np.array_equal(lengths(rows.qual_lens), seq_lens):
+        return None
+    seq = qual = runs = None
+    first_lower = False
+    if payload and text_like:
+        seq = (used(rows.packed, rows.counts) if int(rows.counts.sum())
+               else np.zeros(0, np.uint8)).astype(np.uint8)
+    elif payload:
+        seq = stitch_packed(rows.packed, rows.counts, rows.first_codes, held)
+    if payload and fastq:
+        qual = used(rows.qual_vals, rows.qual_bytes)
+    if mask:
+        runs, first_lower = stitch_runs([rows.run_lens[k, : int(rows.n_runs[k])]
+                                         for k in range(D)],
+                                        [bool(f) for f in rows.first_lower])
+    return Stitched(seq_lens=seq_lens,
+                    ids_blob=blob_from_lens(used(rows.id_vals, rows.id_bytes),
+                                            lengths(rows.id_lens)),
+                    comments_blob=blob_from_lens(used(rows.com_vals, rows.com_bytes),
+                                                 lengths(rows.com_lens)),
+                    seq=seq, qual=qual, runs=runs, first_lower=first_lower)

@@ -43,10 +43,10 @@ from ..device import count_route
 from ..format import constants as C
 from ..pipeline import parser as P
 from ..pipeline.encoder import EncodeOptions, EncodeStats, encode
-from .block import (block_stats, emit_blocks_sharded, make_blocks, make_blocks_fastq,
-                    stats_rows, stitch_packed_range)
+from .block import (ROW_FIELDS, BlockRows, block_stats, emit_blocks_sharded, make_blocks,
+                    make_blocks_fastq, stats_columns, stats_rows, stitch_packed_range)
 from .mesh import BlockMesh, block_mesh
-from .pipeline import _wf_device_safe, build_two_pass
+from .pipeline import _stitch_and_build, _wf_device_safe
 
 _HEAD = 3 * 8        # a gathered row block's span: start, rows, width (int64 each)
 
@@ -126,13 +126,6 @@ def _psum(local: np.ndarray, dev: torch.device) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _local_runs(rows: np.ndarray, k0: int) -> list[tuple[int, int, list]]:
-    """This process's blocks as maximal contiguous block runs
-    [(k0, k1, rows)], rows[i] block k0+i's row: one run, since a process
-    owns the blocks from its offset on."""
-    return [(k0, k0 + rows.shape[0], list(rows))] if rows.shape[0] else []
-
-
 class _HostFallback(Exception):
     """An input the device passes do not take; every process re-encodes on
     the host (the input bytes are the same everywhere, so the archives are
@@ -142,10 +135,10 @@ class _HostFallback(Exception):
 def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict], mesh: BlockMesh,
                 *, allow_text: bool):
     """The two-pass body the three encodes share: (D, fmt, per-block stats
-    of every block, this process's pass-2 rows, its first block k0, the
-    collectives' device).  The big rows (packed sequence, FASTQ quality)
-    stay local, so each caller decides whether to gather them (plain) or
-    compress them here (parts, extended)."""
+    of every block, this process's pass-2 ``BlockRows``, its first block
+    k0, the collectives' device).  The big rows (packed sequence, FASTQ
+    quality) stay local, so each caller decides whether to gather them
+    (plain) or compress them here (parts, extended)."""
     fmt, marker = P.detect_format(data)
     if (opts.in_format != C.IN_FORMAT_UNKNOWN and fmt != C.IN_FORMAT_UNKNOWN
             and opts.in_format != fmt):
@@ -184,9 +177,9 @@ def _run_passes(data: bytes, opts: EncodeOptions, traffic: Optional[dict], mesh:
     # byte re-parses on the host for the reference's error (or archive)
     if opts.strict and hists.any():
         raise _HostFallback("strict_unexpected")
-    em = emit_blocks_sharded(xs, masks, stats[own], seq_type=opts.seq_type, fastq=fastq,
-                             pack_nibbles=not text_like)
-    return D, fmt, stats, em, k0, dev
+    rows = emit_blocks_sharded(xs, masks, stats[own], seq_type=opts.seq_type, fastq=fastq,
+                               pack_nibbles=not text_like)
+    return D, fmt, stats, rows, k0, dev
 
 
 def _host(why: str, data: bytes, opts: EncodeOptions, mesh: BlockMesh):
@@ -194,19 +187,29 @@ def _host(why: str, data: bytes, opts: EncodeOptions, mesh: BlockMesh):
     return encode(data, opts, device=mesh.devices[0])
 
 
-def _build(fmt, opts, stats, em_np, data: bytes, mesh: BlockMesh, prebuilt=None):
-    """(archive, whether a quality length mismatch sent it to the host).
-    The device engine (``opts.engine == "device"``) runs on the local
-    mesh's first device."""
-    mismatch = []
-
-    def fallback():
-        mismatch.append(True)
+def _build(fmt, opts, rows: BlockRows, data: bytes, mesh: BlockMesh, route: str,
+           prebuilt=None):
+    """The archive of every block's rows, counted under ``route``, or the
+    host's when a quality length mismatch sends it there.  The device
+    engine (``opts.engine == "device"``) runs on the local mesh's first
+    device."""
+    out = _stitch_and_build(fmt, opts, rows, prebuilt=prebuilt, device=mesh.devices[0])
+    if out is None:
         return _host("qual_length_mismatch", data, opts, mesh)
+    count_route(route)
+    return out
 
-    out = build_two_pass(fmt, opts, stats, em_np, fallback, prebuilt=prebuilt,
-                         device=mesh.devices[0])
-    return out, bool(mismatch)
+
+def _gathered(rows: BlockRows, stats: list, k0: int, D: int, dev, traffic,
+              local: tuple = ()) -> BlockRows:
+    """Every block's ``BlockRows``: the first codes and each row field of
+    this process's ``rows`` gathered with every other process's, but those
+    in ``local``, left zero-width (they leave compressed); the columns from
+    pass 1's dicts of every block."""
+    return BlockRows(
+        **stats_columns(stats), first_codes=_gather_rows(rows.first_codes, k0, D, dev, traffic),
+        **{f: (np.zeros((D, 0), getattr(rows, f).dtype) if f in local
+               else _gather_rows(getattr(rows, f), k0, D, dev, traffic)) for f in ROW_FIELDS})
 
 
 def encode_multihost(data: bytes, opts: Optional[EncodeOptions] = None, *,
@@ -218,39 +221,31 @@ def encode_multihost(data: bytes, opts: Optional[EncodeOptions] = None, *,
     opts = opts or EncodeOptions()
     mesh = mesh if mesh is not None else block_mesh()
     try:
-        D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=True)
+        D, fmt, stats, rows, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=True)
     except _HostFallback as e:
         return _host(str(e), data, opts, mesh)
-    em_np = [_gather_rows(o, k0, D, dev, traffic) for o in em]
-    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh)
-    if not mismatch:
-        count_route("encode_multihost")
-    return out
+    return _build(fmt, opts, _gathered(rows, stats, k0, D, dev, traffic), data, mesh,
+                  "encode_multihost")
 
 
-def _gather_small_rows(em: list, fastq: bool, k0: int, D: int, dev, traffic) -> list:
-    """Every pass-2 row but the packed sequence and the FASTQ quality,
-    gathered; those two as zero-width arrays (they leave compressed)."""
-    return [np.zeros((D, 0), np.uint8) if i == 0 or (i == 5 and fastq)
-            else _gather_rows(o, k0, D, dev, traffic) for i, o in enumerate(em)]
+#: the rows the compressed-traffic paths compress where they live
+_PAYLOAD = ("packed", "qual_vals")
 
 
-def _local_bytes(em: list, stats: list, k0: int, fastq: bool) -> tuple:
-    """(sequence runs, quality runs) of this process: [(k0, bytes)] with
-    the packed bytes its blocks own (``stitch_packed_range``) and their
-    quality bytes."""
+def _local_bytes(rows: BlockRows, first_codes: np.ndarray, stats: list, k0: int,
+                 fastq: bool) -> tuple:
+    """(sequence, quality) of this process, whose blocks from ``k0`` on
+    have ``rows``: each [(k0, chars, bytes)], the packed bytes its blocks
+    own (``stitch_packed_range`` with every block's ``first_codes``) and
+    their quality bytes."""
     counts = np.asarray([st["count"] for st in stats])
-    first_codes = em[1]
-    seq, qual = [], []
-    for r0, r1, rows in _local_runs(em[0], k0):
-        seq.append((r0, counts[r0:r1].sum(), stitch_packed_range(
-            {r0 + i: r for i, r in enumerate(rows)}, counts, first_codes, r0, r1)))
-    if fastq:
-        for r0, r1, rows in _local_runs(em[5], k0):
-            qual.append((r0, sum(stats[r0 + i]["qual_bytes"] for i in range(r1 - r0)),
-                         np.concatenate([rows[i][:stats[r0 + i]["qual_bytes"]]
-                                         for i in range(r1 - r0)])))
-    return seq, qual
+    k1 = k0 + rows.packed.shape[0]
+    seq = [(k0, counts[k0:k1].sum(), stitch_packed_range(
+        dict(enumerate(rows.packed, k0)), counts, first_codes, k0, k1))]
+    if not fastq:
+        return seq, []
+    quals = [stats[k]["qual_bytes"] for k in range(k0, k1)]
+    return seq, [(k0, sum(quals), np.concatenate([q[:n] for q, n in zip(rows.qual_vals, quals)]))]
 
 
 def _gather_parts(local_parts: list, dev, traffic: Optional[dict]) -> tuple[list, list]:
@@ -293,13 +288,12 @@ def encode_multihost_parts(data: bytes, opts: Optional[EncodeOptions] = None,
     opts = opts or EncodeOptions()
     mesh = mesh if mesh is not None else block_mesh()
     try:
-        D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
+        D, fmt, stats, rows, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
     except _HostFallback as e:
         return _host(str(e), data, opts, mesh)
     fastq = fmt == C.IN_FORMAT_FASTQ
-    em_np = _gather_small_rows(em, fastq, k0, D, dev, traffic)
-    em = [em[0], em_np[1], *em[2:]]          # the global first codes
-    seq, qual = _local_bytes(em, stats, k0, fastq)
+    every = _gathered(rows, stats, k0, D, dev, traffic, local=_PAYLOAD)
+    seq, qual = _local_bytes(rows, every.first_codes, stats, k0, fastq)
     sizes, chains = _gather_parts(
         [(r0, b.size, compress_part_native(b.tobytes(), level=opts.level,
                                            window_log=opts.long_window_log))
@@ -318,10 +312,7 @@ def encode_multihost_parts(data: bytes, opts: Optional[EncodeOptions] = None,
             raise RuntimeError(f"part bytes {sum(qsizes)} != quality size {total_qual}")
         prebuilt["quality"] = Section(uncompressed_size=total_qual,
                                       payload=stitch_section_frame(qchains, qsizes, opts.level))
-    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh, prebuilt=prebuilt)
-    if not mismatch:
-        count_route("encode_multihost:parts")
-    return out
+    return _build(fmt, opts, every, data, mesh, "encode_multihost:parts", prebuilt=prebuilt)
 
 
 def _gather_framed(local_runs: list, dev, traffic: Optional[dict]) -> tuple[bytes, int]:
@@ -375,19 +366,18 @@ def encode_multihost_extended(data: bytes, opts: Optional[EncodeOptions] = None,
     opts = replace(opts or EncodeOptions(), extended=True)
     mesh = mesh if mesh is not None else block_mesh()
     try:
-        D, fmt, stats, em, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
+        D, fmt, stats, rows, k0, dev = _run_passes(data, opts, traffic, mesh, allow_text=False)
     except _HostFallback as e:
         return _host(str(e), data, opts, mesh)
     fastq = fmt == C.IN_FORMAT_FASTQ
-    em_np = _gather_small_rows(em, fastq, k0, D, dev, traffic)
-    em = [em[0], em_np[1], *em[2:]]
+    every = _gathered(rows, stats, k0, D, dev, traffic, local=_PAYLOAD)
 
     def frames_of(byts: np.ndarray):
         return compress_frames(byts, level=opts.level, window_log=opts.long_window_log,
                                threads=opts.threads, block_bytes=opts.block_bytes,
                                engine=opts.engine, device=mesh.devices[0])
 
-    seq, qual = _local_bytes(em, stats, k0, fastq)
+    seq, qual = _local_bytes(rows, every.first_codes, stats, k0, fastq)
     seq_payload, seq_raw = _gather_framed(
         [(r0, *frames_of(b)) for r0, n, b in seq if b.size or n], dev, traffic)
     total_chars = sum(st["count"] for st in stats)
@@ -401,7 +391,4 @@ def encode_multihost_extended(data: bytes, opts: Optional[EncodeOptions] = None,
         if qual_raw != total_qual:
             raise RuntimeError(f"framed QUAL bytes {qual_raw} != {total_qual}")
         prebuilt["quality"] = Section(uncompressed_size=total_qual, payload=qual_payload)
-    out, mismatch = _build(fmt, opts, stats, em_np, data, mesh, prebuilt=prebuilt)
-    if not mismatch:
-        count_route("encode_multihost:extended")
-    return out
+    return _build(fmt, opts, every, data, mesh, "encode_multihost:extended", prebuilt=prebuilt)

@@ -9,12 +9,13 @@ record's length, ``F_CONT_SEQ`` and ``F_ALLOW_PARTIAL``.  So
 host path while each piece's per-byte work (classify, compaction, pack,
 mask runs) runs on the card, at O(chunk) host and device memory.
 
-Each piece takes the fused path first (``fused_blocks_sharded`` /
-``fused_blocks_fastq_sharded``); where that declines (``sparse_overflow``,
-``unexpected_chars``) the same uploaded blocks take the two-pass protocol
-(``stats_blocks_sharded`` + ``emit_blocks_sharded``).  Everything is
-fetched to host numpy before ``scan`` returns, so no device tensor
-outlives its piece.  Pieces
+Each piece's blocks take the passes of ``encode_device``
+(``pipeline.device_passes``): the fused path first, and where that
+declines (``sparse_overflow``, ``unexpected_chars``) the two-pass protocol
+on the same uploaded blocks.  The rows come back to host numpy before
+``scan`` returns, so no device tensor outlives its piece, and take
+``encode_device``'s stitch (``block.stitch_rows``), the stream's carries
+applied on top.  Pieces
 the device path does not take go to the native host scanner, each for a
 named reason, as naf_tpu's engine decides: ``host_mode`` (``--strict``,
 ``--well-formed``, upper-casing, protein or text), ``mid_line`` (a
@@ -45,11 +46,9 @@ from ..device import count_route
 from ..format import constants as C
 from ..native import host as native
 from ..ops.mask import runs_to_units
-from .block import (STATS_KEYS, blob_from_lens, emit_blocks_sharded, fused_blocks_fastq_sharded,
-                    fused_blocks_sharded, make_blocks, make_blocks_fastq, stats_blocks_sharded,
-                    stitch_lengths, stitch_runs)
-from .mesh import BlockMesh, all_gather, block_mesh
-from .pipeline import parse_fused_fasta, parse_fused_fastq
+from .block import make_blocks, make_blocks_fastq, stitch_rows
+from .mesh import BlockMesh, block_mesh
+from .pipeline import device_passes
 
 _GT = ord(">")
 _LF = ord("\n")
@@ -63,41 +62,6 @@ class _Chars:
 
     def __init__(self, n: int):
         self.size = n
-
-
-def _stitch_packed_stream(packed_rows: np.ndarray, counts: np.ndarray,
-                          first_codes: np.ndarray, pack_carry: Optional[int]) -> np.ndarray:
-    """Per-block even-aligned payloads -> chunk nibble stream with carry.
-
-    The boundary algebra of ``block.stitch_packed``, but the stream starts
-    at the global parity that ``pack_carry`` implies (a pending low nibble
-    means the char count so far is odd), and a trailing half byte is
-    emitted as a last byte, which the feed loop strips off by its own
-    parity count, as it does for ``native.host.scan``'s packed output.
-    """
-    pieces: list[np.ndarray] = []
-    parity = 1 if pack_carry is not None else 0
-    pending = pack_carry
-    for d in range(counts.shape[0]):
-        cnt = int(counts[d])
-        if cnt == 0:
-            continue
-        if parity % 2 == 1:
-            pieces.append(np.asarray([pending | (int(first_codes[d]) << 4)], dtype=np.uint8))
-            pending = None
-            packed_chars = cnt - 1
-        else:
-            packed_chars = cnt
-        nbytes = packed_chars // 2
-        pieces.append(np.ascontiguousarray(packed_rows[d][:nbytes]))
-        if packed_chars % 2:
-            pending = int(packed_rows[d][nbytes]) & 0x0F
-        parity += cnt
-    if pending is not None:
-        pieces.append(np.asarray([pending], dtype=np.uint8))
-    if not pieces:
-        return np.zeros(0, dtype=np.uint8)
-    return np.concatenate(pieces)
 
 
 def _merge_mask(runs: np.ndarray, state_first: bool, mask_on: bool,
@@ -181,101 +145,58 @@ class DeviceScanEngine:
         count_route("stream_device" if why is None else f"stream_device:two_pass:{why}")
         return out
 
-    # -- device passes ----------------------------------------------------
+    # -- device passes, and the piece's NativeScan -------------------------
 
-    def _passes(self, blocks, *, fastq: bool, seq_type: int, parity_odd_in: bool):
-        """The blocks' fused encode, else their two-pass encode, fetched to
-        the host: (None or the two-pass reason, the ``_build`` tuple)."""
-        D = self.mesh.size
+    def _encode(self, blocks, *, fastq: bool, seq_type: int, cont: bool, do_mask: bool,
+                len_carry: int, mask_on: bool, mask_run: int, pack_carry: Optional[int],
+                consumed: int):
+        """(None or the two-pass reason, the ``NativeScan`` of one piece), or
+        (``qual_length_mismatch``, None) when a FASTQ record's quality length
+        differs from its sequence length (the native scanner raises the
+        reference's text)."""
         xs = self.mesh.upload(blocks.data)
-        parity = int(parity_odd_in)
-        zero_hists = [np.zeros(257, np.uint64) for _ in range(4)]
-        if fastq:
-            outs = fused_blocks_fastq_sharded(xs, blocks.prev, parity, seq_type=seq_type)
-            scal = all_gather(outs[3])
-            parsed = parse_fused_fastq(D, scal, outs)
-        else:
-            packed, scal_d, tv, a = fused_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
-                                                         parity, seq_type=seq_type)
-            scal = all_gather(scal_d)
-            parsed = parse_fused_fasta(D, scal, packed, tv, a)
-        if parsed is not None:
-            return None, (parsed["counts"], parsed["id_bytes"], parsed["com_bytes"],
-                          parsed.get("qual_bytes", np.zeros(D, np.int64)), parsed["n_rec"],
-                          parsed["n_runs"], parsed["first_lower"], parsed["longest"],
-                          zero_hists, parsed["em_np"])
-        why = "sparse_overflow" if not scal[:, 3].all() else "unexpected_chars"
-        stats, masks = stats_blocks_sharded(xs, blocks.prev, blocks.starts_in_seq,
-                                            seq_type=seq_type, fastq=fastq, parity_base=parity)
-        em_np = emit_blocks_sharded(xs, masks, stats, seq_type=seq_type, fastq=fastq,
-                                    pack_nibbles=True)
-        del masks
-        cols = [np.asarray([st[k] for st in stats]) for k in STATS_KEYS]
-        return why, (*cols, stats[0]["hists"], em_np)
-
-    # -- stitching into a NativeScan-shaped result ---------------------------
-
-    @staticmethod
-    def _build(res, *, fastq: bool, cont: bool, do_mask: bool, len_carry: int,
-               mask_on: bool, mask_run: int, pack_carry: Optional[int], consumed: int):
-        """The ``NativeScan`` of one piece from its blocks' rows, or None
-        when a FASTQ record's quality length differs from its sequence
-        length (the native scanner raises the reference's text for it)."""
-        (counts, id_bytes, com_bytes, qual_bytes, n_rec, n_runs,
-         first_lower, longest, hists, em_np) = res
-        (packed, first_codes, _cnt2, id_vals, com_vals, qual_vals,
-         seq_lens, id_lens, com_lens, qual_lens, run_lens) = em_np
-        D = counts.shape[0]
-
-        def trim(arr2d):
-            return [arr2d[k, : int(n_rec[k]) + 1] for k in range(D)]
-
-        def cat(vals, sizes):
-            return np.concatenate([vals[k, : int(sizes[k])] for k in range(D)])
-
-        g_seq_lens = stitch_lengths(trim(seq_lens)).astype(np.uint64)
-        if cont and g_seq_lens.size:
-            g_seq_lens[0] += np.uint64(len_carry)
-        g_id_lens = stitch_lengths(trim(id_lens))
-        g_com_lens = stitch_lengths(trim(com_lens))
-        if fastq:
-            g_qual_lens = stitch_lengths(trim(qual_lens)).astype(np.uint64)
-            if not np.array_equal(g_qual_lens, g_seq_lens):
-                return None
+        why, rows = device_passes(xs, blocks, fastq=fastq, seq_type=seq_type,
+                                  parity=int(pack_carry is not None))
+        del xs          # the blocks' device memory goes back before the host stitch
+        st = stitch_rows(rows, fastq=fastq, mask=do_mask, held=pack_carry)
+        if st is None:
+            return "qual_length_mismatch", None
+        lengths = st.seq_lens.astype(np.uint64)
+        ids, comments = st.ids_blob, st.comments_blob
         if cont:
+            lengths[0] += np.uint64(len_carry)
             # segment 0 continues the previous piece's open record: its id
-            # and comment (0 bytes) went out with that record's header piece
-            g_id_lens = g_id_lens[1:]
-            g_com_lens = g_com_lens[1:]
+            # and comment (0 bytes, so the blobs' first terminators) went
+            # out with that record's header piece
+            assert ids[:1] == comments[:1] == b"\0"
+            ids, comments = ids[1:], comments[1:]
 
         out = native.NativeScan()
-        out.seq = _Chars(int(counts.sum()))
-        out.packed = _stitch_packed_stream(packed, counts, first_codes, pack_carry)
-        out.ids_blob = blob_from_lens(cat(id_vals, id_bytes), g_id_lens)
-        out.comments_blob = blob_from_lens(cat(com_vals, com_bytes), g_com_lens)
-        out.lengths = g_seq_lens
-        out.n_sequences = int(g_seq_lens.size)
+        out.seq = _Chars(int(rows.counts.sum()))
+        out.packed = st.seq
+        out.ids_blob = ids
+        out.comments_blob = comments
+        out.lengths = lengths
+        out.n_sequences = int(lengths.size)
         if fastq:
-            out.qual = cat(qual_vals, qual_bytes)
-            out.longest_line = int(g_seq_lens.max(initial=0))
+            out.qual = st.qual
+            out.longest_line = int(lengths.max(initial=0))
         else:
             out.qual = np.zeros(0, np.uint8)
-            out.longest_line = int(longest[0])
+            out.longest_line = int(rows.longest[0])
         if do_mask:
-            runs, state_first = stitch_runs([run_lens[k, : int(n_runs[k])] for k in range(D)],
-                                            [bool(first_lower[k]) for k in range(D)])
-            units, tail_on, tail_run = _merge_mask(runs, state_first, mask_on, mask_run)
+            units, tail_on, tail_run = _merge_mask(st.runs, st.first_lower, mask_on, mask_run)
         else:
             units, tail_on, tail_run = np.zeros(0, np.uint8), mask_on, mask_run
         out.mask_units = units
         out.mask_tail_on = tail_on
         out.mask_tail_run = tail_run
         (out.unexpected_id, out.unexpected_comment, out.unexpected_seq,
-         out.unexpected_qual) = hists
+         out.unexpected_qual) = rows.hists
         out.end_state = 2       # line-aligned pieces always end in a sequence
         out.end_line_len = 0
         out.consumed = consumed
-        return out
+        return why, out
 
     # -- format-specific front halves ---------------------------------------
 
@@ -286,11 +207,9 @@ class DeviceScanEngine:
             # (end_line_len), which only the native scanner reports
             return "open_line", None
         blocks = make_blocks(body, self.mesh.size, prev0=(_LF if cont else _GT), sis0=cont)
-        why, res = self._passes(blocks, fastq=False, seq_type=seq_type,
-                                parity_odd_in=pack_carry is not None)
-        return why, self._build(res, fastq=False, cont=cont, do_mask=do_mask,
-                                len_carry=len_carry, mask_on=mask_on, mask_run=mask_run,
-                                pack_carry=pack_carry, consumed=int(body.size))
+        return self._encode(blocks, fastq=False, seq_type=seq_type, cont=cont, do_mask=do_mask,
+                            len_carry=len_carry, mask_on=mask_on, mask_run=mask_run,
+                            pack_carry=pack_carry, consumed=int(body.size))
 
     def _scan_fastq(self, body: np.ndarray, *, allow_partial: bool, seq_type: int,
                     do_mask: bool, mask_on: bool, mask_run: int, pack_carry: Optional[int]):
@@ -309,9 +228,6 @@ class DeviceScanEngine:
         mb = make_blocks_fastq(sub, self.mesh.size)
         if mb is None:
             return "fastq_irregular", None
-        why, res = self._passes(mb[0], fastq=True, seq_type=seq_type,
-                                parity_odd_in=pack_carry is not None)
-        out = self._build(res, fastq=True, cont=False, do_mask=do_mask, len_carry=0,
-                          mask_on=mask_on, mask_run=mask_run, pack_carry=pack_carry,
-                          consumed=consumed)
-        return ("qual_length_mismatch", None) if out is None else (why, out)
+        return self._encode(mb[0], fastq=True, seq_type=seq_type, cont=False, do_mask=do_mask,
+                            len_carry=0, mask_on=mask_on, mask_run=mask_run,
+                            pack_carry=pack_carry, consumed=consumed)

@@ -47,6 +47,7 @@ from naf_tpu_torch.pipeline.encoder import EncodeOptions, encode
 from naf_tpu_torch.pipeline.parser import InputError
 
 from fused_pipeline_cases import _gen_fq
+from torch_cases import assert_rows_equal, ref_block_rows
 from test_emit_fused import _oracle_fastq
 from torch_cases import (FASTQ_CASES, fastq_case, fastq_case_change_behind_tile_start,
                          fastq_masked_reads, long_read_fastq)
@@ -283,14 +284,7 @@ def test_fused_block_fastq_and_parse_match():
     for x, y in zip(got, ref):
         assert np.array_equal(x.numpy(), y)
     want = RP.parse_fused_fastq(1, ref[3], ref)
-    parsed = PP.parse_fused_fastq(1, got[3].numpy(), got)
-    assert parsed.keys() == want.keys()
-    for k in parsed:
-        if k == "em_np":
-            for x, y in zip(parsed[k], want[k]):
-                assert np.array_equal(x, y)
-        else:
-            assert np.array_equal(parsed[k], want[k]), k
+    assert_rows_equal(PP.parse_fused(got[3].numpy(), got, fastq=True), ref_block_rows(want))
 
 
 # ---------------------------------------------------------------------------

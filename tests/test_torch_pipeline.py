@@ -44,6 +44,7 @@ from naf_tpu_torch.pipeline.decoder import DecodeOptions, Decoder, fasta_device,
 from naf_tpu_torch.pipeline.encoder import EncodeOptions
 
 from fused_pipeline_cases import _gen, _gen_fq
+from torch_cases import assert_rows_equal, ref_block_rows
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -99,6 +100,37 @@ def test_stitch_helpers_match():
         assert PB.blob_from_lens(vals, lens) == RB.blob_from_lens(vals, lens)
 
 
+def _repacked(nibbles: list) -> np.ndarray:
+    """Nibbles two to a byte, the first low; a trailing one alone."""
+    nib = np.asarray(nibbles + [0] * (len(nibbles) % 2), np.uint8)
+    return nib[0::2] | (nib[1::2] << 4)
+
+
+@pytest.mark.parametrize("held", [None, 0, 7, 15])
+def test_stitch_packed_with_a_held_nibble(held):
+    """``stitch_packed`` from a held low nibble against the nibbles: the
+    held one, then each block's chars (its first from ``first_codes`` where
+    the blocks before it end at odd parity, the rest unpacked from its
+    row), repacked."""
+    rng = np.random.default_rng(51 if held is None else 52 + held)
+    for _ in range(40):
+        D_ = int(rng.integers(1, 7))
+        counts = rng.integers(0, 12, size=D_)
+        counts[rng.random(D_) < 0.2] = 0
+        packed = rng.integers(0, 256, size=(D_, 8), dtype=np.uint8)
+        first = rng.integers(0, 16, size=D_, dtype=np.uint8)
+        nibbles = [] if held is None else [held]
+        for d in range(D_):
+            odd = len(nibbles) % 2 == 1
+            n = int(counts[d]) - (odd and counts[d] > 0)
+            row = np.stack([packed[d] & 0x0F, packed[d] >> 4], axis=1).reshape(-1)
+            nibbles += ([int(first[d])] if odd and counts[d] else []) + row[:n].tolist()
+        assert np.array_equal(PB.stitch_packed(packed, counts, first, held), _repacked(nibbles))
+        if held is None:
+            assert np.array_equal(PB.stitch_packed(packed, counts, first),
+                                  RB.stitch_packed(packed, counts, first))
+
+
 def test_pipeline_helpers_match():
     bodies = [b"h1 x\nACGT\n>h2\nAC GT\n", b"h\tx\nACGT\n", b"h1 c d\nACGT\n>h2 e\nA\n", b""]
     for raw in bodies:
@@ -106,7 +138,7 @@ def test_pipeline_helpers_match():
         assert PP._wf_device_safe(body, False) == RP._wf_device_safe(body, False)
         assert PP._wf_device_safe(body, True) == RP._wf_device_safe(body, True)
     rows = [np.arange(3), np.arange(5), np.zeros(0, np.int64)]
-    assert np.array_equal(PP._pad2d(3, rows), RP._pad2d(3, rows))
+    assert np.array_equal(PB.pad_rows(3, rows), RP._pad2d(3, rows))
 
 
 def _fused_ref(body, seq_type=C.SEQ_TYPE_DNA):
@@ -135,20 +167,14 @@ def test_fused_block_and_parse_match():
     assert np.array_equal(tv.numpy()[:, :n_sp], tv_r[:, :n_sp])
     assert np.array_equal(a.numpy()[:, :n_sp], a_r[:, :n_sp])
 
-    got = PP.parse_fused_fasta(1, scal.numpy(), packed, tv, a)
+    got = PP.parse_fused(scal.numpy(), (packed, scal, tv, a), fastq=False)
     want = RP.parse_fused_fasta(1, scal_r, packed_r, tv_r, a_r)
-    for k in ("counts", "id_bytes", "com_bytes", "n_rec", "n_runs", "first_lower",
-              "longest"):
-        assert np.array_equal(got[k], want[k]), k
-    for x, y in zip(got["em_np"], want["em_np"]):
-        assert np.array_equal(x, y)
+    assert_rows_equal(got, ref_block_rows(want))
     args = (want["counts"], want["id_bytes"], want["com_bytes"], np.zeros(1, np.int64),
             want["n_rec"], want["n_runs"], want["first_lower"], want["longest"])
-    zero = [np.zeros(257, np.uint64) for _ in range(4)]
     zero_halves = [np.zeros((1, 256), np.uint32) for _ in range(8)]
     fmt = C.IN_FORMAT_FASTA
-    assert (PP._stitch_and_build(1, fmt, EncodeOptions(), *args, zero, want["em_np"],
-                                 fallback=None)[0]
+    assert (PP._stitch_and_build(fmt, EncodeOptions(), ref_block_rows(want))[0]
             == RP._stitch_and_build(1, fmt, RENC.EncodeOptions(), *args, zero_halves,
                                     want["em_np"], fallback=None)[0]
             == encode(data, EncodeOptions())[0])

@@ -26,12 +26,12 @@ import torch
 from naf_tpu.pipeline import encoder as RENC
 from naf_tpu.pipeline import stream as RSTREAM
 from naf_tpu_torch import device as D
-from naf_tpu_torch.parallel import stream as PS
+from naf_tpu_torch.parallel import pipeline as PP
 from naf_tpu_torch.parallel.stream import DeviceScanEngine
 from naf_tpu_torch.pipeline import encoder as PENC
 from naf_tpu_torch.pipeline.parser import InputError
 from naf_tpu_torch.pipeline.stream import encode_stream
-from torch_cases import (STREAM_CASES, stream_fasta, stream_odd_masked_fasta,
+from torch_cases import (STREAM_CASES, em_np_fields, stream_fasta, stream_odd_masked_fasta,
                          stream_odd_masked_fastq)
 
 CASE_CHUNKS = [(name, cs) for name, case in STREAM_CASES.items() for cs in case[2]]
@@ -137,19 +137,19 @@ def test_emit_block_at_odd_parity_matches_naf_tpu(fastq):
                 r_cap=_bucket(int(n_rec.max()) + 1), m_cap=_bucket(max(int(n_runs.max()), 2)),
                 q_cap=_bucket(max(int(qual_bytes.max()), 1)) if fastq else 16)
     odd = jax.device_put(jnp.asarray(np.ones(1, bool)), sh)
-    em_r = [np.asarray(o) for o in RB.emit_blocks_sharded(*args, odd, seq_type=0, fastq=fastq,
-                                                           mesh=mesh, **caps)]
+    em_r = em_np_fields(RB.emit_blocks_sharded(*args, odd, seq_type=0, fastq=fastq, mesh=mesh,
+                                               **caps))
     x = torch.from_numpy(blocks.data[0].copy())
     stats, masks = PB.stats_blocks_sharded([x], blocks.prev, blocks.starts_in_seq, seq_type=0,
                                            fastq=fastq, parity_base=1)
     em = PB.emit_blocks_sharded([x], masks, stats, seq_type=0, fastq=fastq, pack_nibbles=True)
     cnt = stats[0]["count"]
     assert cnt == int(counts[0]) > 1
-    assert np.array_equal(em[0][:, :(cnt + 1) // 2], em_r[0][:, :(cnt + 1) // 2])
-    assert int(em[1][0]) == int(em_r[1][0])
+    assert np.array_equal(em.packed[:, :(cnt + 1) // 2], em_r["packed"][:, :(cnt + 1) // 2])
+    assert int(em.first_codes[0]) == int(em_r["first_codes"][0])
     even = PB.emit_blocks_sharded([x], masks, [{**stats[0], "odd": False}], seq_type=0,
                                   fastq=fastq, pack_nibbles=True)
-    assert not np.array_equal(even[0][:, :cnt // 2], em[0][:, :cnt // 2])
+    assert not np.array_equal(even.packed[:, :cnt // 2], em.packed[:, :cnt // 2])
 
 
 def test_host_stream_strip_regression():
@@ -204,7 +204,7 @@ def _boom(*a, **k):
     ("emit_blocks_sharded", b"".join(b">r%d\nACGTJJ\n" % i for i in range(40))),
 ])
 def test_device_fault_propagates(target, data, monkeypatch):
-    monkeypatch.setattr(PS, target, _boom)
+    monkeypatch.setattr(PP, target, _boom)
     eng = DeviceScanEngine("cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -216,7 +216,7 @@ def test_device_fault_propagates(target, data, monkeypatch):
 def test_fault_on_a_later_chunk_propagates(monkeypatch):
     """The first pieces succeed; the failing one is not requeued."""
     calls = {"n": 0}
-    real = PS.fused_blocks_sharded
+    real = PP.fused_blocks_sharded
 
     def flaky(*a, **k):
         calls["n"] += 1
@@ -224,7 +224,7 @@ def test_fault_on_a_later_chunk_propagates(monkeypatch):
             raise RuntimeError("injected device fault")
         return real(*a, **k)
 
-    monkeypatch.setattr(PS, "fused_blocks_sharded", flaky)
+    monkeypatch.setattr(PP, "fused_blocks_sharded", flaky)
     eng = DeviceScanEngine("cpu")
     with pytest.raises(RuntimeError, match="injected device fault"):
         stream_bytes(stream_fasta(np.random.default_rng(61), 60), chunk_size=400, engine=eng)
@@ -290,7 +290,7 @@ def test_tnaf_device_streams_on_the_engine(how, cpu_card, monkeypatch, tmp_path)
 
 @pytest.mark.parametrize("how", ["file", "pipe"])
 def test_tnaf_device_stream_fault_ends_with_an_error(how, cpu_card, monkeypatch, tmp_path):
-    monkeypatch.setattr(PS, "fused_blocks_sharded", _boom)
+    monkeypatch.setattr(PP, "fused_blocks_sharded", _boom)
     data = stream_fasta(np.random.default_rng(6), 300)
     out_path = tmp_path / "o.naf"
     if how == "file":

@@ -1062,3 +1062,39 @@ def match_tile_spans(m: int, stride: int = 1) -> list:
     t, s = MATCH_CHAIN_TILE, stride
     return [(0, m * s), ((t - 8) * s, (t + 24) * s), ((t + 100) * s, (t + 300) * s),
             ((2 * t - 1) * s + s // 2, (2 * t + 1) * s + s // 2), (m * s - 5, m * s)]
+
+
+#: naf_tpu's positional ``em_np`` list (of its fused parses and its pass 2)
+#: by the port's ``BlockRows`` field; its third element, the char counts
+#: again, has none
+EM_NP_FIELDS = ("packed", "first_codes", None, "id_vals", "com_vals", "qual_vals", "seq_lens",
+                "id_lens", "com_lens", "qual_lens", "run_lens")
+
+
+def em_np_fields(em_np) -> dict:
+    """naf_tpu's ``em_np`` list as numpy arrays by ``BlockRows`` field."""
+    return {f: np.asarray(x) for f, x in zip(EM_NP_FIELDS, em_np) if f}
+
+
+def ref_block_rows(parsed: dict):
+    """A naf_tpu fused parse (its per-block columns and its ``em_np``) as
+    the port's ``BlockRows``; FASTA has no quality bytes."""
+    from naf_tpu_torch.parallel.block import BlockRows
+
+    cols = ("counts", "id_bytes", "com_bytes", "n_rec", "n_runs", "first_lower", "longest")
+    return BlockRows(**{k: np.asarray(parsed[k]) for k in cols},
+                     qual_bytes=np.asarray(parsed.get("qual_bytes",
+                                                      np.zeros(len(parsed["counts"]), np.int64))),
+                     **em_np_fields(parsed["em_np"]))
+
+
+def assert_rows_equal(got, want) -> None:
+    """Two ``BlockRows`` hold the same values, field by field."""
+    from dataclasses import fields
+
+    for f in fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "hists":
+            assert all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b), f.name
+        else:
+            assert np.array_equal(a, b), f.name
