@@ -57,19 +57,16 @@ def check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}")
 
 
-def _compress_lib():
-    """The module compressors come from: the system libzstd (the codec the
-    reference links), else the ``zstandard`` package."""
-    if zstd_compat.system_lib() is not None:
-        return zstd_compat
-    return _decompress_lib()
-
-
 def _decompress_lib():
     return _zstandard if _zstandard is not None else zstd_compat
 
 
-def _compressor(zstd, level: int, window_log: int = 0, threads: int = 0):
+def _package_compressor(level: int, window_log: int = 0, threads: int = 0):
+    """The ``zstandard`` package's compressor, for a host without the system
+    libzstd."""
+    if _zstandard is None:
+        raise ImportError("neither the zstandard package nor a system libzstd is available")
+    zstd = _zstandard
     if window_log:
         params = zstd.ZstdCompressionParameters.from_level(
             level, window_log=window_log, enable_ldm=True, threads=threads)
@@ -80,12 +77,32 @@ def _compressor(zstd, level: int, window_log: int = 0, threads: int = 0):
     return zstd.ZstdCompressor(level=level)
 
 
+def _byte_view(data) -> tuple[memoryview, int]:
+    """``data`` as a flat C-contiguous byte view, and the bytes copied to
+    make it one (a strided buffer only)."""
+    mv = memoryview(data)
+    if not mv.c_contiguous:
+        return memoryview(mv.tobytes()), mv.nbytes
+    if mv.format != "B" or mv.ndim != 1:
+        mv = mv.cast("B")
+    return mv, 0
+
+
 class SectionCompressor:
     """Streaming single-frame compressor for one section.
 
     Feed with `write(data)` calls; `finish()` returns the magic-stripped frame.
     Mirrors the reference's per-section ZSTD_CStream usage
     (ennaf/src/compressor.c:119-147) but keeps output in RAM.
+
+    With the system libzstd, libzstd reads each write in place (any
+    contiguous buffer: bytes, bytearray, memoryview, ndarray) and writes
+    the frame straight into one ``zstd_compat.FrameBuffer``, which
+    ``finish()`` hands out as a memoryview.  ``copied`` counts the bytes
+    copied on the host outside libzstd: the pieces of a payload below one
+    _STAGE, an MT remainder staged across writes, a strided write made
+    contiguous, the buffer's growth, and the ``zstandard`` package's output
+    where that package compresses instead.
     """
 
     #: Fixed feed granularity in multithreaded mode.  zstd's MT path emits a
@@ -95,16 +112,17 @@ class SectionCompressor:
     _STAGE = 4 << 20
 
     def __init__(self, level: int = 1, window_log: int = 0, threads: int = 0):
-        self._chunks: list[bytes] = []
-        self._pending = 0           # == sum(len(c) for c in self._chunks)
-        self._uncompressed = 0
         self._level = level
         self._window_log = window_log
         self._threads = threads
-        self._obj = None            # created on the first _STAGE of input
-        self._finished = False
         self._mt = threads != 0
-        self._buf = bytearray()     # MT: sub-_STAGE staging remainder
+        self._uncompressed = 0
+        self._stream = None         # a zstd_compat.CompressStream, or
+        self._obj = None            # the package's compressobj; on the first _STAGE
+        self._out = zstd_compat.FrameBuffer()
+        self._finished = False
+        self._buf = bytearray()     # MT: sub-_STAGE remainder across writes
+        self._copied = 0
         # Payloads below one _STAGE never build a streaming context: raw
         # pieces buffer here and finish() compresses them one-shot with a
         # pledged source size (right-sized window and tables).  The cutover
@@ -116,84 +134,132 @@ class SectionCompressor:
     def uncompressed_size(self) -> int:
         return self._uncompressed
 
-    def _emit(self, out: bytes) -> None:
-        if out:
-            self._chunks.append(out)
-            self._pending += len(out)
+    @property
+    def copied(self) -> int:
+        """Bytes copied on the host outside libzstd so far."""
+        return self._copied + self._out.copied
 
     def write(self, data) -> None:
-        mv = memoryview(data)
-        if mv.nbytes == 0:
-            return
+        """Add ``data`` to the frame; the caller may reuse its buffer as
+        soon as this returns."""
+        self._write(data, False)
+
+    def _write(self, data, last: bool) -> None:
+        mv, copied = _byte_view(data)
+        self._copied += copied
         self._uncompressed += mv.nbytes
         if self._raw is not None:
             if self._raw_n + mv.nbytes < self._STAGE:
-                # small pieces are copied: callers may reuse their buffers
-                self._raw.append(bytes(mv))
-                self._raw_n += mv.nbytes
+                if mv.nbytes:
+                    # a piece that more may follow is copied: callers may
+                    # reuse their buffers
+                    self._raw.append(mv if last else bytes(mv))
+                    self._raw_n += mv.nbytes
+                    if not last:
+                        self._copied += mv.nbytes
                 return
             pieces, self._raw = self._raw, None
-            self._obj = _compressor(_compress_lib(), self._level, self._window_log,
-                                    self._threads).compressobj()
-            for p in pieces:
-                self._feed(memoryview(p))
-        self._feed(mv)
+            if zstd_compat.system_lib() is not None:
+                self._stream = zstd_compat.CompressStream(self._level, self._window_log,
+                                                          self._threads)
+            else:
+                self._obj = _package_compressor(self._level, self._window_log,
+                                                self._threads).compressobj()
+        else:
+            pieces = []
+        if self._stream is not None:
+            # room for the frame of all this write hands libzstd, so that
+            # each call drains what libzstd has ready, in place
+            n = sum(map(len, pieces)) + len(self._buf) + mv.nbytes
+            self._out.reserve(zstd_compat.compress_bound(n) + self._stream.out_size)
+        for p in pieces:
+            self._feed(memoryview(p), False)
+        self._feed(mv, last)
 
-    def _feed(self, mv: memoryview) -> None:
+    def _push(self, mv: memoryview, end: bool = False) -> None:
+        """One stage (or the frame's end) to the compressor."""
+        if self._stream is None:
+            self._out.put(self._obj.flush(_zstandard.COMPRESSOBJ_FLUSH_FINISH) if end
+                          else self._obj.compress(mv))
+            return
+        self._stream.feed(zstd_compat.address(mv), mv.nbytes, end, self._out)
+
+    def _feed(self, mv: memoryview, last: bool) -> None:
+        if not mv.nbytes:
+            return
         if not self._mt:
-            self._emit(self._obj.compress(mv))
+            self._push(mv)
             return
         stage = self._STAGE
         if self._buf:
             take = min(stage - len(self._buf), mv.nbytes)
             self._buf += mv[:take]
+            self._copied += take
             mv = mv[take:]
             if len(self._buf) == stage:
-                self._emit(self._obj.compress(self._buf))
+                self._push(memoryview(self._buf))
                 self._buf = bytearray()
         off = 0
         n = mv.nbytes
-        while n - off >= stage:                 # large writes feed zero-copy
-            self._emit(self._obj.compress(mv[off:off + stage]))
+        while n - off >= stage:                 # whole stages are read in place
+            self._push(mv[off:off + stage])
             off += stage
         if off < n:
-            self._buf += mv[off:]
+            if last:                            # nothing follows: in place too
+                self._push(mv[off:])
+            else:
+                self._buf += mv[off:]
+                self._copied += n - off
 
-    def _finish_oneshot(self) -> bytes:
+    def _finish_oneshot(self) -> None:
         """Whole payload buffered: one-shot frame with pledged source size."""
-        payload = b"".join(self._raw)
-        self._raw = None
+        pieces, self._raw = self._raw, None
+        payload = pieces[0] if len(pieces) == 1 else b"".join(pieces)
+        if len(pieces) > 1:
+            self._copied += len(payload)
         if self._window_log:
             # honor --long but never size tables beyond the payload
             wl = min(self._window_log,
                      max(WINDOWLOG_MIN, max(len(payload), 1).bit_length()))
         else:
             wl = 0
-        return _compressor(_compress_lib(), self._level, wl).compress(payload)
+        if zstd_compat.system_lib() is None:
+            self._out.put(_package_compressor(self._level, wl).compress(payload))
+            return
+        # fed, then ended, as naf_tpu/codec/syszstd.py:compress_oneshot does
+        s = zstd_compat.CompressStream(self._level, wl, size=len(payload))
+        self._out.reserve(zstd_compat.compress_bound(len(payload)) + s.out_size)
+        s.feed(zstd_compat.address(memoryview(payload)), len(payload), False, self._out)
+        s.feed(zstd_compat.address(memoryview(b"")), 0, True, self._out)
 
-    def finish(self) -> bytes:
-        """End the frame and return payload with the 4-byte magic stripped."""
+    def _close(self, data) -> None:
+        """Add the last piece and end the frame."""
         assert not self._finished
         self._finished = True
+        self._write(data, True)
         if self._raw is not None:
-            frame = self._finish_oneshot()
-        else:
-            if self._buf:
-                self._emit(self._obj.compress(self._buf))
-                self._buf = bytearray()
-            self._emit(self._obj.flush(_compress_lib().COMPRESSOBJ_FLUSH_FINISH))
-            frame = b"".join(self._chunks)
-            self._chunks = []
-            self._pending = 0
+            self._finish_oneshot()
+            return
+        if self._buf:                           # the MT staging remainder
+            self._push(memoryview(self._buf))
+            self._buf = bytearray()
+        self._push(memoryview(b""), end=True)
+
+    def finish(self, data=b"") -> memoryview:
+        """Add ``data``, the frame's last piece, end the frame and return
+        the payload with the 4-byte magic stripped: a view of the frame
+        buffer, without a copy.  The last piece is read in place, never
+        staged, so a payload given whole here is copied nowhere."""
+        self._close(data)
+        frame = self._out.close()
         if len(frame) < 4 or frame[:4] != ZSTD_FRAME_MAGIC:
             raise RuntimeError("compression failed")
         return frame[4:]
 
 
-def compress_section(data, level: int = 1, window_log: int = 0, threads: int = 0) -> bytes:
-    c = SectionCompressor(level=level, window_log=window_log, threads=threads)
-    c.write(data)
-    return c.finish()
+def compress_section(data, level: int = 1, window_log: int = 0,
+                     threads: int = 0) -> memoryview:
+    return SectionCompressor(level=level, window_log=window_log, threads=threads).finish(data)
 
 
 _DECODE_ENGINE = "zstd"
@@ -664,39 +730,27 @@ class SpillingSectionCompressor(SectionCompressor):
         self._threshold = threshold
         self._keep = keep
         self._file = None
-        self._spilled = 0
-
-    def _flush_chunks(self) -> None:
-        for c in self._chunks:
-            self._file.write(c)
-            self._spilled += len(c)
-        self._chunks = []
-        self._pending = 0
 
     def write(self, data) -> None:
         super().write(data)
         if self._file is None:
             # the file opens with the first compressed bytes past the
             # threshold, so a section that never spills leaves none behind
-            if not self._pending or self._pending < self._threshold:
+            if not self._out.pos or self._out.pos < self._threshold:
                 return
             self._file = open(self._path, "wb")
-        self._flush_chunks()
+        self._file.write(self._out.take())
 
-    def finish(self):
-        """bytes when everything stayed in RAM, else a SpilledPayload."""
+    def finish(self, data=b""):
+        """A memoryview when everything stayed in RAM, else a SpilledPayload."""
+        self.write(data)
         if self._raw is not None or self._file is None:  # never spilled
             return super().finish()
-        assert not self._finished
-        self._finished = True
-        if self._buf:                       # drain MT staging remainder
-            self._emit(self._obj.compress(self._buf))
-            self._buf = bytearray()
-        self._emit(self._obj.flush(_compress_lib().COMPRESSOBJ_FLUSH_FINISH))
-        self._flush_chunks()
+        self._close(b"")
+        self._file.write(self._out.take())
         self._file.close()
         self._file = None
         with open(self._path, "rb") as f:
             if f.read(4) != ZSTD_FRAME_MAGIC:
                 raise RuntimeError("compression failed")
-        return SpilledPayload(self._path, self._spilled - 4, self._keep)
+        return SpilledPayload(self._path, self._out.taken - 4, self._keep)

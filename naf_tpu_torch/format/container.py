@@ -81,12 +81,13 @@ class NafHeader:
 class Section:
     """One compressed section: zstd frame bytes *minus* the 4-byte magic.
 
-    `payload` is bytes, or a spill handle exposing `__len__` and
+    `payload` is bytes or a byte buffer (a memoryview of a section
+    compressor's frame), or a spill handle exposing `__len__` and
     `copy_into(out)` (codec.SpilledPayload) for a section written to a temp
     file (ennaf/src/compressor.c:51-61, 150-173).
     """
     uncompressed_size: int
-    payload: object  # bytes | SpilledPayload
+    payload: object  # bytes | memoryview | SpilledPayload
 
     @property
     def compressed_size(self) -> int:
@@ -146,16 +147,17 @@ class _PartsWriter:
     """Write-API shim that collects parts for a single-copy b"".join.
 
     BytesIO grows by realloc-and-copy, which on multi-MB archives moves each
-    byte several times; joining once moves it exactly once.
+    byte several times; joining once moves it exactly once.  Parts are kept
+    as given, buffers included (a section compressor's frame view).
     """
 
     __slots__ = ("parts",)
 
     def __init__(self):
-        self.parts: List[bytes] = []
+        self.parts: list = []
 
     def write(self, b) -> int:
-        self.parts.append(bytes(b) if isinstance(b, memoryview) else b)
+        self.parts.append(b)
         return len(b)
 
     def getvalue(self) -> bytes:

@@ -156,18 +156,24 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
     # thread pool; zstandard releases the GIL) ------------------------------
     level, threads = opts.level, opts.threads
 
-    def compress_bytes(buf, window_log: int = 0) -> Section:
+    def library_section(buf, window_log: int = 0):
+        """One frame through the library engine, read in place; the zstd
+        span notes the bytes it copied on the host outside libzstd."""
+        sc = SectionCompressor(level=level, window_log=window_log, threads=threads)
+        payload = sc.finish(buf)
+        note(copied=sc.copied)
+        return payload
+
+    def compress_bytes(buf) -> Section:
+        mv = memoryview(buf)
         if opts.engine in ("native", "device"):
             # the device engine takes the SEQ and QUAL payloads; the small
             # metadata sections go through the native serializer
-            mv = memoryview(buf)
             return Section(uncompressed_size=mv.nbytes,
                            payload=compress_section_native(mv, level=level))
-        sc = SectionCompressor(level=level, window_log=window_log, threads=threads)
-        sc.write(buf)
-        return Section(uncompressed_size=sc.uncompressed_size, payload=sc.finish())
+        return Section(uncompressed_size=mv.nbytes, payload=library_section(mv))
 
-    def seq_payload(buf: bytes) -> bytes:
+    def seq_payload(buf):
         if opts.extended:
             return compress_section_blocked(
                 buf, level=level, window_log=opts.long_window_log,
@@ -188,20 +194,17 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
                                               window_log=opts.long_window_log,
                                               threads=threads)
             return compress_section_native(buf, level=level, window_log=opts.long_window_log)
-        sc = SectionCompressor(level=level, window_log=opts.long_window_log,
-                               threads=threads)
-        sc.write(buf)
-        return sc.finish()
+        return library_section(buf, opts.long_window_log)
 
     jobs: dict[str, "object"] = {}
     jobs["ids"] = lambda: compress_bytes(res.ids_blob)
     jobs["comments"] = lambda: compress_bytes(res.comments_blob)
-    jobs["lengths"] = lambda: compress_bytes(split_lengths(res.lengths).tobytes())
+    jobs["lengths"] = lambda: compress_bytes(split_lengths(res.lengths))
 
     if store_mask:
         units = (res.mask_units if res.mask_units is not None
                  else mask_units_from_bytes(res.seq))
-        jobs["mask"] = lambda: compress_bytes(units.tobytes())
+        jobs["mask"] = lambda: compress_bytes(units)
 
     # the bytes each job hands to zstd, where they are not the section's
     # uncompressed size (the packed sequence)
@@ -212,7 +215,7 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
             seq_bytes = C.TOUPPER[seq_bytes]
         jobs["sequence"] = lambda: Section(
             uncompressed_size=res.seq.size,
-            payload=seq_payload(seq_bytes.tobytes()))
+            payload=seq_payload(seq_bytes))
     else:
         if res.packed is not None:
             packed = res.packed          # fused native scan already packed
@@ -223,22 +226,22 @@ def build_archive(res: "P.ParseResult", opts: EncodeOptions,
         zstd_in["sequence"] = packed.nbytes
         jobs["sequence"] = lambda: Section(
             uncompressed_size=int(res.seq.size),
-            payload=seq_payload(packed.tobytes()))
+            payload=seq_payload(packed))
 
     if store_qual:
         if opts.extended:
             jobs["quality"] = lambda: Section(
                 uncompressed_size=int(res.qual.size),
                 payload=compress_section_blocked(
-                    res.qual.tobytes(), level=level, threads=threads,
+                    res.qual, level=level, threads=threads,
                     block_bytes=opts.block_bytes, engine=opts.engine, device=device))
         elif opts.engine == "device":
             jobs["quality"] = lambda: Section(
                 uncompressed_size=int(res.qual.size),
-                payload=compress_section_device(res.qual.tobytes(), level=level,
+                payload=compress_section_device(res.qual, level=level,
                                                 device=device))
         else:
-            jobs["quality"] = lambda: compress_bytes(res.qual.tobytes())
+            jobs["quality"] = lambda: compress_bytes(res.qual)
 
     if prebuilt:
         for name, sec in prebuilt.items():
